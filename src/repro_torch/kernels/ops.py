@@ -1,0 +1,161 @@
+"""Public wrappers of the two hand-written consensus kernels.
+
+Each wrapper checks dtypes and shapes (the guards of the JAX package's
+``kernels/ops.py``), then dispatches BY DEVICE: a tensor on the CPU goes
+to the plain version in :mod:`repro_torch.kernels.ref`; a CUDA tensor
+launches the CUDA kernel or raises. There is no fallback.
+
+Each wrapper counts its launches in a plain integer attribute
+(``consensus_update_pop.launches``), raised by one exactly where the
+kernel is launched, so a run can show that its main path went through
+the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+_ALLOWED = (torch.float32, torch.bfloat16)
+#: qblock the kernel sees for per-tensor scales: larger than any N, so
+#: every element reads scale 0, and a multiple of 16 (vector path)
+_PER_TENSOR_QBLOCK = 1 << 62
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def _lib(name: str, fns):
+    lib = build.library(name)
+    for fn, argtypes in fns:
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes, f.restype = argtypes, ctypes.c_int
+    return lib
+
+
+def _check_lanes(x, idx, sig):
+    if x.ndim != 2 or idx.ndim != 2 or idx.shape[0] != x.shape[0] \
+            or tuple(sig.shape) != tuple(idx.shape) or idx.shape[1] < 1:
+        raise ValueError(
+            f"bad shapes x {tuple(x.shape)} idx {tuple(idx.shape)} sig "
+            f"{tuple(sig.shape)}: want x (K, N), idx and sig (K, H), H >= 1")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx must be int32/int64, got {idx.dtype}")
+    for name, t in (("idx", idx), ("sig", sig)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    # on the card the kernels check the same bound themselves (a bad index
+    # traps the launch before its gather), so no host sync is needed there
+    K = x.shape[0]
+    if x.device.type == "cpu" and not bool(((idx >= 0) & (idx < K)).all()):
+        raise ValueError(f"neighbour indices must lie in [0, {K}), got "
+                         f"[{int(idx.min())}, {int(idx.max())}]")
+
+
+def _cuda_args(x, idx, sig):
+    """Contiguous int32/f32 lane tables and the launch limits."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}: pass CPU "
+                         "tensors (plain version) or CUDA tensors")
+    K, H = idx.shape
+    if H > 6144 or K > 65535:
+        raise ValueError(f"K={K} (max 65535) or H={H} (max 6144) exceeds "
+                         "the kernel's grid and shared-memory lane table")
+    return (idx.to(torch.int32).contiguous(),
+            sig.to(torch.float32).contiguous())
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def consensus_update_pop(x, idx, sig):
+    """Fused Eq.-(6) update of a whole population, one leaf:
+    out[k] = x[k] + Σ_h sig[k, h] (x[idx[k, h]] − x[k]).
+
+    x (K, N) f32 or bf16; idx (K, H) neighbour indices in [0, K) (padding
+    lanes index the agent itself with sig = 0); sig (K, H) f32 → (K, N) in
+    x's dtype, f32 accumulation in fixed h order."""
+    if x.dtype not in _ALLOWED:
+        raise TypeError(f"unsupported dtype {x.dtype}; use f32/bf16")
+    _check_lanes(x, idx, sig)
+    if x.device.type == "cpu":
+        return ref.consensus_update_pop_reference(x, idx, sig)
+    idx32, sig32 = _cuda_args(x, idx, sig)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    K, N = x.shape
+    if K == 0 or N == 0:
+        return out
+    bf16 = x.dtype == torch.bfloat16
+    fn_name = "consensus_update_pop_bf16" if bf16 else "consensus_update_pop_f32"
+    lib = _lib("consensus_update", [
+        (n, [_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _VP])
+        for n in ("consensus_update_pop_f32", "consensus_update_pop_bf16")])
+    vec_ok = int(N % (8 if bf16 else 4) == 0 and _aligned(x, out))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, fn_name)(x.data_ptr(), idx32.data_ptr(),
+                                    sig32.data_ptr(), out.data_ptr(), K, N,
+                                    idx32.shape[1], vec_ok, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    consensus_update_pop.launches += 1
+    return out
+
+
+consensus_update_pop.launches = 0
+
+
+def quant_consensus_pop(x, q, s, idx, sig, qblock: Optional[int] = None):
+    """Fused int-wire dequantize + Eq.-(6) update of a whole population,
+    recentred on each agent's own decoded copy:
+    out[k] = x[k] + Σ_h sig[k, h] (x̂[idx[k, h]] − x̂[k]), x̂ = s·q.
+
+    x (K, N) f32; q (K, N) int8 lanes (int8 or int4 values); s (K,) one
+    scale per model, or (K, ⌈N/qblock⌉) block scales with ``qblock``
+    (the ``"int8:b64"`` wire); idx, sig (K, H) → (K, N) f32."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"x must be float32, got {x.dtype}")
+    if q.dtype != torch.int8:
+        raise TypeError(f"wire lanes must be int8, got {q.dtype}")
+    _check_lanes(x, idx, sig)
+    K, N = x.shape
+    if tuple(q.shape) != (K, N):
+        raise ValueError(f"q {tuple(q.shape)} does not match x {(K, N)}")
+    want = (K,) if qblock is None else (K, -(-N // int(qblock)))
+    if tuple(s.shape) != want:
+        raise ValueError(f"qblock={qblock} wants scales of shape {want}, "
+                         f"got {tuple(s.shape)}")
+    for name, t in (("q", q), ("s", s)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.device.type == "cpu":
+        return ref.quant_consensus_pop_reference(x, q, s, idx, sig, qblock)
+    idx32, sig32 = _cuda_args(x, idx, sig)
+    x, q = x.contiguous(), q.contiguous()
+    s = s.to(torch.float32).contiguous()
+    out = torch.empty_like(x)
+    if K == 0 or N == 0:
+        return out
+    qb = _PER_TENSOR_QBLOCK if qblock is None else int(qblock)
+    s_stride = 1 if qblock is None else s.shape[1]
+    lib = _lib("quant_consensus", [
+        ("quant_consensus_pop",
+         [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _I, _LL, _LL, _I, _VP])])
+    vec_ok = int(N % 16 == 0 and qb % 16 == 0 and _aligned(x, q, out))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.quant_consensus_pop(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), idx32.data_ptr(),
+            sig32.data_ptr(), out.data_ptr(), K, N, idx32.shape[1], qb,
+            s_stride, vec_ok, stream)
+    if err != 0:
+        raise RuntimeError(f"quant_consensus_pop launch failed: CUDA error {err}")
+    quant_consensus_pop.launches += 1
+    return out
+
+
+quant_consensus_pop.launches = 0

@@ -1,0 +1,224 @@
+"""The port's two consensus kernels against the JAX package's Pallas
+kernels: the port's plain versions (what its wrappers run on CPU tensors)
+against ``repro.kernels.ops.*(impl="interpret")`` and the JAX oracles in
+``repro.kernels.ref``, called once per agent on the gathered neighbour
+block, at small shapes made with numpy from a seed. The CUDA kernels
+themselves are held to the plain versions on the card, by the tests
+marked ``gpu`` below and by ``chip_smoke.py``."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+# f32: the JAX oracle sums the h terms with an einsum, the port's plain
+# version in fixed h order, one rounded op at a time — a few ulps apart.
+F32_TOL = dict(rtol=1e-6, atol=1e-6)
+# bf16: the output is rounded to bf16 on both sides (tests/test_kernels.py)
+BF16_TOL = dict(rtol=6e-2, atol=6e-2)
+K = 6
+
+
+def _lanes(rng, H):
+    """(K, H) neighbour indices and σ; with H > 1 the last lane of every
+    other agent is a padding lane (own index, σ = 0)."""
+    idx = np.zeros((K, H), np.int32)
+    sig = np.zeros((K, H), np.float32)
+    for k in range(K):
+        others = rng.permutation([j for j in range(K) if j != k])[:H]
+        idx[k] = others
+        sig[k] = rng.uniform(0.05, 0.3, H)
+        if H > 1 and k % 2:
+            idx[k, -1], sig[k, -1] = k, 0.0
+    return idx, sig
+
+
+@pytest.fixture
+def jax_kernels():
+    """The JAX package's kernel wrappers and oracles, imported here so the
+    card-only tests below run where JAX is not installed."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+    return jnp, jops, jref
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,N", [(1, 1000), (2, 1000), (4, 4099)])
+def test_consensus_update_pop_matches_pallas(H, N, dtype, jax_kernels):
+    jnp, jops, jref = jax_kernels
+    rng = np.random.default_rng(H * 7 + N)
+    x = rng.standard_normal((K, N)).astype(np.float32)
+    idx, sig = _lanes(rng, H)
+    if dtype == "bfloat16":
+        xj = jnp.asarray(x).astype(jnp.bfloat16)
+        xt = torch.from_numpy(x).to(torch.bfloat16)
+        tol = BF16_TOL
+    else:
+        xj, xt, tol = jnp.asarray(x), torch.from_numpy(x), F32_TOL
+    got = ops.consensus_update_pop(xt, torch.from_numpy(idx),
+                                   torch.from_numpy(sig))
+    assert got.dtype == xt.dtype and got.shape == (K, N)
+    got = got.to(torch.float32).numpy()
+    for k in range(K):
+        nb = xj[idx[k]]
+        want = jops.consensus_update(xj[k], nb, jnp.asarray(sig[k]),
+                                     impl="interpret", block_n=256)
+        oracle = jref.consensus_update_reference(xj[k], nb,
+                                                 jnp.asarray(sig[k]))
+        for w in (want, oracle):
+            np.testing.assert_allclose(got[k], np.asarray(w, np.float32),
+                                       **tol, err_msg=f"agent {k}")
+
+
+@pytest.mark.parametrize("qblock", [None, 64])
+@pytest.mark.parametrize("qmax", [127, 7])
+@pytest.mark.parametrize("H,N", [(1, 1000), (2, 1000), (4, 4099)])
+def test_quant_consensus_pop_matches_pallas(H, N, qmax, qblock,
+                                            jax_kernels):
+    jnp, jops, jref = jax_kernels
+    rng = np.random.default_rng(H * 11 + N + qmax)
+    x = rng.standard_normal((K, N)).astype(np.float32)
+    q = rng.integers(-qmax, qmax + 1, (K, N)).astype(np.int8)
+    ns = 1 if qblock is None else -(-N // qblock)
+    s = rng.uniform(0.001, 0.02, (K, ns)).astype(np.float32)
+    if qblock is None:
+        s = s[:, 0]
+    idx, sig = _lanes(rng, H)
+    got = ops.quant_consensus_pop(
+        torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s),
+        torch.from_numpy(idx), torch.from_numpy(sig), qblock=qblock).numpy()
+    kw = {} if qblock is None else {"qblock": qblock}
+    for k in range(K):
+        args = (jnp.asarray(x[k]), jnp.asarray(q[k]), jnp.asarray(s[k]),
+                jnp.asarray(q[idx[k]]), jnp.asarray(s[idx[k]]),
+                jnp.asarray(sig[k]))
+        want = jops.quant_consensus_update(*args, impl="interpret",
+                                           block_n=256, **kw)
+        oracle = jref.quant_consensus_update_reference(*args, qblock=qblock)
+        for w in (want, oracle):
+            np.testing.assert_allclose(got[k], np.asarray(w), **F32_TOL,
+                                       err_msg=f"agent {k}")
+
+
+def test_zero_sigma_lanes_are_exact_noops():
+    """Padding lanes (own index, σ = 0) change nothing, bit for bit."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((K, 333)).astype(np.float32))
+    idx, sig = _lanes(rng, 2)
+    idx[:, 1], sig[:, 1] = np.arange(K), 0.0
+    one = ops.consensus_update_pop(x, torch.from_numpy(idx[:, :1]),
+                                   torch.from_numpy(sig[:, :1]))
+    two = ops.consensus_update_pop(x, torch.from_numpy(idx),
+                                   torch.from_numpy(sig))
+    assert torch.equal(one, two)
+    q = torch.from_numpy(rng.integers(-127, 128, (K, 333)).astype(np.int8))
+    s = torch.full((K,), 0.01)
+    one = ops.quant_consensus_pop(x, q, s, torch.from_numpy(idx[:, :1]),
+                                  torch.from_numpy(sig[:, :1]))
+    two = ops.quant_consensus_pop(x, q, s, torch.from_numpy(idx),
+                                  torch.from_numpy(sig))
+    assert torch.equal(one, two)
+    # all-zero σ returns x itself
+    zero = ops.consensus_update_pop(x, torch.from_numpy(idx),
+                                    torch.zeros(K, 2))
+    assert torch.equal(zero, x)
+
+
+def test_wrapper_guards_and_no_fallback():
+    x = torch.zeros(4, 8)
+    idx = torch.zeros(4, 1, dtype=torch.int32)
+    sig = torch.ones(4, 1)
+    with pytest.raises(TypeError):
+        ops.consensus_update_pop(x.to(torch.int32), idx, sig)
+    with pytest.raises(ValueError):
+        ops.consensus_update_pop(x, idx, torch.ones(4, 2))
+    with pytest.raises(TypeError):
+        ops.quant_consensus_pop(x, torch.zeros(4, 8, dtype=torch.int16),
+                                torch.ones(4), idx, sig)
+    with pytest.raises(ValueError):      # block scales need ceil(8/4) each
+        ops.quant_consensus_pop(x, torch.zeros(4, 8, dtype=torch.int8),
+                                torch.ones(4, 3), idx, sig, qblock=4)
+    # neighbour indices outside [0, K) would read past the stack
+    for bad in (4, -1):
+        with pytest.raises(ValueError, match=r"\[0, 4\)"):
+            ops.consensus_update_pop(x, torch.full_like(idx, bad), sig)
+        with pytest.raises(ValueError, match=r"\[0, 4\)"):
+            ops.quant_consensus_pop(x, torch.zeros(4, 8, dtype=torch.int8),
+                                    torch.ones(4), torch.full_like(idx, bad),
+                                    sig)
+    # a tensor on a device with no kernel raises instead of falling back
+    # to the plain version
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.consensus_update_pop(x.to("meta"), idx.to("meta"),
+                                 sig.to("meta"))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,N", [(1, 1000), (4, 4099), (2, 262144)])
+def test_cuda_consensus_kernel_matches_plain(cuda, H, N, dtype):
+    rng = np.random.default_rng(N)
+    x = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    idx, sig = (torch.from_numpy(a).to(cuda) for a in _lanes(rng, H))
+    got = ops.consensus_update_pop(x, idx, sig)
+    torch.cuda.synchronize()
+    want = ref.consensus_update_pop_reference(x, idx, sig)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("call", [
+    "ops.consensus_update_pop(x, idx, sig)",
+    "ops.quant_consensus_pop(x, x.to(torch.int8), x[:, 0] + 1, idx, sig)"])
+def test_cuda_kernels_trap_on_out_of_range_index(cuda, call):
+    """An index outside [0, K) aborts the launch instead of reading past
+    the stack. Run in a child process: the trap leaves that process's CUDA
+    context unusable."""
+    code = textwrap.dedent(f"""
+        import torch
+        from repro_torch.kernels import ops
+        x = torch.zeros(4, 64, device="cuda")
+        idx = torch.full((4, 1), 4, dtype=torch.int32, device="cuda")
+        sig = torch.ones(4, 1, device="cuda")
+        {call}
+        torch.cuda.synchronize()
+        print("NO TRAP")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parents[1]
+                                          / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, env=env)
+    assert r.returncode != 0 and "NO TRAP" not in r.stdout, r.stdout + r.stderr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qblock", [None, 64])
+@pytest.mark.parametrize("H,N", [(1, 1000), (4, 4099), (2, 262144)])
+def test_cuda_quant_kernel_matches_plain(cuda, H, N, qblock):
+    rng = np.random.default_rng(N + 1)
+    x = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    q = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    ns = (K,) if qblock is None else (K, -(-N // qblock))
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, ns).astype(np.float32))
+    idx, sig = (torch.from_numpy(a) for a in _lanes(rng, H))
+    args = [t.to(cuda) for t in (x, q, s, idx, sig)]
+    got = ops.quant_consensus_pop(*args, qblock=qblock)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.quant_consensus_pop_reference(*args, qblock))
