@@ -20,13 +20,29 @@ Phases (any failure exits non-zero; nothing is caught):
                 leaf per FL round, and the other kernel never.
 6. profile    — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
+7. lm_kernels — the RG-LRU scan and flash-attention kernels against their
+                plain versions at recurrentgemma-9b's serving shapes (bf16
+                attention at scores of std 1 and of std 20, which the
+                softcap bends; and a ragged f32 case), then kernel,
+                plain-version and library (SDPA at softcap 0) times and each
+                bound. Every time is the median of 20 calls.
+8. serve      — ``repro_torch.launch.serve`` on full-width, full-depth
+                recurrentgemma-9b (random weights): 4 prompts of 4096
+                tokens, 32 greedy tokens; each prefill must launch the scan
+                26 and the attention kernel 12 times, decode neither. Then
+                a profile of one prefill and 4 decode steps (host wall,
+                kernels, device busy share, B3/B4's share of the prefill);
+                prefill + 1 decode step against the full forward at full
+                width and one pattern period (3 layers).
 
 The line before the last is the kernels JSON; the last is the ``ok`` line.
 
 Run:  python3 chip_smoke.py
 """
+import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -36,38 +52,73 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 dense tensor cores
 F32_TOL = 1e-6                  # kernel vs plain: same ops, same order
 BF16_TOL = 0.0                  # ... and the same final rounding
 K_POP = 256
 DEVICE = "cuda"
+#: the port's kernel wrappers (``repro_torch.kernels.ops``), in table order
+KERNELS = ("quant_consensus_pop", "consensus_update_pop", "rglru_scan",
+           "flash_attention")
+ARCH = "recurrentgemma-9b"
+SERVE = dict(batch=4, prompt_len=4096, gen=32)
+B3_TOL = 1e-6                   # max |kernel - plain| / max(1, |plain|)
+B4_F32_TOL = 2e-3               # abs + rel (the JAX package's own gate)
+# bf16: the plain version rounds each probability to bf16 (relative error
+# <= 2^-9) before P·V, the kernel keeps them in f32, and both round the
+# output to bf16 (<= 1 ulp apart, ulp <= 2^-7 |x|). So
+#   |kernel - plain| <= 2^-7 |plain| + 2^-9 Σ_t p_t |v_t|,
+# gated with twice the second term and 1e-5 for f32 summation order
+B4_BF16_REL, B4_BF16_PV, B4_BF16_ABS = 2.0 ** -7, 2.0 ** -8, 1e-5
+DECODE_TOL = 6e-2               # decode vs full forward (test_arch_smoke)
+
+
+T_START = time.perf_counter()
 
 
 def phase(name):
-    print(f"\n== {name} ==", flush=True)
+    """Print a phase header with the seconds since the script started."""
+    print(f"\n== {name} == (t = {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of one call, by CUDA events over ``iters`` calls."""
+def median_ms(fn, iters=20, warmup=2):
+    """Median device time of one call, by CUDA events around each call.
+    The events are recorded back to back with one synchronize at the end,
+    so the card does not sit idle between a start event and its call
+    while the host launches it."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     """(least time in ms, what bounds it) for the given bytes and flops."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def launch_counts():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import ops
+    return {n: getattr(ops, n).launches for n in KERNELS}
+
+
+def zero_counts():
+    from repro_torch.kernels import ops
+    for n in KERNELS:
+        getattr(ops, n).launches = 0
 
 
 def stacked_params(cfg, K, generator):
@@ -149,17 +200,18 @@ def time_kernels(pops, errs):
         # bytes: x read and out written (4 + 4 per element), lane tables;
         # flops: sub, mul, add per neighbour per element, then x + acc
         b2 = bound(8 * K * N + 8 * K * H, 3 * K * N * H + K * N)
-        t_b2 = (time_ms(lambda: ops.consensus_update_pop(xf, idx, sig)),
-                time_ms(lambda: ref.consensus_update_pop_reference(xf, idx, sig)),
-                time_ms(lambda: M @ xf))
+        t_b2 = (median_ms(lambda: ops.consensus_update_pop(xf, idx, sig)),
+                median_ms(lambda: ref.consensus_update_pop_reference(
+                    xf, idx, sig)),
+                median_ms(lambda: M @ xf))
         c = codecs.get_codec("int8")
         enc = c.encode_leaf(xf)
         q, s = enc["q"], enc["scale"]
         # bytes: x, out (4 + 4), int8 lanes (1) per element, scales, lanes;
         # flops: dequant, sub, mul, add per neighbour, own dequant, x + acc
         b1 = bound(9 * K * N + 4 * K + 8 * K * H, 4 * K * N * H + 2 * K * N)
-        t_b1 = (time_ms(lambda: ops.quant_consensus_pop(xf, q, s, idx, sig)),
-                time_ms(lambda: ref.quant_consensus_pop_reference(
+        t_b1 = (median_ms(lambda: ops.quant_consensus_pop(xf, q, s, idx, sig)),
+                median_ms(lambda: ref.quant_consensus_pop_reference(
                     xf, q, s, idx, sig)))
         print(f"fc1.w K={K} H={H} N={N}: consensus_update_pop kernel_ms="
               f"{t_b2[0]} plain_ms={t_b2[1]} library_ms(matmul)={t_b2[2]} "
@@ -222,7 +274,6 @@ def run_casestudy():
     fused int-wire kernel, no codec only the f32 kernel, each once per leaf
     per FL round computed (whole chunks, frozen tail included)."""
     from repro_torch.core import energy
-    from repro_torch.kernels import ops
     from repro_torch.rl.casestudy import CaseStudy
 
     t0, max_rounds = 4, 8
@@ -235,14 +286,12 @@ def run_casestudy():
             fail(f"case study engine resolved to {cs.engine.plan.kind!r}")
         leaves = len(cs.init_params(torch.Generator(device=DEVICE)))
         gen = torch.Generator(device=DEVICE).manual_seed(0)
-        ops.consensus_update_pop.launches = 0
-        ops.quant_consensus_pop.launches = 0
+        zero_counts()
         t = time.perf_counter()
         res = cs.run(gen, t0, max_rounds=max_rounds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        got = {"consensus_update_pop": ops.consensus_update_pop.launches,
-               "quant_consensus_pop": ops.quant_consensus_pop.launches}
+        got = launch_counts()
         s = res.summary()
         if len(res.meta_history) != t0 or not all(
                 v == v and abs(v) < float("inf") for v in res.meta_history):
@@ -270,13 +319,31 @@ def run_casestudy():
     return by_path
 
 
+def trace_kernels(prof, name):
+    """Export ``prof``'s trace to ``build/profile/<name>.json`` beside the
+    kernels; return its path and its device-kernel events."""
+    from repro_torch.kernels import build
+    out = build.BUILD_ROOT.parent / "profile" / f"{name}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out))
+    events = json.loads(out.read_text())["traceEvents"]
+    return out, [e for e in events if e.get("cat") == "kernel"]
+
+
+def top_kernels(kernels, per, n=6):
+    by_name = {}
+    for e in kernels:
+        by_name[e["name"]] = by_name.get(e["name"], 0) + e.get("dur", 0)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:n]:
+        print(f"  {us / per / 1e3:.4f} ms  {name[:90]}", flush=True)
+
+
 def profile_round(rounds=3):
     """Where one case-study FL round spends its time (int8 wire, sparse
     plan): host wall per round without the profiler, then device kernel
     time per round from a ``torch.profiler`` trace of the same rounds.
     The trace goes to ``build/profile/`` beside the kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import build
     from repro_torch.rl.casestudy import CaseStudy
 
     cs = CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
@@ -300,11 +367,7 @@ def profile_round(rounds=3):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    out = build.BUILD_ROOT.parent / "profile" / "casestudy_fl_round.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out))
-    events = json.loads(out.read_text())["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out, kernels = trace_kernels(prof, "casestudy_fl_round")
     busy_ms = sum(e.get("dur", 0) for e in kernels) / rounds / 1e3
     cons_ms = sum(e.get("dur", 0) for e in kernels
                   if "consensus_pop_kernel" in e.get("name", "")
@@ -317,11 +380,279 @@ def profile_round(rounds=3):
         print("profiler trace holds no device kernels: device time "
               "not measured", flush=True)
         return
-    by_name = {}
-    for e in kernels:
-        by_name[e["name"]] = by_name.get(e["name"], 0) + e.get("dur", 0)
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"  {us / rounds / 1e3:.4f} ms/round  {name[:90]}", flush=True)
+    top_kernels(kernels, rounds)
+
+
+def visible_pairs(S, T, causal, window):
+    """(query, key) pairs the masks leave visible, positions from 0."""
+    q = torch.arange(S, dtype=torch.int64)
+    hi = torch.minimum(q, torch.tensor(T - 1)) if causal else \
+        torch.full_like(q, T - 1)
+    lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def check_lm_kernels(cfg, generator):
+    """B3 and B4 against their plain versions on the card at the serving
+    shapes, then their times and bounds there."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    Bs, S = SERVE["batch"], SERVE["prompt_len"]
+    W, H, K, hd = (cfg.rglru.lru_width, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.head_dim_)
+    window, softcap = cfg.sliding_window, cfg.logit_softcap
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=generator, device=DEVICE).to(dtype)
+
+    # B3 at the prefill's shape: f32 (B, T, W), decays like the model's
+    log_a = -8.0 * F.softplus(randn(W) - 6.0) * torch.sigmoid(randn(Bs, S, W))
+    b = randn(Bs, S, W)
+    h0 = randn(Bs, W)
+    h, hl = ops.rglru_scan(log_a, b, h0)
+    wh, whl = ref.rglru_scan_reference(log_a, b, h0)
+    torch.cuda.synchronize()
+    b3_abs = max(float((h - wh).abs().max()), float((hl - whl).abs().max()))
+    b3_rel = max(float(((h - wh).abs() / wh.abs().clamp(min=1)).max()),
+                 float(((hl - whl).abs() / whl.abs().clamp(min=1)).max()))
+    print(f"rglru_scan ({Bs}, {S}, {W}) f32 with h0: max |kernel - plain| = "
+          f"{b3_abs}, max |d|/max(1,|plain|) = {b3_rel} (gate {B3_TOL})",
+          flush=True)
+    if not torch.isfinite(h).all() or b3_rel > B3_TOL:
+        fail(f"rglru_scan: {b3_rel} > {B3_TOL}")
+
+    # B4 at the serving shape (B = 1 for the plain version's O(S·T)
+    # scores) in bf16: randn q gives scores of std 1, q x 20 scores of std
+    # 20 that the softcap bends; and a ragged f32 case
+    b4_err = 0.0
+    for dtype, qscale, (B, Sq, Hq, Kq, d, win, cap) in (
+            (torch.bfloat16, 1.0, (1, S, H, K, hd, window, softcap)),
+            (torch.bfloat16, 20.0, (1, S, H, K, hd, window, softcap)),
+            (torch.float32, 1.0, (1, 1000, 8, 2, 120, 0, 0.0))):
+        q, k, v = (randn(B, Sq, n, d, dtype=dtype) for n in (Hq, Kq, Kq))
+        q = (q.float() * qscale).to(dtype)
+        kw = dict(causal=True, window=win, softcap=cap)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.attention_reference(q, k, v, **kw)
+        diff = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            pv = ref.attention_reference(q.float(), k.float(),
+                                         v.float().abs(), **kw)
+            gate = (B4_BF16_REL * want.float().abs() + B4_BF16_PV * pv
+                    + B4_BF16_ABS)
+            rms = float(want.float().square().mean().sqrt())
+            what = (f"2^-7 |plain| + 2^-8 P|v| + {B4_BF16_ABS} gate; typical "
+                    f"|plain| (rms) {rms}")
+            del pv
+        else:
+            gate = B4_F32_TOL + B4_F32_TOL * want.float().abs()
+            what = f"{B4_F32_TOL} abs+rel gate"
+        torch.cuda.synchronize()
+        worst = float((diff / gate).max())
+        err = float(diff.max())
+        b4_err = max(b4_err, err)
+        print(f"flash_attention {tuple(q.shape)} kv {tuple(k.shape)} {dtype} "
+              f"q x {qscale} window={win} softcap={cap}: max |kernel - plain| "
+              f"= {err}, {worst:.4g} of the {what}", flush=True)
+        if not torch.isfinite(got.float()).all() or worst > 1.0:
+            fail(f"flash_attention {dtype} q x {qscale}: beyond its gate")
+        del q, k, v, got, want, diff, gate
+
+    rows = {}
+    # B3 times: inputs read once (2 x 4 B), output written (4 B) per
+    # element, h0 and h_last rows; exp + mul + add per element
+    n = Bs * S * W
+    b3 = bound(12 * n + 8 * Bs * W, 3 * n)
+    t3 = (median_ms(lambda: ops.rglru_scan(log_a, b, h0)),
+          median_ms(lambda: ref.rglru_scan_reference(log_a, b, h0)))
+    print(f"rglru_scan ({Bs}, {S}, {W}) f32: kernel_ms={t3[0]} plain_ms="
+          f"{t3[1]} library_ms=None bound_ms={b3[0]} ({b3[1]})", flush=True)
+    rows["rglru_scan"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:46", max_abs_err=b3_abs,
+        ms=t3[0], plain_ms=t3[1], bound_ms=b3[0], bound_by=b3[1],
+        library_ms=None)
+    del log_a, b, h0, h, hl, wh, whl
+
+    # B4 times at the serving shape, bf16: q, k, v read and out written
+    # once; 4·hd flops per visible (query, key) pair per (batch, q head)
+    q, k, v = (randn(Bs, S, n_, hd, dtype=torch.bfloat16) for n_ in (H, K, K))
+    pairs = visible_pairs(S, S, True, window)
+    b4 = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+               4 * hd * pairs * Bs * H, BF16_FLOPS_PER_S)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
+    t_cap0 = median_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                   window=window))
+    t_plain = median_ms(lambda: ref.attention_reference(q, k, v, **kw))
+    # library yardstick: SDPA at softcap 0 with the same causal + window
+    # boolean mask (kv heads expanded for MQA); never called by the port
+    pos = torch.arange(S, device=DEVICE)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).expand(Bs, H, S, hd) for t in (k, v))
+    t_lib = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    print(f"flash_attention q {tuple(q.shape)} kv {tuple(k.shape)} bf16 "
+          f"window={window} softcap={softcap}: kernel_ms={t_kernel} "
+          f"(softcap 0: {t_cap0}) plain_ms={t_plain} library_ms(SDPA, "
+          f"softcap 0)={t_lib} bound_ms={b4[0]} ({b4[1]}); visible pairs "
+          f"per (b, h) {pairs}", flush=True)
+    rows["flash_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98", max_abs_err=b4_err,
+        ms=t_kernel, plain_ms=t_plain, bound_ms=b4[0], bound_by=b4[1],
+        library_ms=t_lib)
+    return rows
+
+
+def run_serve(cfg):
+    """The serving entry point at full size, counted from 0: each prefill
+    launches B3 once per recurrent layer and B4 once per attention layer,
+    decode neither, and the consensus kernels never."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import rglru
+
+    types = rglru.layer_types(cfg)
+    want = {n: 0 for n in KERNELS}
+    want_prefill = dict(want, rglru_scan=types.count("recurrent"),
+                        flash_attention=types.count("attention"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    res = serve(cfg, seed=0, device=DEVICE, verbose=True, **SERVE)
+    wall = time.perf_counter() - t
+    got = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"serve {ARCH} batch={SERVE['batch']} prompt={SERVE['prompt_len']} "
+          f"gen={SERVE['gen']}: prefill_ms={res.prefill_ms} "
+          f"decode_ms_per_token={res.decode_ms_per_token} "
+          f"peak_memory_GB={peak_gb} wall_s(init included)={wall} "
+          f"launches={got} by phase {res.launches}", flush=True)
+    if got != want_prefill:
+        fail(f"serve launched {got}, expected {want_prefill}")
+    if res.launches["prefill"] != {n: want_prefill[n] for n in
+                                   res.launches["prefill"]} \
+            or any(res.launches["decode"].values()):
+        fail(f"serve launches by phase {res.launches}")
+    tok = res.tokens
+    if tuple(tok.shape) != (SERVE["batch"], SERVE["gen"]) or not bool(
+            ((tok >= 0) & (tok < cfg.vocab_size)).all()):
+        fail(f"tokens out of range or shape {tuple(tok.shape)}")
+    if not torch.isfinite(res.last_logits.float()).all():
+        fail("last-position prefill logits are not finite")
+    print(f"tokens[0]={tok[0].tolist()}", flush=True)
+    return got
+
+
+@torch.no_grad()
+def profile_serve(cfg, steps=4):
+    """Where the serving time goes, at full size: host wall, kernels
+    launched and device kernel time of one prefill and of ``steps``
+    decode steps, from ``torch.profiler`` traces (after a warm prefill).
+    B3/B4's share of the prefill's device time is read from the trace."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import rglru
+
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    model = rglru.cast_for_serving(
+        rglru.init(cfg, generator=gen, device=DEVICE), cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=DEVICE)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def run_prefill():
+        caches = rglru.init_cache(cfg, B, S + steps + 1, device=DEVICE)
+        last, caches = prefill(model, caches, {"tokens": prompts})
+        torch.cuda.synchronize()
+        return torch.argmax(last[:, -1], -1).to(torch.int32)[:, None], caches
+
+    def run_decode(nxt, caches):
+        for i in range(steps):
+            nxt, caches = decode(model, caches, {"tokens": nxt,
+                                                 "cache_index": S + i})
+        torch.cuda.synchronize()
+
+    nxt, caches = run_prefill()                       # warm-up
+    run_decode(nxt, caches)
+    t = time.perf_counter()
+    nxt, caches = run_prefill()
+    wall_p = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    run_decode(nxt, caches)
+    wall_d = (time.perf_counter() - t) * 1e3 / steps
+    with profile(activities=acts) as prof:
+        nxt, caches = run_prefill()
+    _, kp = trace_kernels(prof, "serve_prefill")
+    with profile(activities=acts) as prof:
+        run_decode(nxt, caches)
+    _, kd = trace_kernels(prof, "serve_decode")
+    if not kp or not kd:
+        print("profiler trace holds no device kernels: device time not "
+              "measured", flush=True)
+        return
+    busy_p = sum(e.get("dur", 0) for e in kp) / 1e3
+    b3 = sum(e.get("dur", 0) for e in kp if "rglru_scan_kernel" in e["name"]) / 1e3
+    b4 = sum(e.get("dur", 0) for e in kp
+             if "flash_attention_kernel" in e["name"]) / 1e3
+    busy_d = sum(e.get("dur", 0) for e in kd) / 1e3 / steps
+    print(f"prefill {B}x{S}: wall_ms={wall_p} kernels={len(kp)} "
+          f"device_busy_ms={busy_p} busy_share={busy_p / wall_p} "
+          f"rglru_scan_ms={b3} ({b3 / busy_p:.4f} of device time) "
+          f"flash_attention_ms={b4} ({b4 / busy_p:.4f})", flush=True)
+    top_kernels(kp, 1)
+    print(f"decode step (batch {B}): wall_ms={wall_d} kernels_per_step="
+          f"{len(kd) / steps} device_busy_ms={busy_d} busy_share="
+          f"{busy_d / wall_d}", flush=True)
+    top_kernels(kd, steps)
+
+
+@torch.no_grad()
+def check_decode_vs_forward(cfg, batch=2, prompt=2100):
+    """Full width, one pattern period (3 layers): prefill + 1 decode step
+    through the caches equals the full forward at the last position
+    (prompt longer than the window, so the circular cache wraps)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import rglru
+
+    cfg3 = dataclasses.replace(cfg, num_layers=len(cfg.rglru.block_pattern))
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    model = rglru.cast_for_serving(
+        rglru.init(cfg3, generator=gen, device=DEVICE), cfg3)
+    toks = torch.randint(0, cfg3.vocab_size, (batch, prompt), generator=gen,
+                         device=DEVICE)
+    caches = rglru.init_cache(cfg3, batch, prompt + 1, device=DEVICE)
+    zero_counts()
+    last, caches = make_prefill_step(cfg3)(model, caches, {"tokens": toks})
+    nxt = torch.argmax(last[:, -1], -1).to(torch.int32)[:, None]
+    prefill_counts = launch_counts()
+    zero_counts()
+    step, _, _ = rglru.forward(model, cfg3, nxt, caches=caches,
+                               cache_index=prompt)
+    make_decode_step(cfg3)(model, caches, {"tokens": nxt,
+                                           "cache_index": prompt})
+    decode_counts = launch_counts()
+    full, _, _ = rglru.forward(model, cfg3, torch.cat([toks, nxt], 1),
+                               last_only=True)
+    torch.cuda.synchronize()
+    a, b = step[:, -1].float(), full[:, -1].float()
+    worst = float(((a - b).abs() / (DECODE_TOL + DECODE_TOL * b.abs())).max())
+    print(f"decode vs full forward ({cfg3.num_layers} layers, width "
+          f"{cfg3.d_model}, prompt {prompt}): max |d| = "
+          f"{float((a - b).abs().max())}, {worst:.4g} of the {DECODE_TOL} "
+          f"abs+rel gate; launches prefill {prefill_counts} decode "
+          f"{decode_counts}", flush=True)
+    if not torch.isfinite(a).all() or worst > 1.0:
+        fail("decode step disagrees with the full forward")
+    if any(decode_counts.values()) or prefill_counts["rglru_scan"] != 2 \
+            or prefill_counts["flash_attention"] != 1:
+        fail(f"3-layer launches prefill {prefill_counts} decode "
+             f"{decode_counts}")
 
 
 def main():
@@ -374,11 +705,26 @@ def main():
     phase("profile")
     profile_round()
 
-    # launches: the sum over the case study's two paths, each counted from
-    # 0 in its own run; launches_by_path keeps them apart
+    phase("lm_kernels")
+    lm_cfg = get_arch(ARCH)
+    rows.update(check_lm_kernels(lm_cfg, gen))
+    torch.cuda.empty_cache()
+
+    phase("serve")
+    by_path["serve"] = run_serve(lm_cfg)
+    torch.cuda.empty_cache()
+    profile_serve(lm_cfg)
+    torch.cuda.empty_cache()
+    check_decode_vs_forward(lm_cfg)
+
+    # launches: the sum over the main paths (the case study's two, the
+    # serving run), each counted from 0 in its own run; launches_by_path
+    # keeps them apart
     kernels = [dict(name=n, launches=sum(p[n] for p in by_path.values()),
                     launches_by_path={k: p[n] for k, p in by_path.items()},
-                    **rows[n]) for n in rows]
+                    **rows[n]) for n in KERNELS]
+    print(f"all phases done at t = {time.perf_counter() - T_START:.1f} s",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,10 @@ the port keeps a flat ``{"fc0.w": tensor}`` dict with the same names and
 layouts. Both directions work for one model, for agent-stacked (K, ...)
 params, and for error-feedback residual trees (which share the params'
 structure). Leaves are anything ``numpy.asarray`` accepts.
+
+LM trees hold tuples too (``"periods.0.norm"``), and the JAX hybrid stacks
+its blocks by pattern period: :func:`lm_params_from_numpy` renames them to
+the port's ``blocks.<layer>.`` names in layer order.
 """
 from __future__ import annotations
 
@@ -15,14 +19,18 @@ import torch
 
 
 def params_from_numpy(tree, *, device="cuda") -> Dict[str, torch.Tensor]:
-    """Nested dict of arrays → flat ``{"a.b": tensor}`` on ``device``."""
+    """Nested dicts and tuples of arrays → flat ``{"a.0.b": tensor}`` on
+    ``device`` (``None`` subtrees are skipped)."""
     out = {}
 
     def walk(node, prefix):
         if isinstance(node, dict):
             for key in node:
                 walk(node[key], f"{prefix}{key}.")
-        else:
+        elif isinstance(node, (tuple, list)):
+            for i, child in enumerate(node):
+                walk(child, f"{prefix}{i}.")
+        elif node is not None:
             arr = np.array(node)             # a writable host copy
             out[prefix[:-1]] = torch.from_numpy(arr).to(device)
 
@@ -39,4 +47,27 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> dict:
         for key in path:
             node = node.setdefault(key, {})
         node[leaf] = t.detach().cpu().numpy()
+    return out
+
+
+def lm_params_from_numpy(tree, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
+    """The JAX hybrid's params → the port's ``RecurrentGemma`` state dict.
+
+    ``periods[j]`` is stacked over the ``n_full`` whole pattern periods:
+    its row i is layer ``i·len(pattern) + j``; ``rem[j]`` is layer
+    ``n_full·len(pattern) + j``. Layouts stay as JAX keeps them."""
+    P = len(cfg.rglru.block_pattern)
+    n_full = cfg.num_layers // P
+    out = {}
+    for name, t in params_from_numpy(tree, device=device).items():
+        group, _, rest = name.partition(".")
+        if group not in ("periods", "rem"):
+            out[name] = t
+            continue
+        j, _, leaf = rest.partition(".")
+        if group == "rem":
+            out[f"blocks.{n_full * P + int(j)}.{leaf}"] = t
+        else:
+            for i in range(n_full):
+                out[f"blocks.{i * P + int(j)}.{leaf}"] = t[i].clone()
     return out

@@ -1,4 +1,5 @@
-"""Public wrappers of the two hand-written consensus kernels.
+"""Public wrappers of the hand-written kernels: the two consensus
+kernels, the RG-LRU scan and flash attention.
 
 Each wrapper checks dtypes and shapes (the guards of the JAX package's
 ``kernels/ops.py``), then dispatches BY DEVICE: a tensor on the CPU goes
@@ -13,7 +14,10 @@ the kernel.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
+
+import numpy as np
 
 import torch
 
@@ -24,6 +28,9 @@ _ALLOWED = (torch.float32, torch.bfloat16)
 #: every element reads scale 0, and a multiple of 16 (vector path)
 _PER_TENSOR_QBLOCK = 1 << 62
 _VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_F, _PLL = ctypes.c_float, ctypes.POINTER(ctypes.c_longlong)
+#: grid limits of the kernels' y/z dimensions and of their int positions
+_GRID_YZ, _INT_MAX = 65535, 2**31 - 1
 
 
 def _lib(name: str, fns):
@@ -159,3 +166,134 @@ def quant_consensus_pop(x, q, s, idx, sig, qblock: Optional[int] = None):
 
 
 quant_consensus_pop.launches = 0
+
+
+def _check_dtype(*ts):
+    for t in ts:
+        if t.dtype not in _ALLOWED:
+            raise TypeError(f"unsupported dtype {t.dtype}; use f32/bf16")
+
+
+def _cuda_only(*ts):
+    """The kernels take CUDA tensors of one dtype on one device."""
+    x = ts[0]
+    for t in ts:
+        if t.device != x.device:
+            raise ValueError(f"tensors on {t.device} and {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}: pass CPU "
+                         "tensors (plain version) or CUDA tensors")
+    if any(t.dtype != x.dtype for t in ts):
+        raise TypeError("the kernel takes one dtype for all inputs, got "
+                        f"{[t.dtype for t in ts]}")
+
+
+def rglru_scan(log_a, b, h0=None):
+    """Linear recurrence h_t = exp(log_a_t)·h_{t-1} + b_t over (B, T, W),
+    carry in f32. log_a, b (B, T, W) f32/bf16; h0 (B, W) or None (zeros)
+    → (h (B, T, W) in log_a's dtype, h_last (B, W) f32)."""
+    _check_dtype(log_a, b)
+    if log_a.shape != b.shape or log_a.ndim != 3:
+        raise ValueError(f"bad shapes {tuple(log_a.shape)} {tuple(b.shape)}")
+    B, T, W = log_a.shape
+    if T < 1:
+        raise ValueError("rglru_scan needs T >= 1")
+    if h0 is not None and tuple(h0.shape) != (B, W):
+        raise ValueError(f"h0 {tuple(h0.shape)} does not match {(B, W)}")
+    if log_a.device.type == "cpu" and b.device.type == "cpu" and (
+            h0 is None or h0.device.type == "cpu"):
+        return ref.rglru_scan_reference(log_a, b, h0)
+    _cuda_only(log_a, b)
+    if B > _GRID_YZ:
+        raise ValueError(f"B={B} exceeds the kernel's grid ({_GRID_YZ})")
+    if h0 is None:
+        h0 = torch.zeros(B, W, dtype=torch.float32, device=log_a.device)
+    elif h0.device != log_a.device:
+        raise ValueError(f"h0 is on {h0.device}, log_a on {log_a.device}")
+    log_a, b = log_a.contiguous(), b.contiguous()
+    h0 = h0.to(torch.float32).contiguous()
+    out = torch.empty_like(log_a)
+    h_last = torch.empty(B, W, dtype=torch.float32, device=log_a.device)
+    if B == 0 or W == 0:
+        return out, h_last
+    bf16 = log_a.dtype == torch.bfloat16
+    fn_name = "rglru_scan_bf16" if bf16 else "rglru_scan_f32"
+    lib = _lib("rglru_scan", [(n, [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _LL, _VP])
+                              for n in ("rglru_scan_f32", "rglru_scan_bf16")])
+    with torch.cuda.device(log_a.device):
+        stream = torch.cuda.current_stream(log_a.device).cuda_stream
+        err = getattr(lib, fn_name)(log_a.data_ptr(), b.data_ptr(),
+                                    h0.data_ptr(), out.data_ptr(),
+                                    h_last.data_ptr(), B, T, W, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    rglru_scan.launches += 1
+    return out, h_last
+
+
+rglru_scan.launches = 0
+
+
+def _kernel_layout(t):
+    """``t`` itself when the kernel can read it with 4-element vector
+    loads (unit head_dim stride, other strides multiples of 4, 16-byte
+    aligned base), else a contiguous copy."""
+    ok = (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+          and t.data_ptr() % 16 == 0)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Exact GQA/MQA attention with positions from 0: q (B, S, H, hd);
+    k, v (B, T, K, hd), H % K == 0 (q head h reads kv head h // (H/K));
+    causal and sliding-window (``window`` > 0) masks, tanh soft-capping of
+    the scores (``softcap`` > 0) → (B, S, H, hd) in q's dtype."""
+    _check_dtype(q, k, v)
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
+            or q.shape[3] != k.shape[3] or q.shape[0] != k.shape[0]:
+        raise ValueError(f"bad shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"H={q.shape[2]} not a multiple of K={k.shape[2]}")
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return ref.attention_reference(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    _cuda_only(q, k, v)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if hd > 256 or hd % 4:
+        raise ValueError(f"head_dim={hd}: the kernel takes head_dim <= 256 "
+                         "and a multiple of 4")
+    if B > _GRID_YZ or H > _GRID_YZ or max(S, T) > _INT_MAX // 2 \
+            or window > _INT_MAX:
+        raise ValueError(f"B={B}, H={H}, S={S}, T={T} or window={window} "
+                         "exceeds the kernel's grid or int positions")
+    out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
+    if B == 0 or S == 0 or H == 0:
+        return out
+    if T == 0:
+        raise ValueError("flash_attention needs T >= 1")
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
+                                        for s in t.stride()[:3]))
+    scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))
+    bf16 = q.dtype == torch.bfloat16
+    fn_name = "flash_attention_bf16" if bf16 else "flash_attention_f32"
+    lib = _lib("flash_attention", [
+        (n, [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL, _PLL, _I, _I,
+             _F, _F, _VP])
+        for n in ("flash_attention_f32", "flash_attention_bf16")])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, S, T, H, K, hd, strides, int(bool(causal)), max(int(window), 0),
+            float(softcap), scale, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,14 +1,19 @@
-"""Plain PyTorch versions of the two consensus kernels, at the population
-level and in the kernels' layout: the port's counterpart of the JAX
-package's ``kernels/ref.py`` oracles.
+"""Plain PyTorch versions of the hand-written kernels, in the kernels'
+layout: the port's counterpart of the JAX package's ``kernels/ref.py``
+oracles.
 
-Each sums the same terms as the CUDA kernel in the same fixed h order,
-one rounded operation at a time, so on the card the kernel matches it
-bit for bit. Only the CPU path of :mod:`repro_torch.kernels.ops`, the
-tests and ``chip_smoke.py``'s comparison call them.
+The consensus and recurrence versions take the same rounded steps as
+their CUDA kernels in the same order, so on the card each kernel matches
+its plain version bit for bit. The attention version,
+:func:`attention_reference` (O(S·T) memory), is also the model's decode
+attention over the KV cache; the online-softmax kernel matches it within
+rounding. Apart from decode attention, only the CPU path of
+:mod:`repro_torch.kernels.ops`, the tests and ``chip_smoke.py``'s
+comparison call them.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -46,3 +51,65 @@ def quant_consensus_pop_reference(x, q, s, idx, sig,
     for h in range(idx.shape[1]):
         acc = acc + sig[:, h:h + 1].to(torch.float32) * (xhat[idx[:, h]] - xhat)
     return x.to(torch.float32) + acc
+
+
+def rglru_scan_reference(log_a, b, h0=None):
+    """h_t = exp(log_a_t)·h_{t-1} + b_t stepped in time order, carry in f32:
+    log_a, b (B, T, W) f32/bf16, h0 (B, W) or None → (h (B, T, W) in
+    log_a's dtype, h_last (B, W) f32)."""
+    B, T, W = log_a.shape
+    h = (torch.zeros(B, W, dtype=torch.float32, device=log_a.device)
+         if h0 is None else h0.to(torch.float32))
+    out = torch.empty(B, T, W, dtype=log_a.dtype, device=log_a.device)
+    for t in range(T):
+        h = torch.exp(log_a[:, t].to(torch.float32)) * h \
+            + b[:, t].to(torch.float32)
+        out[:, t] = h
+    return out, h
+
+
+NEG_INF = -2.0 ** 30
+
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: int):
+    """(q, k) additive f32 bias from causal + sliding-window constraints."""
+    ok = torch.ones(q_pos.shape[0], k_pos.shape[0], dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, softcap: float = 0.0,
+                        k_len: Optional[torch.Tensor] = None):
+    """Plain O(S·T)-memory attention. (B,S,H,hd)x(B,T,K,hd) -> (B,S,H,hd).
+
+    GQA: H % K == 0; q head h attends kv head h // (H//K).
+    ``k_len``: optional (B,) number of valid kv positions (decode caches).
+    q is scaled in f32 and cast back to its dtype; products of the storage
+    dtypes accumulate in f32 (exact upcasts, as JAX's
+    ``preferred_element_type``); probabilities are cast to v's dtype.
+    """
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    g = H // K
+    qf = (q.to(torch.float32) / math.sqrt(hd)).to(q.dtype)
+    qf = qf.reshape(B, S, K, g, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qf.to(torch.float32),
+                          k.to(torch.float32))
+    if softcap > 0:
+        scores = softcap * torch.tanh(scores / softcap)
+    q_pos = q_offset + torch.arange(S, device=q.device)
+    k_pos = torch.arange(T, device=q.device)
+    scores = scores + _mask_bias(q_pos, k_pos, causal, window)
+    if k_len is not None:
+        valid = k_pos[None, :] < k_len[:, None]                  # (B, T)
+        scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh",
+                       probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
+    return out.reshape(B, S, H, hd).to(q.dtype)

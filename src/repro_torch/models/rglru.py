@@ -1,0 +1,292 @@
+"""RecurrentGemma / Griffin [arXiv:2402.19427]: RG-LRU recurrent blocks
+interleaved 2:1 with local (sliding-window) attention, MQA. The port of
+the JAX package's ``models/rglru.py``.
+
+Recurrence (per channel):
+    r_t = sigmoid(x_t W_a + b_a)                      (recurrence gate)
+    i_t = sigmoid(x_t W_x + b_x)                      (input gate)
+    log a_t = -c * softplus(Λ) * r_t                  (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t ⊙ x_t)
+
+A prefill (or a forward without cache) runs the recurrence through the
+hand-written scan kernel (:func:`repro_torch.kernels.ops.rglru_scan`,
+which replaces both the JAX model's associative scan and its Pallas
+kernel); a decode step with a state is one fused update
+(:func:`rglru_step`).
+
+Layer pattern: cfg.rglru.block_pattern (default (recurrent, recurrent,
+attention)) cycled over cfg.num_layers. The model is one ``nn.Module``
+whose ``blocks`` sit in layer order (the JAX package stacks whole pattern
+periods for ``lax.scan``; ``convert.lm_params_from_numpy`` unstacks them).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+
+RGLRU_C = 8.0
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU core
+# ---------------------------------------------------------------------------
+
+
+def rglru_step(log_a, b, h_prev):
+    """Single decode step: (B, W) each."""
+    return torch.exp(log_a) * h_prev + b
+
+
+class RGLRU(nn.Module):
+    """Gate weights are BLOCK-DIAGONAL over cfg.num_heads blocks
+    (``w_a``, ``w_x`` of shape (H, bw, bw)), as in the official
+    RecurrentGemma implementation; Λ is drawn so that a ∈ [0.9, 0.999].
+    The JAX package's ``init_rglru``."""
+
+    def __init__(self, cfg, width: int, *, generator=None, device="cuda"):
+        super().__init__()
+        pd = L.dtype_of(cfg.param_dtype)
+        H = cfg.num_heads
+        bw = width // H
+        u = torch.empty(width, dtype=torch.float32, device=device)
+        u.uniform_(0.9 ** 2, 0.999 ** 2, generator=generator)
+        lam = torch.log(torch.exp(-torch.log(u) / (2 * RGLRU_C)) - 1.0)
+        kw = dict(generator=generator, dtype=pd, device=device)
+        self.lam = L.param(lam.to(pd))
+        self.w_a = L.param(L.dense_init((H, bw, bw), **kw))
+        self.b_a = L.param(torch.zeros(width, dtype=pd, device=device))
+        self.w_x = L.param(L.dense_init((H, bw, bw), **kw))
+        self.b_x = L.param(torch.zeros(width, dtype=pd, device=device))
+
+
+def _block_diag_gate(x, w, b):
+    """x (B,T,W) with W split into H blocks; w (H, bw, bw)."""
+    B, T, W = x.shape
+    H, bw, _ = w.shape
+    xb = x.reshape(B, T, H, bw)
+    y = torch.einsum("bthk,hkj->bthj", xb, w)
+    return y.reshape(B, T, W) + b
+
+
+def rglru_apply(p, cfg, x, h0=None):
+    """x: (B, T, W) -> (y, h_last). f32 recurrence internals."""
+    xf = x.to(torch.float32)
+    r = torch.sigmoid(_block_diag_gate(xf, p.w_a.to(torch.float32),
+                                       p.b_a.to(torch.float32)))
+    i = torch.sigmoid(_block_diag_gate(xf, p.w_x.to(torch.float32),
+                                       p.b_x.to(torch.float32)))
+    log_a = -RGLRU_C * F.softplus(p.lam.to(torch.float32)) * r
+    gated = i * xf
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    b = mult * gated
+    T = x.shape[1]
+    if T == 1 and h0 is not None:
+        h = rglru_step(log_a[:, 0], b[:, 0], h0)
+        return h[:, None].to(x.dtype), h
+    y, h_last = ops.rglru_scan(log_a, b, h0)
+    return y.to(x.dtype), h_last
+
+
+# ---------------------------------------------------------------------------
+# causal conv1d (depthwise, width w) with decode state
+# ---------------------------------------------------------------------------
+
+
+class Conv1d(nn.Module):
+    def __init__(self, width: int, kernel: int, pd, *, generator=None,
+                 device="cuda"):
+        super().__init__()
+        w = torch.randn(kernel, width, generator=generator,
+                        dtype=torch.float32, device=device)
+        self.w = L.param((w / math.sqrt(kernel)).to(pd))
+        self.b = L.param(torch.zeros(width, dtype=pd, device=device))
+
+
+def conv1d_apply(p, x, state=None):
+    """Depthwise causal conv. x (B,T,W); state (B, kernel-1, W) history.
+
+    Returns (y, new_state).
+    """
+    kernel = p.w.shape[0]
+    dt = x.dtype
+    if state is None:
+        state = torch.zeros(x.shape[0], kernel - 1, x.shape[2], dtype=dt,
+                            device=x.device)
+    xp = torch.cat([state.to(dt), x], dim=1)
+    w = p.w.to(dt)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(kernel))
+    y = y + p.b.to(dt)
+    new_state = xp[:, -(kernel - 1):] if kernel > 1 else state
+    return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+class RecurrentBlock(nn.Module):
+    def __init__(self, cfg, *, generator=None, device="cuda"):
+        super().__init__()
+        W = cfg.rglru.lru_width or cfg.d_model
+        pd = L.dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
+        d = cfg.d_model
+        self.norm = L.param(torch.zeros(d, dtype=pd, device=device))
+        self.w_branch_x = L.param(L.dense_init((d, W), dtype=pd, **kw))
+        self.w_branch_gate = L.param(L.dense_init((d, W), dtype=pd, **kw))
+        self.conv = Conv1d(W, cfg.rglru.conv1d_width, pd, **kw)
+        self.rglru = RGLRU(cfg, W, **kw)
+        self.w_out = L.param(L.dense_init((W, d), dtype=pd, **kw))
+        self.mlp_norm = L.param(torch.zeros(d, dtype=pd, device=device))
+        self.mlp = L.Mlp(cfg, **kw)
+
+
+def recurrent_block(bp, cfg, x, state=None):
+    """Griffin recurrent block. state: {'conv': ..., 'h': ...} or None."""
+    dt = L.dtype_of(cfg.dtype)
+    h = L.rms_norm(x, bp.norm, cfg.norm_eps)
+    gate = F.gelu(h @ bp.w_branch_gate.to(dt), approximate="tanh")
+    u = h @ bp.w_branch_x.to(dt)
+    u, new_conv = conv1d_apply(bp.conv, u,
+                               None if state is None else state["conv"])
+    y, h_last = rglru_apply(bp.rglru, cfg, u,
+                            None if state is None else state["h"])
+    x = x + (y * gate) @ bp.w_out.to(dt)
+    hh = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
+    x = x + L.mlp_block(bp.mlp, cfg, hh)
+    return x, {"conv": new_conv, "h": h_last}
+
+
+class AttentionBlock(nn.Module):
+    def __init__(self, cfg, *, generator=None, device="cuda"):
+        super().__init__()
+        pd = L.dtype_of(cfg.param_dtype)
+        self.norm = L.param(torch.zeros(cfg.d_model, dtype=pd, device=device))
+        self.attn = L.Attention(cfg, generator=generator, device=device)
+        self.mlp_norm = L.param(torch.zeros(cfg.d_model, dtype=pd,
+                                            device=device))
+        self.mlp = L.Mlp(cfg, generator=generator, device=device)
+
+
+def attention_block(bp, cfg, x, positions, cache=None, cache_index=None):
+    h = L.rms_norm(x, bp.norm, cfg.norm_eps)
+    a, new_cache = L.attention_block(
+        bp.attn, cfg, h, positions, window=cfg.sliding_window,
+        cache=cache, cache_index=cache_index)
+    x = x + a
+    hh = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
+    x = x + L.mlp_block(bp.mlp, cfg, hh)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def layer_types(cfg):
+    pat = cfg.rglru.block_pattern
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
+class RecurrentGemma(nn.Module):
+    """``embed`` (V, d), ``blocks`` in layer order, ``final_norm``,
+    ``unembed`` (d, V)."""
+
+    def __init__(self, cfg, *, generator=None, device="cuda"):
+        super().__init__()
+        if cfg.rglru is None:
+            raise ValueError(f"{cfg.name} has no rglru settings")
+        pd = L.dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
+        self.embed = L.param(L.dense_init((cfg.vocab_size, cfg.d_model),
+                                          dtype=pd, scale=1.0, **kw))
+        self.blocks = nn.ModuleList(
+            RecurrentBlock(cfg, **kw) if t == "recurrent"
+            else AttentionBlock(cfg, **kw) for t in layer_types(cfg))
+        self.final_norm = L.param(torch.zeros(cfg.d_model, dtype=pd,
+                                              device=device))
+        self.unembed = L.param(L.dense_init((cfg.d_model, cfg.vocab_size),
+                                            dtype=pd, **kw))
+
+
+def init(cfg, *, generator=None, device="cuda") -> RecurrentGemma:
+    """Random params drawn from ``generator`` on ``device``."""
+    return RecurrentGemma(cfg, generator=generator, device=device)
+
+
+def _read_in_f32(name: str) -> bool:
+    """The forward reads the norm weights and the RG-LRU's Λ and gates in
+    f32; every other parameter only through a cast to ``cfg.dtype``."""
+    return name.rsplit(".", 1)[-1].endswith("norm") or ".rglru." in name
+
+
+def cast_for_serving(model: RecurrentGemma, cfg) -> RecurrentGemma:
+    """Cast, once, every parameter the forward reads only through a cast
+    to ``cfg.dtype``, replacing each tensor in place, so the f32 and the
+    cast copy of a weight never both live beyond that one weight. The
+    per-use casts then do nothing; the numbers are unchanged."""
+    dt = L.dtype_of(cfg.dtype)
+    for name, p in model.named_parameters():
+        if not _read_in_f32(name):
+            p.data = p.data.to(dt)
+    return model
+
+
+def init_cache(cfg, batch: int, seq_len: int, *, device="cuda"):
+    """Per-layer state in layer order: attention layers get SWA kv caches,
+    recurrent layers {'conv', 'h'} states."""
+    W = cfg.rglru.lru_width or cfg.d_model
+    dt = L.dtype_of(cfg.dtype)
+
+    def one(t):
+        if t == "attention":
+            return L.init_kv_cache(cfg, batch, seq_len,
+                                   window=cfg.sliding_window, device=device)
+        return {"conv": torch.zeros(batch, cfg.rglru.conv1d_width - 1, W,
+                                    dtype=dt, device=device),
+                "h": torch.zeros(batch, W, dtype=torch.float32,
+                                 device=device)}
+
+    return [one(t) for t in layer_types(cfg)]
+
+
+def forward(model: RecurrentGemma, cfg, tokens, *, positions=None,
+            caches=None, cache_index: Optional[int] = None,
+            last_only: bool = False):
+    """tokens (B, S) → (logits (B, S or 1, V) in cfg.dtype, new caches or
+    None, aux 0.0). ``last_only`` unembeds only the last position (the
+    same numbers as slicing ``logits[:, -1:]``)."""
+    dt = L.dtype_of(cfg.dtype)
+    x = model.embed[tokens].to(dt)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device) + (
+            0 if cache_index is None else int(cache_index))
+        positions = positions[None, :].expand(B, S)
+
+    new_caches = []
+    for i, (t, bp) in enumerate(zip(layer_types(cfg), model.blocks)):
+        st = None if caches is None else caches[i]
+        if t == "recurrent":
+            x, ns = recurrent_block(bp, cfg, x, st)
+        else:
+            x, ns = attention_block(bp, cfg, x, positions, st, cache_index)
+        new_caches.append(ns)
+
+    if last_only:
+        x = x[:, -1:]
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = x @ model.unembed.to(dt)
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(
+            logits.to(torch.float32) / cfg.logit_softcap).to(dt)
+    return logits, (None if caches is None else new_caches), 0.0

@@ -4,7 +4,9 @@ against ``repro.kernels.ops.*(impl="interpret")`` and the JAX oracles in
 ``repro.kernels.ref``, called once per agent on the gathered neighbour
 block, at small shapes made with numpy from a seed. The CUDA kernels
 themselves are held to the plain versions on the card, by the tests
-marked ``gpu`` below and by ``chip_smoke.py``."""
+marked ``gpu`` below (which also cover the RG-LRU scan and flash-attention
+kernels; their CPU parity tests are in ``test_torch_lm_kernels.py``) and
+by ``chip_smoke.py``."""
 import os
 import subprocess
 import sys
@@ -222,3 +224,79 @@ def test_cuda_quant_kernel_matches_plain(cuda, H, N, qblock):
     got = ops.quant_consensus_pop(*args, qblock=qblock)
     torch.cuda.synchronize()
     assert torch.equal(got, ref.quant_consensus_pop_reference(*args, qblock))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,W,h0", [(2, 100, 48, True), (1, 37, 4096, False),
+                                      (4, 1024, 520, True)])
+def test_cuda_rglru_scan_matches_plain(cuda, B, T, W, h0, dtype):
+    """Same steps in the same order, expf and no FMA contraction: equal
+    bit for bit, ragged T and W included."""
+    rng = np.random.default_rng(T + W)
+    x = rng.standard_normal((B, T, W)).astype(np.float32)
+    log_a = torch.from_numpy(-np.logaddexp(x, 0.0)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal((B, T, W)).astype(np.float32))
+    b = b.to(cuda, dtype)
+    hz = torch.from_numpy(rng.standard_normal((B, W)).astype(np.float32))
+    hz = hz.to(cuda) if h0 else None
+    before = ops.rglru_scan.launches
+    h, h_last = ops.rglru_scan(log_a, b, hz)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches == before + 1
+    wh, whl = ref.rglru_scan_reference(log_a, b, hz)
+    assert torch.equal(h, wh) and torch.equal(h_last, whl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,softcap", [
+    (2, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 1000, 8, 2, 120, True, 0, 0.0),      # ragged S, hd not a power of 2
+    (1, 128, 4, 2, 128, False, 0, 0.0),
+    (2, 300, 16, 1, 256, True, 128, 30.0),   # recurrentgemma's shape, cut
+    (1, 77, 2, 2, 16, True, 32, 0.0),
+])
+def test_cuda_flash_attention_matches_plain(cuda, B, S, H, K, hd, causal,
+                                            window, softcap, dtype):
+    """Online softmax in f32 against the plain one-pass softmax: the JAX
+    package's own tolerances for its Pallas kernel (tests/test_kernels.py)."""
+    rng = np.random.default_rng(S + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype)
+               for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = ref.attention_reference(q, k, v, **kw)
+    tol = 2e-3 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qscale", [1.0, 20.0])
+def test_cuda_flash_attention_bf16_within_rounding(cuda, qscale):
+    """bf16 at recurrentgemma's heads, cut in length, against the plain
+    version to within its roundings: the plain version rounds each
+    probability to bf16 (relative error <= 2^-9) and both round the output
+    (ulp <= 2^-7 |x|), so |kernel - plain| <= 2^-7 |plain| + 2^-9 P|v|,
+    gated at twice the second term plus 1e-5. At q x 20 the scores reach
+    the softcap, and the same gate refuses the uncapped attention."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda) for s in ((2, 300, 16, 256), (2, 300, 1, 256),
+                                   (2, 300, 1, 256)))
+    q = (q * qscale).to(torch.bfloat16)
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    kw = dict(causal=True, window=128, softcap=30.0)
+    got = ops.flash_attention(q, k, v, **kw).float()
+    want = ref.attention_reference(q, k, v, **kw).float()
+    pv = ref.attention_reference(q.float(), k.float(), v.float().abs(), **kw)
+    gate = 2.0 ** -7 * want.abs() + 2.0 ** -8 * pv + 1e-5
+    assert float(((got - want).abs() / gate).max()) <= 1.0
+    if qscale > 1:
+        uncapped = ref.attention_reference(q, k, v, causal=True,
+                                           window=128).float()
+        assert float(((uncapped - want).abs() / gate).max()) > 1.0
