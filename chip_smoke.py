@@ -3,8 +3,9 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. env        — torch/CUDA versions, the card's name and power limit.
-2. build      — compile both CUDA kernels from ``src/repro_torch/kernels/
-                csrc`` (one nvcc per source, in parallel), timed as set-up.
+2. build      — compile the four CUDA kernels from ``src/repro_torch/
+                kernels/csrc`` (one nvcc per source, in parallel), timed as
+                set-up; ptxas's registers and spills of each.
 3. kernels    — each kernel against its plain PyTorch version on the card,
                 on full-width paper-DQN params stacked over K = 256 agents
                 (ring and small-world graphs; codecs None and bf16 for the
@@ -23,9 +24,12 @@ Phases (any failure exits non-zero; nothing is caught):
 7. lm_kernels — the RG-LRU scan and flash-attention kernels against their
                 plain versions at recurrentgemma-9b's serving shapes (bf16
                 attention at scores of std 1 and of std 20, which the
-                softcap bends; and a ragged f32 case), then kernel,
-                plain-version and library (SDPA at softcap 0) times and each
-                bound. Every time is the median of 20 calls.
+                softcap bends; a ragged bf16 case with a window that cuts
+                kv tiles; and a ragged f32 case), then kernel,
+                plain-version and library (SDPA at softcap 0) times, each
+                bound, B4's achieved TFLOP/s, and ptxas's registers and
+                spills of the two sources. Every time is the median of 20
+                calls.
 8. serve      — ``repro_torch.launch.serve`` on full-width, full-depth
                 recurrentgemma-9b (random weights): 4 prompts of 4096
                 tokens, 32 greedy tokens; each prefill must launch the scan
@@ -65,10 +69,11 @@ SERVE = dict(batch=4, prompt_len=4096, gen=32)
 B3_TOL = 1e-6                   # max |kernel - plain| / max(1, |plain|)
 B4_F32_TOL = 2e-3               # abs + rel (the JAX package's own gate)
 # bf16: the plain version rounds each probability to bf16 (relative error
-# <= 2^-9) before P·V, the kernel keeps them in f32, and both round the
-# output to bf16 (<= 1 ulp apart, ulp <= 2^-7 |x|). So
-#   |kernel - plain| <= 2^-7 |plain| + 2^-9 Σ_t p_t |v_t|,
-# gated with twice the second term and 1e-5 for f32 summation order
+# <= 2^-8) before P·V, the kernel carries them as two bf16 terms (within
+# 2^-16), and both round the output to bf16 (<= 1 ulp apart, ulp <= 2^-7
+# |x|). So
+#   |kernel - plain| <= 2^-7 |plain| + 2^-8 Σ_t p_t |v_t|,
+# gated with that and 1e-5 for f32 summation order
 B4_BF16_REL, B4_BF16_PV, B4_BF16_ABS = 2.0 ** -7, 2.0 ** -8, 1e-5
 DECODE_TOL = 6e-2               # decode vs full forward (test_arch_smoke)
 
@@ -107,6 +112,14 @@ def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     """(least time in ms, what bounds it) for the given bytes and flops."""
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def ptxas_summary(name):
+    """ptxas's register, shared-memory and spill lines for one source."""
+    from repro_torch.kernels import build
+    log = build.BUILD_LOGS.get(name, "not built in this run")
+    return " | ".join(ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln or "built" in ln)
 
 
 def launch_counts():
@@ -424,11 +437,14 @@ def check_lm_kernels(cfg, generator):
 
     # B4 at the serving shape (B = 1 for the plain version's O(S·T)
     # scores) in bf16: randn q gives scores of std 1, q x 20 scores of std
-    # 20 that the softcap bends; and a ragged f32 case
+    # 20 that the softcap bends; a ragged bf16 case (S, T not tile
+    # multiples, hd 120, a window whose edge cuts kv tiles); and a ragged
+    # f32 case
     b4_err = 0.0
     for dtype, qscale, (B, Sq, Hq, Kq, d, win, cap) in (
             (torch.bfloat16, 1.0, (1, S, H, K, hd, window, softcap)),
             (torch.bfloat16, 20.0, (1, S, H, K, hd, window, softcap)),
+            (torch.bfloat16, 1.0, (1, 1000, 8, 2, 120, 300, softcap)),
             (torch.float32, 1.0, (1, 1000, 8, 2, 120, 0, 0.0))):
         q, k, v = (randn(B, Sq, n, d, dtype=dtype) for n in (Hq, Kq, Kq))
         q = (q.float() * qscale).to(dtype)
@@ -479,8 +495,9 @@ def check_lm_kernels(cfg, generator):
     # once; 4·hd flops per visible (query, key) pair per (batch, q head)
     q, k, v = (randn(Bs, S, n_, hd, dtype=torch.bfloat16) for n_ in (H, K, K))
     pairs = visible_pairs(S, S, True, window)
-    b4 = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-               4 * hd * pairs * Bs * H, BF16_FLOPS_PER_S)
+    flops = 4 * hd * pairs * Bs * H
+    b4 = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flops,
+               BF16_FLOPS_PER_S)
     kw = dict(causal=True, window=window, softcap=softcap)
     t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
     t_cap0 = median_ms(lambda: ops.flash_attention(q, k, v, causal=True,
@@ -498,7 +515,11 @@ def check_lm_kernels(cfg, generator):
           f"window={window} softcap={softcap}: kernel_ms={t_kernel} "
           f"(softcap 0: {t_cap0}) plain_ms={t_plain} library_ms(SDPA, "
           f"softcap 0)={t_lib} bound_ms={b4[0]} ({b4[1]}); visible pairs "
-          f"per (b, h) {pairs}", flush=True)
+          f"per (b, h) {pairs}; achieved {flops / t_kernel / 1e9} TFLOP/s "
+          f"(softcap 0: {flops / t_cap0 / 1e9}) against the bound's "
+          f"{BF16_FLOPS_PER_S / 1e12}", flush=True)
+    for name in ("rglru_scan", "flash_attention"):
+        print(f"ptxas {name}.cu: {ptxas_summary(name)}", flush=True)
     rows["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:98", max_abs_err=b4_err,
@@ -682,10 +703,8 @@ def main():
 
     phase("build")
     secs = build.build()
-    for name, log in build.BUILD_LOGS.items():
-        info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        print(f"{name}: {' | '.join(info)}", flush=True)
+    for name in build.BUILD_LOGS:
+        print(f"{name}: {ptxas_summary(name)}", flush=True)
     print(f"built in {secs:.1f} s ({os.fspath(build.BUILD_ROOT)})", flush=True)
 
     phase("kernels")

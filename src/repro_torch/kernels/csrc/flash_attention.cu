@@ -18,31 +18,70 @@
 // dot product and an axpy of length hd, 4 * hd flops; the data (q, k, v,
 // out) are read or written once and the window keeps the visible pairs at
 // O(window * T), so flops over the card's rate exceed bytes over its memory
-// rate at every shape the model runs.
+// rate at every shape the model runs (recurrentgemma-9b's prefill: 4.1e11
+// flops against 0.27 GB, 0.42 ms at the bf16 tensor-core rate).
 //
-// Design, a simple kernel that is right first (tensor cores, TMA and
-// warp specialisation are later work):
-// - One block of 256 threads per (64-query tile, q head, batch row). A block
-//   indexes its kv head as h / (H / K) itself: the 16 q heads of one MQA kv
-//   head re-read the same k and v tiles, which stay in the 50 MB L2.
-// - The block loops only over the 64-key tiles that the causal frontier and
-//   the window leave visible (as the Pallas kernel's pl.when does), so a
-//   4096-token prompt with a 2048 window costs about 34 tiles per query tile
-//   instead of 64.
-// - Tiles are held in shared memory as f32 (converted once at load, rows
-//   padded by 4 floats so that 16-byte reads of 8 different rows fall in
-//   different banks): q 64 x hd, k and v 64 x hd, probabilities 64 x 64.
-//   At hd 256 that is 217,088 bytes, above the 48 KB default, so the launch
-//   opts in with cudaFuncSetAttribute; a refused launch returns its CUDA
-//   error, which the wrapper raises on.
+// bf16: flash_attention_kernel_tc, tensor cores fed by TMA.
+// - One block of 384 threads per (q head, 128-query tile, batch row); the
+//   head is blockIdx.x, so the H / K q heads that read one kv head's tiles
+//   run side by side and find them in the 50 MB L2. Query tiles run
+//   longest-first (the causal frontier makes late tiles see more keys).
+// - Warp specialisation: warpgroups 0 and 1 each own 64 query rows and do
+//   all the arithmetic; one thread of warpgroup 2 issues every load. The
+//   producer gives up registers (setmaxnreg 24) so that each consumer
+//   thread holds 240: the 64 x hd f32 output accumulator (128 registers at
+//   hd 256), the 64 x 64 score tile (32) and the probabilities (32). While
+//   one consumer forms its probabilities, the other's products keep the
+//   tensor cores busy.
+// - Loads are TMA (cp.async.bulk.tensor, 4-d maps over (hd, heads, seq,
+//   batch) built on the host): q once per block, then k and v tiles of 64
+//   keys through a ring of 2 stages, each stage with a full and an empty
+//   mbarrier for k and for v, so the next tile arrives while this one is
+//   multiplied, and v still lands while the scores of its tile are formed.
+//   The 128-byte swizzle caps a box at 64 bf16 columns, so a tile of hd 256
+//   is 4 boxes of 64 rows x 128 bytes, which is also the layout the wgmma
+//   descriptors read. Rows past S or T and columns past hd arrive as zeros
+//   (hd pads to 64, 128 or 256 this way).
+// - Both products are wgmma with f32 accumulators: S = q k^T as m64n64k16
+//   over hd / 16 steps with q and k from shared memory (K-major), then
+//   O += P v as m64n{hd}k16 over 4 steps with P in registers (the score
+//   accumulator's fragment is the A operand's register layout) and v read
+//   transposed (MN-major) from shared memory. P goes in as two bf16 terms,
+//   hi = bf16(p) and lo = bf16(p - hi), two products on the same v: one
+//   bf16 rounding of P (up to 2^-8 relative) on top of the plain version's
+//   own exceeds the bf16 gate at sharp softmaxes (q x 20: 1.05 of it on
+//   the H100, tools/kernel_variants.py), hi + lo is within 2^-16 of p; the
+//   second product costs 14 % of the kernel's time. The running sum l adds
+//   the f32 p.
+// - q is scaled in place in shared memory (f32 multiply, rounded back to
+//   bf16) before the first product. The softcap's tanh is
+//   1 - 2 / (e^{2x} + 1) with __expf (a few f32 ulps; tanh.approx's 2^-11
+//   would not meet the bf16 gate); the softmax uses exp2f with log2(e)
+//   folded in. The masks are evaluated only on tiles that cross the causal
+//   diagonal, the window's lower edge or T; a tile that no row of a
+//   warpgroup can see is waited for and released but not computed.
+// - ptxas (CUDA 12.8, sm_90a): no spills at hd 64, 128 or 256 (168
+//   registers at entry, the consumers' code within their 240);
+//   chip_smoke.py prints the report.
+//
+// f32: flash_attention_kernel, the SIMT kernel (TF32 would not meet the
+// f32 gate of 2e-3).
+// - One block of 256 threads per (64-query tile, q head, batch row); the
+//   block loops only over the 64-key tiles that the causal frontier and
+//   the window leave visible (as the Pallas kernel's pl.when does).
+// - Tiles are held in shared memory as f32, rows padded by 4 floats so
+//   that 16-byte reads of 8 different rows fall in different banks: q 64 x
+//   hd, k and v 64 x hd, probabilities 64 x 64 (217,088 bytes at hd 256).
 // - Thread (ty, tx) of a 16 x 16 grid owns query rows 4ty .. 4ty+3 in both
 //   products: scores for keys tx + 16j, and output columns 4tx + 64j. The
 //   16 threads that share rows form half a warp, so the running max and sum
-//   are reduced with warp shuffles and stay in registers, and the
-//   probability tile they write is read back by the same warp after a
-//   __syncwarp. Products are f32 FMAs from 16-byte shared-memory reads.
-// - hd is padded with zeros to the tile width (64, 128 or 256); ragged S
-//   and T are masked per row and per key.
+//   are reduced with warp shuffles and stay in registers. Products are f32
+//   FMAs from 16-byte shared-memory reads.
+//
+// Both launches opt in to more than 48 KB of shared memory with
+// cudaFuncSetAttribute; a refused launch returns its CUDA error, which the
+// wrapper raises on.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -51,10 +90,15 @@
 namespace repro_torch {
 namespace {
 
+constexpr float kNegInf = -1073741824.0f;   // -2^30, the plain version's NEG_INF
+
+// ---------------------------------------------------------------------------
+// f32: the SIMT kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;
-constexpr float kNegInf = -1073741824.0f;   // -2^30, the plain version's NEG_INF
 
 template <typename T>
 struct Io;
@@ -68,28 +112,6 @@ struct Io<float> {
     *reinterpret_cast<float4*>(p) = v;
   }
   static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(h[0]);
-    const float2 b = __bfloat1622float2(h[1]);
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store4(float4 v, __nv_bfloat16* p) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&lo);
-    raw.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
 };
 
 __device__ __forceinline__ float half_warp_max(float v) {
@@ -315,21 +337,693 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, long long B,
-           long long S, long long T_len, long long H, long long K, long long hd,
-           const long long* strides, int causal, int window, float softcap,
-           float scale, void* stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               long long B, long long S, long long T_len, long long H,
+               long long K, long long hd, const long long* strides, int causal,
+               int window, float softcap, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd <= 64)
-    return launch_hd<T, 64>(q, k, v, out, B, S, T_len, H, K, hd, strides,
-                            causal, window, softcap, scale, s);
+    return launch_hd<float, 64>(q, k, v, out, B, S, T_len, H, K, hd, strides,
+                                causal, window, softcap, scale, s);
   if (hd <= 128)
-    return launch_hd<T, 128>(q, k, v, out, B, S, T_len, H, K, hd, strides,
-                             causal, window, softcap, scale, s);
-  return launch_hd<T, 256>(q, k, v, out, B, S, T_len, H, K, hd, strides,
-                           causal, window, softcap, scale, s);
+    return launch_hd<float, 128>(q, k, v, out, B, S, T_len, H, K, hd,
+                                 strides, causal, window, softcap, scale, s);
+  return launch_hd<float, 256>(q, k, v, out, B, S, T_len, H, K, hd, strides,
+                               causal, window, softcap, scale, s);
 }
+
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), TMA, warp specialisation
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kBQ = 128;       // query rows per block, 64 per consumer warpgroup
+constexpr int kBK = 64;        // keys per kv tile
+constexpr int kStages = 2;     // ring depth of the k and v tiles
+constexpr int kThreads = 384;  // warpgroups 0 and 1 compute, 2 loads
+constexpr int kBoxCols = 64;   // bf16 columns per TMA box (the 128-byte swizzle)
+constexpr uint32_t kBoxBytes = 64 * 128;   // one box: 64 rows of 128 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTensorMapRefused = -1;      // returned when a TMA map is refused
+
+// Shared memory, in bytes from a 1024-byte aligned base (the swizzle's
+// period): q (one 64-row tile per consumer), the k ring, the v ring, then
+// the mbarriers.
+template <int HDP>
+struct Layout {
+  static constexpr int kBoxes = HDP / kBoxCols;
+  static constexpr uint32_t kTile = kBoxes * kBoxBytes;   // 64 rows x HDP
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = 2 * kTile;
+  static constexpr uint32_t kV = kK + kStages * kTile;
+  static constexpr uint32_t kBar = kV + kStages * kTile;
+  static constexpr uint32_t kBytes = kBar + 128 + 1024;   // + alignment slack
+};
+
+// mbarrier indices: q full; k full, v full, k empty, v empty per stage
+__device__ __forceinline__ int bar_k_full(int s) { return 1 + s; }
+__device__ __forceinline__ int bar_v_full(int s) { return 1 + kStages + s; }
+__device__ __forceinline__ int bar_k_empty(int s) { return 1 + 2 * kStages + s; }
+__device__ __forceinline__ int bar_v_empty(int s) { return 1 + 3 * kStages + s; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// wait until the phase of the given parity has completed. (No watchdog
+// trap in the loop: a trap anywhere in the kernel makes ptxas ignore
+// setmaxnreg, spill the consumers' accumulators and serialize the wgmma
+// instructions, 2.3 times slower; tools/kernel_variants.py.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 4-d map at (column, head, row, batch) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c, int h, int r,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c),
+         "r"(h), "r"(r), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 1 in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (q, k): rows of 128 bytes, 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
+  return smem_desc(addr, 16, 1024);
+}
+
+// MN-major operand (v read as k x hd): 64-column boxes kBoxBytes apart,
+// 8-key groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
+  return smem_desc(addr, kBoxBytes, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of wgmma registers (accumulators,
+// and the A operand, read asynchronously) across the asynchronous
+// instructions, or reusing them before the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// tanh within a few f32 ulps: 1 - 2 / (e^{2x} + 1)
+__device__ __forceinline__ float tanh_exp(float x) {
+  return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f);
+}
+
+// running max and (per-thread partial) sum of a thread's two rows
+struct Rows {
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+};
+
+// Scores of one 64-key tile (the wgmma fragment: element e of a thread is
+// row row0 + 8 ((e / 2) % 2), key k0 + 8 (e / 4) + col0 + e % 2) to f32
+// probabilities in place, with the running max and sum updated and the
+// rescale factors of the output rows returned. Softcap, then the masks
+// (edge tiles only), then the online softmax.
+__device__ __forceinline__ void probabilities(
+    float (&sc)[32], Rows& rows, float& corr0, float& corr1, bool edge,
+    int k0, int row0, int col0, int T_len, int causal, int window,
+    float softcap, float inv_cap) {
+  if (softcap > 0.f) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sc[e] = softcap * tanh_exp(sc[e] * inv_cap);
+  }
+  uint32_t ok = 0xffffffffu;
+  if (edge) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int kp = k0 + 8 * (e / 4) + col0 + (e & 1);
+      const int qp = row0 + ((e & 2) ? 8 : 0);
+      const bool v = kp < T_len && (!causal || kp <= qp) &&
+                     (window <= 0 || kp > qp - window);
+      if (!v) {
+        ok &= ~(1u << e);
+        sc[e] = kNegInf;
+      }
+    }
+  }
+  float mx0 = rows.m0, mx1 = rows.m1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  // the 4 threads of a quad hold one row's 64 keys
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  corr0 = exp2f((rows.m0 - mx0) * kLog2e);
+  corr1 = exp2f((rows.m1 - mx1) * kLog2e);
+  rows.m0 = mx0;
+  rows.m1 = mx1;
+  const float ms0 = mx0 * kLog2e, ms1 = mx1 * kLog2e;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const bool r1 = e & 2;
+    const float p = (ok >> e) & 1u
+                        ? exp2f(fmaf(sc[e], kLog2e, r1 ? -ms1 : -ms0))
+                        : 0.f;
+    sc[e] = p;
+    if (r1) rs1 += p; else rs0 += p;
+  }
+  // per-thread partial sums; the quad adds them up at the end
+  rows.l0 = rows.l0 * corr0 + rs0;
+  rows.l1 = rows.l1 * corr1 + rs1;
+}
+
+// p = hi + lo, both bf16, in the A-operand layout of P v (element pair
+// (2e, 2e + 1) of the score fragment is register e): hi alone would add
+// a bf16 rounding of P (up to 2^-8 relative) to the plain version's own;
+// hi + lo is within 2^-16 of p.
+__device__ __forceinline__ void split_bf16(const float (&p)[32],
+                                           uint32_t (&hi)[16],
+                                           uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p[2 * e], p[2 * e + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[e] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[e] = pack_bf16(p[2 * e] - hf.x, p[2 * e + 1] - hf.y);
+  }
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16) . B (16 x 64); A and B in shared
+// memory, both K-major, 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) . B (16 x 64); B in
+// shared memory, MN-major (transposed), 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D (64 x 128, f32) += A (64 x 16, bf16 registers) . B (16 x 128); B in
+// shared memory, MN-major (transposed), 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D (64 x 256, f32) += A (64 x 16, bf16 registers) . B (16 x 256); B in
+// shared memory, MN-major (transposed), 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HDP == 64) wgmma_rs_m64n64(o, a, db, 1);
+  else if constexpr (HDP == 128) wgmma_rs_m64n128(o, a, db, 1);
+  else wgmma_rs_m64n256(o, a, db, 1);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_kernel_tc(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              __nv_bfloat16* __restrict__ out, int S,
+                              int T_len, int H, int group, int hd, int causal,
+                              int window, float softcap, float scale) {
+  using L = Layout<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  auto bar = [base](int i) { return base + L::kBar + 8u * i; };
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int b = blockIdx.z;
+
+  // the key tiles some query of this block can see
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int k_hi = causal ? min(T_len - 1, q_last) : T_len - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt_first = k_lo / kBK;
+  const int n_tiles = k_hi >= k_lo ? k_hi / kBK - kt_first + 1 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar(0), 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar(bar_k_full(s)), 1);
+      mbar_init(bar(bar_v_full(s)), 1);
+      mbar_init(bar(bar_k_empty(s)), 256);   // every consumer thread arrives
+      mbar_init(bar(bar_v_empty(s)), 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      const int kvh = h / group;
+      mbar_expect_tx(bar(0), 2 * L::kTile);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(base + L::kQ + w * L::kTile + c * kBoxBytes, &map_q,
+                   bar(0), c * kBoxCols, h, q0 + 64 * w, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t parity = (i / kStages) & 1;
+        const int k0 = (kt_first + i) * kBK;
+        mbar_wait(bar(bar_k_empty(s)), parity ^ 1);
+        mbar_expect_tx(bar(bar_k_full(s)), L::kTile);
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(base + L::kK + s * L::kTile + c * kBoxBytes, &map_k,
+                   bar(bar_k_full(s)), c * kBoxCols, kvh, k0, b);
+        mbar_wait(bar(bar_v_empty(s)), parity ^ 1);
+        mbar_expect_tx(bar(bar_v_full(s)), L::kTile);
+        for (int c = 0; c < L::kBoxes; ++c)
+          tma_load(base + L::kV + s * L::kTile + c * kBoxBytes, &map_v,
+                   bar(bar_v_full(s)), c * kBoxCols, kvh, k0, b);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows qa .. qa + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int qa = q0 + 64 * wg;
+    const bool active = qa < S;
+    const int qb = min(qa + 63, S - 1);
+    const int row0 = qa + 16 * warp + (lane >> 2), row1 = row0 + 8;
+    const int col0 = 2 * (lane & 3);
+    const int wk_hi = causal ? min(T_len - 1, qb) : T_len - 1;
+    const int wk_lo = window > 0 ? max(0, qa - window + 1) : 0;
+    const uint32_t sq = base + L::kQ + wg * L::kTile;
+    const float inv_cap = softcap > 0.f ? 1.0f / softcap : 0.f;
+
+    if (active) {
+      // q_scaled = q * scale rounded to bf16, in place (elementwise, so the
+      // swizzle does not matter), then made visible to the tensor cores
+      mbar_wait(bar(0), 0);
+      uint4* qv = reinterpret_cast<uint4*>(smem + L::kQ + wg * L::kTile);
+      for (int i = t; i < static_cast<int>(L::kTile / 16); i += 128) {
+        uint4 x = qv[i];
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(e[j]);
+          e[j] = __floats2bfloat162_rn(__fmul_rn(f.x, scale),
+                                       __fmul_rn(f.y, scale));
+        }
+        qv[i] = x;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      warpgroup_sync(1 + wg);
+    }
+
+    float o[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+    Rows rows;
+
+    // The tiles this warpgroup's rows see are a contiguous run i_lo .. i_hi
+    // of the block's; the others are still waited for and released, in
+    // order, but not computed.
+    const int i_lo = active ? max(0, wk_lo / kBK - kt_first) : n_tiles;
+    const int i_hi = active ? min(n_tiles - 1, wk_hi / kBK - kt_first) : -1;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      const bool vis = i_lo <= i && i <= i_hi;
+      const int k0 = (kt_first + i) * kBK;
+
+      // S = q k^T on the tensor cores
+      float sc[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      mbar_wait(bar(bar_k_full(s)), parity);
+      if (vis) {
+        __syncwarp();   // converged for the .aligned wgmma instructions
+        const uint32_t sk = base + L::kK + s * L::kTile;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < HDP / 16; ++ks) {
+          const uint32_t off = (ks / 4) * kBoxBytes + (ks % 4) * 32;
+          wgmma_ss_m64n64(sc, desc_k_major(sq + off), desc_k_major(sk + off),
+                          ks > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+      }
+      mbar_arrive(bar(bar_k_empty(s)));
+
+      // probabilities, split for P v; the output rows rescaled
+      uint32_t ph[16], pl[16];
+      if (vis) {
+        const bool edge = !(k0 + kBK - 1 < T_len &&
+                            (!causal || k0 + kBK - 1 <= qa) &&
+                            (window <= 0 || k0 > qb - window));
+        float corr0, corr1;
+        probabilities(sc, rows, corr0, corr1, edge, k0, row0, col0, T_len,
+                      causal, window, softcap, inv_cap);
+        split_bf16(sc, ph, pl);
+#pragma unroll
+        for (int j = 0; j < HDP / 8; ++j) {
+          o[4 * j] *= corr0;
+          o[4 * j + 1] *= corr0;
+          o[4 * j + 2] *= corr1;
+          o[4 * j + 3] *= corr1;
+        }
+      }
+
+      // O += (P_hi + P_lo) v on the tensor cores
+      mbar_wait(bar(bar_v_full(s)), parity);
+      if (vis) {
+        __syncwarp();
+        const uint32_t sv = base + L::kV + s * L::kTile;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks) {
+          const uint64_t dv = desc_mn_major(sv + ks * 16 * 128);
+          const uint32_t ah[4] = {ph[4 * ks], ph[4 * ks + 1], ph[4 * ks + 2],
+                                  ph[4 * ks + 3]};
+          const uint32_t al[4] = {pl[4 * ks], pl[4 * ks + 1], pl[4 * ks + 2],
+                                  pl[4 * ks + 3]};
+          wgmma_pv<HDP>(o, ah, dv);
+          wgmma_pv<HDP>(o, al, dv);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(o);
+        fence_regs(ph);
+        fence_regs(pl);
+      }
+      mbar_arrive(bar(bar_v_empty(s)));
+    }
+
+    if (active) {
+      float l0 = rows.l0, l1 = rows.l1;
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+      const int64_t H64 = H;
+      __nv_bfloat16* o0 =
+          out + ((static_cast<int64_t>(b) * S + row0) * H64 + h) * hd;
+      __nv_bfloat16* o1 = o0 + 8 * H64 * hd;
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int c = 8 * j + col0;
+        if (c < hd) {
+          if (row0 < S)
+            *reinterpret_cast<__nv_bfloat162*>(o0 + c) =
+                __floats2bfloat162_rn(o[4 * j] / d0, o[4 * j + 1] / d0);
+          if (row1 < S)
+            *reinterpret_cast<__nv_bfloat162*>(o1 + c) =
+                __floats2bfloat162_rn(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+        }
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-d map over a bf16 (batch, seq, heads, hd_in) tensor with unit hd
+// stride, boxes of 64 rows x 64 columns, 128-byte swizzle, zeros out of
+// bounds
+bool encode(CUtensorMap* map, const void* ptr, long long hd_in,
+            long long heads, long long seq, long long batch, long long s_head,
+            long long s_seq, long long s_batch) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd_in),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_seq) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HDP>
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              long long B, long long S, long long T_len, long long H,
+              long long K, long long hd, long long hd_in, const long long* st,
+              int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!encode(&mq, q, hd_in, H, S, B, st[2], st[1], st[0]) ||
+      !encode(&mk, k, hd_in, K, T_len, B, st[5], st[4], st[3]) ||
+      !encode(&mv, v, hd_in, K, T_len, B, st[8], st[7], st[6]))
+    return kTensorMapRefused;
+  constexpr uint32_t smem = Layout<HDP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel_tc<HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(H), static_cast<unsigned>((S + kBQ - 1) / kBQ),
+            static_cast<unsigned>(B));
+  flash_attention_kernel_tc<HDP><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<int>(S),
+      static_cast<int>(T_len), static_cast<int>(H), static_cast<int>(H / K),
+      static_cast<int>(hd), causal, window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, long long B,
+           long long S, long long T_len, long long H, long long K, long long hd,
+           long long hd_in, const long long* st, int causal, int window,
+           float softcap, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd_in <= 64)
+    return launch_hd<64>(q, k, v, out, B, S, T_len, H, K, hd, hd_in, st,
+                         causal, window, softcap, scale, s);
+  if (hd_in <= 128)
+    return launch_hd<128>(q, k, v, out, B, S, T_len, H, K, hd, hd_in, st,
+                          causal, window, softcap, scale, s);
+  return launch_hd<256>(q, k, v, out, B, S, T_len, H, K, hd, hd_in, st, causal,
+                        window, softcap, scale, s);
+}
+
+}  // namespace tc
 
 }  // namespace
 }  // namespace repro_torch
@@ -342,17 +1036,21 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    long long hd, const long long* strides,
                                    int causal, int window, float softcap,
                                    float scale, void* stream) {
-  return repro_torch::launch<float>(q, k, v, out, B, S, T, H, K, hd, strides,
-                                    causal, window, softcap, scale, stream);
+  return repro_torch::launch_f32(q, k, v, out, B, S, T, H, K, hd, strides,
+                                 causal, window, softcap, scale, stream);
 }
 
+// bf16: q, k, v hold hd_in >= hd columns (hd rounded up to 8, the extra
+// ones zero), with 16-byte aligned bases and strides (TMA); out holds hd.
+// Returns -1 if the driver refuses a tensor map.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* out, long long B, long long S,
                                     long long T, long long H, long long K,
-                                    long long hd, const long long* strides,
-                                    int causal, int window, float softcap,
-                                    float scale, void* stream) {
-  return repro_torch::launch<__nv_bfloat16>(q, k, v, out, B, S, T, H, K, hd,
-                                            strides, causal, window, softcap,
-                                            scale, stream);
+                                    long long hd, long long hd_in,
+                                    const long long* strides, int causal,
+                                    int window, float softcap, float scale,
+                                    void* stream) {
+  return repro_torch::tc::launch(q, k, v, out, B, S, T, H, K, hd, hd_in,
+                                 strides, causal, window, softcap, scale,
+                                 stream);
 }

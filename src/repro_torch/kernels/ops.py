@@ -235,11 +235,12 @@ rglru_scan.launches = 0
 
 
 def _kernel_layout(t):
-    """``t`` itself when the kernel can read it with 4-element vector
-    loads (unit head_dim stride, other strides multiples of 4, 16-byte
-    aligned base), else a contiguous copy."""
-    ok = (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
-          and t.data_ptr() % 16 == 0)
+    """``t`` itself when the kernel can read it with 16-byte loads (f32)
+    or TMA boxes (bf16): unit head_dim stride, the other strides positive
+    multiples of 16 bytes, 16-byte aligned base; else a contiguous copy."""
+    ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+          and all(st > 0 and st * t.element_size() % 16 == 0
+                  for st in t.stride()[:-1]))
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -265,8 +266,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if hd > 256 or hd % 4:
         raise ValueError(f"head_dim={hd}: the kernel takes head_dim <= 256 "
                          "and a multiple of 4")
-    if B > _GRID_YZ or H > _GRID_YZ or max(S, T) > _INT_MAX // 2 \
-            or window > _INT_MAX:
+    if B > _GRID_YZ or H > _GRID_YZ or -(-S // 128) > _GRID_YZ \
+            or max(S, T) > _INT_MAX // 2 or window > _INT_MAX:
         raise ValueError(f"B={B}, H={H}, S={S}, T={T} or window={window} "
                          "exceeds the kernel's grid or int positions")
     out = torch.empty(B, S, H, hd, dtype=q.dtype, device=q.device)
@@ -274,22 +275,38 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     if T == 0:
         raise ValueError("flash_attention needs T >= 1")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and hd % 8:
+        # TMA rows are 16-byte multiples: pad head_dim with zero columns
+        # (zero q/k terms, v columns the kernel does not store)
+        q, k, v = (torch.nn.functional.pad(t, (0, 8 - hd % 8))
+                   for t in (q, k, v))
     q, k, v = (_kernel_layout(t) for t in (q, k, v))
     strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
                                         for s in t.stride()[:3]))
     scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))
-    bf16 = q.dtype == torch.bfloat16
-    fn_name = "flash_attention_bf16" if bf16 else "flash_attention_f32"
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T,
+            H, K, hd]
+    if bf16:
+        fn_name = "flash_attention_bf16"
+        args.append(q.shape[-1])
+    else:
+        fn_name = "flash_attention_f32"
     lib = _lib("flash_attention", [
-        (n, [_VP, _VP, _VP, _VP, _LL, _LL, _LL, _LL, _LL, _LL, _PLL, _I, _I,
-             _F, _F, _VP])
-        for n in ("flash_attention_f32", "flash_attention_bf16")])
+        ("flash_attention_f32", [_VP] * 4 + [_LL] * 6 + [_PLL, _I, _I, _F, _F,
+                                                          _VP]),
+        ("flash_attention_bf16", [_VP] * 4 + [_LL] * 7 + [_PLL, _I, _I, _F,
+                                                           _F, _VP])])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, fn_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, K, hd, strides, int(bool(causal)), max(int(window), 0),
+            *args, strides, int(bool(causal)), max(int(window), 0),
             float(softcap), scale, stream)
+    if err == -1:
+        raise RuntimeError(
+            f"{fn_name}: the driver refused a TMA tensor map for q, k, v of "
+            f"shapes {[tuple(t.shape) for t in (q, k, v)]}, strides "
+            f"{list(strides)}")
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     flash_attention.launches += 1

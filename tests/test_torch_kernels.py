@@ -229,7 +229,14 @@ def test_cuda_quant_kernel_matches_plain(cuda, H, N, qblock):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,W,h0", [(2, 100, 48, True), (1, 37, 4096, False),
-                                      (4, 1024, 520, True)])
+                                      (4, 1024, 520, True),
+                                      # T not a multiple of the 16-step tile
+                                      (1, 1000, 520, True),
+                                      # the serving width at its batch
+                                      (4, 200, 4096, True),
+                                      # W not 16-byte aligned in bf16 / in
+                                      # both: tiles filled by plain loads
+                                      (2, 65, 100, False), (2, 37, 37, True)])
 def test_cuda_rglru_scan_matches_plain(cuda, B, T, W, h0, dtype):
     """Same steps in the same order, expf and no FMA contraction: equal
     bit for bit, ragged T and W included."""
@@ -256,6 +263,13 @@ def test_cuda_rglru_scan_matches_plain(cuda, B, T, W, h0, dtype):
     (1, 128, 4, 2, 128, False, 0, 0.0),
     (2, 300, 16, 1, 256, True, 128, 30.0),   # recurrentgemma's shape, cut
     (1, 77, 2, 2, 16, True, 32, 0.0),
+    # tile edges: S, T not multiples of 64 or 128, windows not multiples of
+    # 64, H/K of 1, 2 and 16, hd of 16, 120, 256 and one not a multiple of 8
+    (1, 200, 16, 16, 256, True, 100, 30.0),
+    (1, 1000, 16, 1, 256, True, 300, 30.0),
+    (2, 200, 4, 2, 16, True, 100, 0.0),
+    (1, 1000, 2, 1, 120, False, 300, 0.0),
+    (1, 200, 2, 2, 20, True, 0, 0.0),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, B, S, H, K, hd, causal,
                                             window, softcap, dtype):
@@ -276,21 +290,55 @@ def test_cuda_flash_attention_matches_plain(cuda, B, S, H, K, hd, causal,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["transposed", "sliced"])
+def test_cuda_flash_attention_strided_views(cuda, view, dtype):
+    """q, k, v as views (heads-major storage, or a slice of wider rows) and
+    T != S give what their contiguous copies give, bit for bit."""
+    rng = np.random.default_rng(11)
+    B, S, T, H, K, hd = 2, 200, 330, 4, 2, 64
+
+    def make(n, L):
+        x = torch.from_numpy(rng.standard_normal(
+            (B, n, L, 2 * hd) if view == "sliced" else (B, n, L, hd))
+            .astype(np.float32)).to(cuda, dtype)
+        return x[..., :hd] if view == "sliced" else \
+            x.transpose(1, 2).contiguous().transpose(1, 2)
+
+    q, k, v = make(S, H), make(T, K), make(T, K)
+    assert not q.is_contiguous()
+    for kw in (dict(causal=True, window=100, softcap=30.0),
+               dict(causal=False, window=0, softcap=0.0)):
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        plain = ref.attention_reference(q, k, v, **kw)
+        tol = 2e-3 if dtype == torch.float32 else 6e-2
+        torch.testing.assert_close(got.float(), plain.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [128, 100])
 @pytest.mark.parametrize("qscale", [1.0, 20.0])
-def test_cuda_flash_attention_bf16_within_rounding(cuda, qscale):
+def test_cuda_flash_attention_bf16_within_rounding(cuda, qscale, window):
     """bf16 at recurrentgemma's heads, cut in length, against the plain
     version to within its roundings: the plain version rounds each
-    probability to bf16 (relative error <= 2^-9) and both round the output
-    (ulp <= 2^-7 |x|), so |kernel - plain| <= 2^-7 |plain| + 2^-9 P|v|,
-    gated at twice the second term plus 1e-5. At q x 20 the scores reach
-    the softcap, and the same gate refuses the uncapped attention."""
+    probability to bf16 (relative error <= 2^-8; the kernel carries them
+    as two bf16 terms, within 2^-16) and both round the output (ulp <=
+    2^-7 |x|), so |kernel - plain| <= 2^-7 |plain| + 2^-8 P|v|, gated at
+    that plus 1e-5. At q x 20 the scores reach the softcap, and the same
+    gate refuses the uncapped attention. A window of 100 puts its lower
+    edge inside kv tiles."""
     rng = np.random.default_rng(7)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda) for s in ((2, 300, 16, 256), (2, 300, 1, 256),
                                    (2, 300, 1, 256)))
     q = (q * qscale).to(torch.bfloat16)
     k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-    kw = dict(causal=True, window=128, softcap=30.0)
+    kw = dict(causal=True, window=window, softcap=30.0)
     got = ops.flash_attention(q, k, v, **kw).float()
     want = ref.attention_reference(q, k, v, **kw).float()
     pv = ref.attention_reference(q.float(), k.float(), v.float().abs(), **kw)
@@ -298,5 +346,5 @@ def test_cuda_flash_attention_bf16_within_rounding(cuda, qscale):
     assert float(((got - want).abs() / gate).max()) <= 1.0
     if qscale > 1:
         uncapped = ref.attention_reference(q, k, v, causal=True,
-                                           window=128).float()
+                                           window=window).float()
         assert float(((uncapped - want).abs() / gate).max()) > 1.0

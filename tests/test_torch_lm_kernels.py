@@ -193,3 +193,36 @@ def test_flash_attention_plain_is_the_model_reference():
                dict(causal=False, window=0, softcap=0.0)):
         assert torch.equal(ops.flash_attention(q, k, k, **kw),
                            ref.attention_reference(q, k, k, **kw))
+
+
+def _layout_views():
+    """q/k/v-shaped views the attention wrapper may hand its kernel, with
+    whether the kernel can read each as it is (16-byte multiple strides,
+    16-byte aligned base, unit head_dim stride)."""
+    x = torch.zeros(2, 6, 4, 64, dtype=torch.bfloat16)
+    wide = torch.zeros(2, 6, 4, 128, dtype=torch.bfloat16)
+    heads = torch.zeros(2, 4, 6, 64, dtype=torch.bfloat16)
+    flat = torch.zeros(2 * 6 * 4 * 64 + 1, dtype=torch.bfloat16)
+    return {
+        "contiguous": (x, True),
+        "row slice": (wide[..., :64], True),
+        "heads-major": (heads.transpose(1, 2), True),
+        "expanded kv head": (x[:, :, :1].expand(2, 6, 4, 64), False),
+        "unaligned base": (flat[1:].view(2, 6, 4, 64), False),
+        "head_dim stride 2": (wide[..., ::2], False),
+        "f32 contiguous": (x.float(), True),
+    }
+
+
+@pytest.mark.parametrize("name", list(_layout_views()))
+def test_attention_kernel_layout(name):
+    """``_kernel_layout`` passes a view the kernel can read (TMA boxes in
+    bf16, 16-byte loads in f32) through untouched and copies any other
+    into a contiguous tensor that it can, with the same values."""
+    t, readable = _layout_views()[name]
+    got = ops._kernel_layout(t)
+    assert (got is t) == readable
+    assert torch.equal(got, t) and got.stride(-1) == 1
+    assert got.data_ptr() % 16 == 0
+    assert all(st > 0 and st * got.element_size() % 16 == 0
+               for st in got.stride()[:-1])

@@ -1,0 +1,190 @@
+"""Variants of the hand-written LM kernels against the shipped ones, on
+one CUDA card.
+
+A variant is the repository's own source with named text substitutions
+(a constant changed, a term dropped). The script builds each variant with
+nvcc (the flags of ``repro_torch.kernels.build``, one process per source,
+all started together) and prints ptxas's registers and spills. It then
+swaps each variant in behind the port's wrapper
+(``repro_torch.kernels.ops``), holds it to the plain version on the same
+seeded inputs, and times it at recurrentgemma-9b's prefill shapes (median
+of 20 calls, CUDA events).
+
+  python3 tools/kernel_variants.py rglru 64,16,3 64,32,5
+      RG-LRU scan ring shapes (channels per block, steps per tile, ring
+      depth) at (4, 4096, 4096) f32; each must equal the plain version
+      bit for bit.
+  python3 tools/kernel_variants.py attention
+      The flash-attention variants in ATTENTION below, at q (4, 4096, 16,
+      256), k/v (4, 4096, 1, 256) bf16, window 2048, softcap 30; the
+      share of chip_smoke.py's bf16 rounding gate at q x 1 and q x 20
+      (batch 1, as there).
+
+It exits non-zero without a CUDA card, and if a build fails.
+"""
+import ctypes
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+OUT = ROOT / "build" / "kernel_variants"
+
+# the shipped wait loop, and the same loop with a watchdog trap
+_WAIT = "  uint32_t done;\n  do {"
+_WAIT_END = "  } while (!done);"
+ATTENTION = {
+    "shipped": [],
+    # P rounded once to bf16, as FlashAttention-3 does: the P_lo product
+    # dropped
+    "p_hi_only": [("          wgmma_pv<HDP>(o, al, dv);\n", "")],
+    # a trap after 2^22 polls of an mbarrier
+    "trap_in_wait": [(_WAIT, "  uint32_t done, n = 0;\n  do {"),
+                     (_WAIT_END,
+                      "    if (++n == (1u << 22)) __trap();\n" + _WAIT_END)],
+}
+
+
+def rglru_variant(spec):
+    ch, steps, stages = spec.split(",")
+    return [("constexpr int kCh = 64;", f"constexpr int kCh = {ch};"),
+            ("constexpr int kSteps = 16;", f"constexpr int kSteps = {steps};"),
+            ("constexpr int kStages = 3;", f"constexpr int kStages = {stages};")]
+
+
+def build_variants(source, variants):
+    """{name: path of the built library}; prints each ptxas summary."""
+    from repro_torch.kernels import build
+    text = (CSRC / f"{source}.cu").read_text()
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in variants.items():
+        src = text
+        for old, new in subs:
+            if old not in src:
+                raise SystemExit(f"variant {name}: {old!r} not in {source}.cu")
+            src = src.replace(old, new)
+        stem = f"{source}_{name.replace(',', '_')}"   # nvcc splits on ','
+        cu = OUT / f"{stem}.cu"
+        cu.write_text(src)
+        lib = OUT / f"lib{stem}.so"
+        procs[name] = (subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
+    libs = {}
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"variant {name} failed to build:\n{log}")
+        info = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or "C75" in ln]
+        print(f"{source} {name}: {' | '.join(info)}", flush=True)
+        libs[name] = lib
+    return libs
+
+
+def use(source, lib):
+    """Put a variant's library behind the port's wrapper."""
+    from repro_torch.kernels import build
+    build._LIBS[source] = ctypes.CDLL(str(lib))
+
+
+def median_ms(fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def run_rglru(specs, gen):
+    from repro_torch.kernels import ops, ref
+    libs = build_variants("rglru_scan", {s: rglru_variant(s) for s in specs})
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    log_a = -8.0 * F.softplus(randn(4096) - 6.0) * torch.sigmoid(
+        randn(4, 4096, 4096))
+    b, h0 = randn(4, 4096, 4096), randn(4, 4096)
+    want, want_last = ref.rglru_scan_reference(log_a, b, h0)
+    for spec, lib in libs.items():
+        use("rglru_scan", lib)
+        h, h_last = ops.rglru_scan(log_a, b, h0)
+        equal = torch.equal(h, want) and torch.equal(h_last, want_last)
+        ms = median_ms(lambda: ops.rglru_scan(log_a, b, h0))
+        print(f"rglru_scan (channels, steps, ring) = ({spec}): equal to "
+              f"plain {equal}, kernel_ms={ms}", flush=True)
+
+
+def run_attention(gen):
+    from repro_torch.kernels import ops, ref
+    libs = build_variants("flash_attention", ATTENTION)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+
+    kw = dict(causal=True, window=2048, softcap=30.0)
+    gates = []
+    for qscale in (1.0, 20.0):
+        q, k, v = randn(1, 4096, 16, 256), randn(1, 4096, 1, 256), \
+            randn(1, 4096, 1, 256)
+        q = (q.float() * qscale).to(torch.bfloat16)
+        want = ref.attention_reference(q, k, v, **kw).float()
+        pv = ref.attention_reference(q.float(), k.float(), v.float().abs(),
+                                     **kw)
+        gates.append((qscale, q, k, v, want,
+                      2.0 ** -7 * want.abs() + 2.0 ** -8 * pv + 1e-5))
+        del pv
+    q, k, v = randn(4, 4096, 16, 256), randn(4, 4096, 1, 256), \
+        randn(4, 4096, 1, 256)
+    for name, lib in libs.items():
+        use("flash_attention", lib)
+        shares = []
+        for qscale, q1, k1, v1, want, gate in gates:
+            got = ops.flash_attention(q1, k1, v1, **kw).float()
+            shares.append(f"q x {qscale}: "
+                          f"{float(((got - want).abs() / gate).max()):.4f}")
+        ms = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
+        ms0 = median_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                    window=2048))
+        print(f"flash_attention {name}: gate share {', '.join(shares)}; "
+              f"kernel_ms={ms} (softcap 0: {ms0})", flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: needs a CUDA card")
+    sys.path.insert(0, str(ROOT / "src"))
+    os.chdir(ROOT)
+    import repro_torch
+    repro_torch.set_f32_matmul()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"{torch.cuda.get_device_name(0)} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}; {smi}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    what = sys.argv[1] if len(sys.argv) > 1 else ""
+    if what == "rglru" and len(sys.argv) > 2:
+        run_rglru(sys.argv[2:], gen)
+    elif what == "attention":
+        run_attention(gen)
+    else:
+        raise SystemExit(__doc__)
+
+
+if __name__ == "__main__":
+    main()
