@@ -19,9 +19,25 @@ Phases (any failure exits non-zero; nothing is caught):
                 sparse plan, with codec int8 and with no codec; each run
                 is counted from 0 and must launch its own kernel once per
                 leaf per FL round, and the other kernel never.
-6. profile    — host wall and device kernel time of one case-study FL
+6. dynamic    — the same path on fading links and sleeping agents: the
+                engine at K = 256 (paper-DQN stacks, ring and small-world,
+                codecs None / int8 / int8:b64 / bf16, links fading, agents
+                sleeping, both): 4 rounds of ``scan_rounds`` on the sparse
+                plan equal its steps bit for bit, and each round the dense
+                plan from the same state within the engine gate; the
+                always-on reduction and a round in which every agent
+                sleeps, bit for bit; masks drawn on the card equal the
+                CPU's; B1/B2 on σ tables with zeros and λ^age weights equal
+                their plain versions; the case study with dropout_p = 0.3
+                and robots awake with p = 0.75 (τ = 2, λ = 0.9), codecs
+                int8 and None: launches as in ``casestudy``, the bill of the
+                wires the card delivered == the host replay and no more
+                than the static bill, E_total = Eq. (12) with the measured
+                joules; a profile of one dynamic FL round and the launches
+                its draws add.
+7. profile    — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
-7. lm_kernels — the RG-LRU scan and flash-attention kernels against their
+8. lm_kernels — the RG-LRU scan and flash-attention kernels against their
                 plain versions at recurrentgemma-9b's serving shapes (bf16
                 attention at scores of std 1 and of std 20, which the
                 softcap bends; a ragged bf16 case with a window that cuts
@@ -30,7 +46,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 bound, B4's achieved TFLOP/s, and ptxas's registers and
                 spills of the two sources. Every time is the median of 20
                 calls.
-8. serve      — ``repro_torch.launch.serve`` on full-width, full-depth
+9. serve      — ``repro_torch.launch.serve`` on full-width, full-depth
                 recurrentgemma-9b (random weights): 4 prompts of 4096
                 tokens, 32 greedy tokens; each prefill must launch the scan
                 26 and the attention kernel 12 times, decode neither. Then
@@ -84,6 +100,12 @@ T_START = time.perf_counter()
 def phase(name):
     """Print a phase header with the seconds since the script started."""
     print(f"\n== {name} == (t = {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
+
+
+def stamp(what):
+    """Print the seconds since the script started after a step."""
+    print(f"{what} done at t = {time.perf_counter() - T_START:.1f} s",
           flush=True)
 
 
@@ -291,7 +313,7 @@ def run_casestudy():
 
     t0, max_rounds = 4, 8
     own = {"int8": "quant_consensus_pop", None: "consensus_update_pop"}
-    by_path = {}
+    by_path, walls = {}, {}
     for spec in ("int8", None):
         cs = CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
                        codec=spec, device=DEVICE)
@@ -303,7 +325,7 @@ def run_casestudy():
         t = time.perf_counter()
         res = cs.run(gen, t0, max_rounds=max_rounds)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        wall = walls[spec] = time.perf_counter() - t
         got = launch_counts()
         s = res.summary()
         if len(res.meta_history) != t0 or not all(
@@ -329,7 +351,351 @@ def run_casestudy():
             fail(f"case study codec={spec} launched {got}, expected "
                  f"{want_launches}")
         by_path[str(spec).lower()] = got
-    return by_path
+    return by_path, walls
+
+
+# -- dynamic: fading links and sleeping agents -----------------------------------
+
+DYN_PROCESSES = ("dropout", "async", "both")
+
+
+def dynamic_kw(name):
+    """Engine arguments of one dynamic process: links fading with p = 0.3,
+    agents awake with p = 0.7 (τ = 2, λ = 0.9), or both."""
+    from repro_torch.core import topology
+    graph = dict(graph=topology.GraphProcess.dropout(0.3, seed=1))
+    agents = dict(agents=topology.AgentProcess.bernoulli(0.7), tau=2,
+                  staleness_decay=0.9)
+    return {"dropout": graph, "async": agents,
+            "both": dict(graph, **agents)}[name]
+
+
+def engine_gate(x):
+    """The engine phase's gate: same lanes on the wire, only the summation
+    order differs: 1e-5 plus 4 f32 ulps of the leaf's largest value."""
+    return 1e-5 + 4 * torch.finfo(torch.float32).eps * float(x.abs().max())
+
+
+def check_dynamic_engine(pops):
+    """K = 256 paper-DQN stacks on ring and small_world(k=4), codecs None,
+    int8, int8:b64 and bf16, three dynamic processes. The sparse plan's
+    4 rounds of ``scan_rounds`` equal the same rounds driven one call at a
+    time, bit for bit; in each of those rounds the dense plan, started
+    from the same state, agrees within the gate (params and EF residuals)
+    and draws the same activity and ages. Then the always-on reduction
+    and the dead round, bit for bit."""
+    from repro_torch.core import topology
+    from repro_torch.core.engine import AsyncState, ConsensusEngine
+
+    x = pops[K_POP]
+    worst = 0.0
+    for gname, topo in (("ring", topology.ring(K_POP)),
+                        ("small_world", topology.small_world(K_POP, k=4,
+                                                             seed=1))):
+        for spec in (None, "int8", "int8:b64", "bf16"):
+            for proc in DYN_PROCESSES:
+                kw = dynamic_kw(proc)
+                sparse = ConsensusEngine(topo, codec=spec, plan="sparse", **kw)
+                dense = ConsensusEngine(topo, codec=spec, plan="dense", **kw)
+                got, got_st = sparse.scan_rounds(x, rounds=4)
+                p, st = x, sparse.init_state(x)
+                is_async = sparse.agents is not None
+                if is_async:
+                    ast = sparse.init_async_state(device=DEVICE)
+                    dast = dense.init_async_state(device=DEVICE)
+                for t in range(4):
+                    if is_async:
+                        sp, sst, ast, ar = sparse.async_step(p, st, t=t,
+                                                             state=ast)
+                        dp, dst, dast, dar = dense.async_step(p, st, t=t,
+                                                              state=dast)
+                        idx = torch.as_tensor(sparse.lane_structure()[0],
+                                              device=DEVICE).long()
+                        rows = torch.arange(K_POP, device=DEVICE)[:, None]
+                        valid = torch.as_tensor(sparse.lane_structure()[1],
+                                                device=DEVICE)
+                        if not torch.equal(ar.act, dar.act) or not torch.equal(
+                                ar.age[valid], dar.age[rows, idx][valid]):
+                            fail(f"dynamic {gname} {spec} {proc} round {t}: "
+                                 "plans drew different activity or ages")
+                    else:
+                        sp, sst = sparse.step(p, st, t=t)
+                        dp, dst = dense.step(p, st, t=t)
+                    for k in x:
+                        gate = engine_gate(p[k])
+                        err = float((sp[k] - dp[k]).abs().max())
+                        if not torch.isfinite(sp[k]).all() or err > gate:
+                            fail(f"dynamic {gname} {spec} {proc} round {t} "
+                                 f"{k}: sparse vs dense {err} > {gate}")
+                        if sst is not None and float(
+                                (sst[k] - dst[k]).abs().max()) > gate:
+                            fail(f"dynamic {gname} {spec} {proc} round {t} "
+                                 f"{k}: EF residuals disagree")
+                        worst = max(worst, err / gate)
+                    p, st = sp, sst
+                for k in x:
+                    if not torch.equal(got[k], p[k]) or (
+                            st is not None and not torch.equal(got_st[k], st[k])):
+                        fail(f"dynamic {gname} {spec} {proc}: scan_rounds "
+                             "differs from its rounds one by one")
+        print(f"{gname}({K_POP}): codecs (None, int8, int8:b64, bf16) x "
+              f"{DYN_PROCESSES}: 4 rounds of scan_rounds on the sparse plan "
+              f"= its steps bit for bit; each round within the dense plan's "
+              f"gate; max err so far {worst:.3g} of the gate", flush=True)
+
+    ring = topology.ring(K_POP)
+    for spec in (None, "int8"):
+        for graph in (None, topology.GraphProcess.dropout(0.3, seed=1)):
+            lock = ConsensusEngine(ring, codec=spec, plan="sparse", graph=graph)
+            on = ConsensusEngine(ring, codec=spec, plan="sparse", graph=graph,
+                                 agents=topology.AgentProcess.always_on())
+            a, sa = lock.scan_rounds(x, rounds=2)
+            b, sb = on.scan_rounds(x, rounds=2)
+            if any(not torch.equal(a[k], b[k]) for k in x) or (
+                    sa is not None and any(not torch.equal(sa[k], sb[k])
+                                           for k in x)):
+                fail(f"always-on codec={spec} graph={graph!r} differs from "
+                     "lockstep")
+        dead = ConsensusEngine(ring, codec=spec, plan="sparse",
+                               agents=topology.AgentProcess.departure(
+                                   [0] * K_POP))
+        st = None if spec is None else {k: torch.full_like(v, 1e-3)
+                                        for k, v in x.items()}
+        p, st2, _, ar = dead.async_step(
+            x, st, t=0, state=dead.init_async_state(device=DEVICE))
+        if ar.act.any() or any(not torch.equal(p[k], x[k]) for k in x) or (
+                st is not None and any(not torch.equal(st2[k], st[k])
+                                       for k in x)):
+            fail(f"dead round codec={spec} moved params or residuals")
+    print(f"always-on (tau=None) = lockstep bit for bit on the sparse plan "
+          f"(static and fading ring({K_POP}), codecs None and int8); a round "
+          "in which every agent sleeps leaves params and residuals as they "
+          "were", flush=True)
+
+
+def check_dynamic_masks():
+    """Survival and availability drawn on the card for a chunk of rounds
+    equal the same draws on the CPU (dense grid, per-edge lanes through
+    the engine, per-agent rates)."""
+    import numpy as np
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+
+    topo = topology.small_world(K_POP, k=4, seed=1)
+    ts = torch.arange(3, 11)
+    rates = np.random.default_rng(0).uniform(size=K_POP)
+    pairs = []
+    for dev in ("cpu", DEVICE):
+        eng = ConsensusEngine(topo, plan="sparse", **dynamic_kw("both"))
+        pairs.append((
+            topology.survival_mask(topo.adjacency, 0.3,
+                                   topology.survival_key(7, dev),
+                                   ts.to(dev)).cpu(),
+            eng.round_survival(ts.to(dev)).cpu(),
+            eng.availability(ts.to(dev)).cpu(),
+            topology.availability_mask(K_POP, rates,
+                                       topology.availability_key(5, dev),
+                                       ts.to(dev)).cpu()))
+    names = ("survival (K, K)", "lanes (K, H)", "bernoulli availability",
+             "per-agent availability")
+    for name, a, b in zip(names, *pairs):
+        if not torch.equal(a, b):
+            fail(f"{name} masks drawn on the card differ from the CPU's")
+    print(f"masks of rounds 3..10 drawn on the card equal the CPU's: "
+          f"{', '.join(names)} (shares True: "
+          f"{[float(a.float().mean()) for a in pairs[1]]})", flush=True)
+
+
+def check_dynamic_kernels(pops, errs):
+    """B1 and B2 at the timed leaf (fc1.w, N = 262,144, K = 256) on σ tables
+    of async rounds with fading links: zeros on faded, sleeping and
+    padding lanes, λ^age weights on stale lanes. Gate as in ``kernels``."""
+    from repro_torch.comms import codecs
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+    from repro_torch.kernels import ops, ref
+
+    xf = pops[K_POP]["fc1.w"].reshape(K_POP, -1)
+    for gname, topo in (("ring", topology.ring(K_POP)),
+                        ("small_world", topology.small_world(K_POP, k=4,
+                                                             seed=1))):
+        eng = ConsensusEngine(topo, plan="sparse", **dynamic_kw("both"))
+        age = eng.init_async_state(device=DEVICE).age
+        fractional = zeros = 0
+        for t in range(4):
+            ar = eng.async_round(t, age)
+            age = ar.age
+            idx, sig = eng._lane_sigma(ar.weights)
+            w = ar.weights
+            fractional += int(((w > 0) & (w < 1)).sum())
+            zeros += int((sig == 0).sum())
+            for dtype in (torch.float32, torch.bfloat16):
+                xd = xf.to(dtype)
+                got = ops.consensus_update_pop(xd, idx, sig)
+                want = ref.consensus_update_pop_reference(xd, idx, sig)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                errs["consensus_update_pop"] = max(
+                    errs["consensus_update_pop"], err)
+                if err > (F32_TOL if dtype == torch.float32 else BF16_TOL):
+                    fail(f"consensus_update_pop {gname} round {t} {dtype}: "
+                         f"{err}")
+            for spec in ("int8", "int8:b64"):
+                c = codecs.get_codec(spec)
+                enc = c.encode_leaf(xf)
+                got = ops.quant_consensus_pop(xf, enc["q"], enc["scale"], idx,
+                                              sig, qblock=c.block)
+                want = ref.quant_consensus_pop_reference(
+                    xf, enc["q"], enc["scale"], idx, sig, c.block)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                errs["quant_consensus_pop"] = max(
+                    errs["quant_consensus_pop"], err)
+                if err > F32_TOL:
+                    fail(f"quant_consensus_pop {gname} round {t} {spec}: "
+                         f"{err}")
+        print(f"{gname}({K_POP}) fc1.w N={xf.shape[1]}: 4 async rounds with "
+              f"fading links, {zeros} sigma = 0 lanes and {fractional} "
+              f"lambda^age weights; B2 (f32, bf16) and B1 (int8, int8:b64) "
+              f"equal their plain versions (max err {errs})", flush=True)
+
+
+def run_dynamic_casestudy():
+    """The case study on fading links (p = 0.3) and sleeping robots
+    (awake with p = 0.75, τ = 2, λ = 0.9), sparse plan, codecs int8 and
+    None; each run counted from 0. Each must launch its own kernel once
+    per leaf per FL round computed and the other never; the bill of the
+    wires the card delivered equals the host replay (==) and is no more
+    than the static bill; E_total is Eq. (12) with the measured joules."""
+    import numpy as np
+    from repro_torch.core import energy, topology
+    from repro_torch.rl.casestudy import CaseStudy, delivered_comm_joules
+
+    t0, max_rounds = 4, 8
+    own = {"int8": "quant_consensus_pop", None: "consensus_update_pop"}
+    by_path, walls = {}, {}
+    for spec in ("int8", None):
+        cs = CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
+                       codec=spec, dropout_p=0.3,
+                       availability=topology.AgentProcess.bernoulli(0.75),
+                       tau=2, staleness_decay=0.9, device=DEVICE)
+        leaves = len(cs.init_params(torch.Generator(device=DEVICE)))
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        zero_counts()
+        t = time.perf_counter()
+        res = cs.run(gen, t0, max_rounds=max_rounds)
+        torch.cuda.synchronize()
+        walls[spec] = time.perf_counter() - t
+        got = launch_counts()
+        ep, base = cs.energy_params, cs.cluster_topology
+        static = base.round_comm_joules(ep, codec=cs.codec)
+        measured = res.fl_comm_joules_measured
+        if measured is None or len(measured) != 6:
+            fail(f"dynamic case study billed {measured}")
+        for tid, t_i in enumerate(res.rounds_per_task):
+            lanes = cs.fl_delivered[tid]
+            idx, _ = cs._engines[tid].lane_structure()
+            masks = np.zeros((t_i, base.K, base.K), bool)
+            for r in range(t_i):
+                masks[r, np.arange(base.K)[:, None], idx] = lanes[r]
+            bill = delivered_comm_joules(base, masks, ep, cs.codec)
+            if bill != measured[tid] or bill > t_i * static:
+                fail(f"task {tid}: card-delivered bill {bill} vs host replay "
+                     f"{measured[tid]}, static {t_i * static}")
+        want = energy.maml_energy(ep, t0, cs.network.Q) + sum(
+            energy.fl_learning_energy(ep, t_i, base) + c
+            for t_i, c in zip(res.rounds_per_task, measured))
+        if abs(res.E_total - want) > 1e-9 * want:
+            fail(f"E_total {res.E_total} != Eq. (12) {want}")
+        computed = sum(min(-(-r // cs.chunk) * cs.chunk, max_rounds)
+                       for r in res.rounds_per_task)
+        want_launches = {n: computed * leaves if n == own[spec] else 0
+                         for n in got}
+        print(f"dynamic codec={spec}: t_i={res.rounds_per_task} "
+              f"E_total_kJ={res.summary()['E_total_kJ']} comm_J={measured} "
+              f"(static bill {[t_i * static for t_i in res.rounds_per_task]}) "
+              f"wall_s={walls[spec]} launches={got} (expected "
+              f"{want_launches})", flush=True)
+        if got != want_launches:
+            fail(f"dynamic case study codec={spec} launched {got}, expected "
+                 f"{want_launches}")
+        by_path[f"dynamic_{str(spec).lower()}"] = got
+    return by_path, walls
+
+
+def profile_dynamic_round(rounds=3):
+    """Dynamic FL rounds (2 robots, int8, sparse plan, fading links and
+    sleeping robots) as the case study runs them: ``rounds`` rounds fed
+    by one chunk's draws, made beforehand. Host wall per round and, from
+    ``torch.profiler`` traces, kernels and device time per round; then a
+    chunk's draws (8 rounds of survival and availability in one call),
+    whose host time and kernels count 1/8 to each round, and one round's
+    ``async_round`` + lane σ (inside the round's kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import topology
+    from repro_torch.core.engine import AsyncState
+    from repro_torch.rl.casestudy import CaseStudy
+
+    cs = CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
+                   codec="int8", dropout_p=0.3,
+                   availability=topology.AgentProcess.bernoulli(0.75), tau=2,
+                   staleness_decay=0.9, device=DEVICE)
+    eng = cs.engine
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    C = cs.network.devices_per_cluster
+    stacked = {k: v.unsqueeze(0).expand((C,) + v.shape).clone()
+               for k, v in cs.init_params(gen).items()}
+    state = eng.init_state(stacked)
+    astate = eng.init_async_state(device=DEVICE)
+    acts_both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def draws():
+        ts = torch.arange(0, cs.chunk, device=DEVICE)
+        return eng.round_survival(ts), eng.availability(ts)
+
+    links, acts = draws()
+
+    def run():
+        nonlocal stacked, state, astate
+        for i in range(rounds):
+            ar = eng.async_round(i, astate.age, act=acts[i], link=links[i])
+            stacked, state, _ = cs.fl_round(0, stacked, state, gen,
+                                            survival=ar.weights, active=ar.act)
+            astate = AsyncState(astate.clock + ar.act.to(torch.int32), ar.age)
+        torch.cuda.synchronize()
+
+    run()                                            # warm-up
+    t = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t) / rounds * 1e3
+    with profile(activities=acts_both) as prof:
+        run()
+    out, kernels = trace_kernels(prof, "casestudy_dynamic_fl_round")
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / rounds / 1e3
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    draws()
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t) * 1e3
+    with profile(activities=acts_both) as prof:
+        draws()
+        torch.cuda.synchronize()
+    _, k_chunk = trace_kernels(prof, "chunk_draws")
+    with profile(activities=acts_both) as prof:
+        ar = eng.async_round(0, astate.age, act=acts[0], link=links[0])
+        eng._lane_sigma(ar.weights)
+        torch.cuda.synchronize()
+    _, k_round = trace_kernels(prof, "async_round")
+    per_round = len(kernels) / rounds + len(k_chunk) / cs.chunk
+    wall = wall_ms + draw_ms / cs.chunk
+    print(f"dynamic FL round (2 robots, int8, sparse, p=0.3, awake 0.75) "
+          f"at chunk {cs.chunk}: wall_ms={wall} kernels_per_round="
+          f"{per_round} device_busy_ms={busy_ms} busy_share={busy_ms / wall} "
+          f"(trace {out}); of which a chunk's draws: {len(k_chunk)} kernels "
+          f"and host_ms={draw_ms} per {cs.chunk} rounds, async_round + lane "
+          f"sigma: {len(k_round)} kernels a round", flush=True)
+    if kernels:
+        top_kernels(kernels, rounds)
 
 
 def trace_kernels(prof, name):
@@ -715,11 +1081,30 @@ def main():
 
     phase("engine")
     check_engine(pops)
-    del pops
-    torch.cuda.empty_cache()
 
     phase("casestudy")
-    by_path = run_casestudy()
+    by_path, walls = run_casestudy()
+
+    phase("dynamic")
+    check_dynamic_engine(pops)
+    stamp("engine checks")
+    check_dynamic_masks()
+    check_dynamic_kernels(pops, errs)
+    for name in errs:
+        rows[name]["max_abs_err"] = errs[name]
+    del pops
+    torch.cuda.empty_cache()
+    stamp("mask and kernel checks")
+    dyn_paths, dyn_walls = run_dynamic_casestudy()
+    by_path.update(dyn_paths)
+    # the static int8 run is the script's first case study and carries its
+    # warm-up; the codec=None pair are both warm
+    print("dynamic / static case-study wall: " + ", ".join(
+        f"codec={spec}: {dyn_walls[spec]} / {walls[spec]} = "
+        f"{dyn_walls[spec] / walls[spec]}" for spec in walls) +
+        " (static int8 is the first run: warm-up included)", flush=True)
+    stamp("dynamic case study")
+    profile_dynamic_round()
 
     phase("profile")
     profile_round()

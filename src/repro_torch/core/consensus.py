@@ -99,8 +99,46 @@ def mixing_weights(data_sizes, adjacency, kind: str = "paper",
     return w / denom
 
 
-def _effective_mix(mix: np.ndarray) -> np.ndarray:
-    """Add the implicit self weight so rows sum to 1 exactly."""
+def mixing_weights_torch(sizes, adjacency, kind: str = "paper",
+                         include_self: bool = True) -> torch.Tensor:
+    """:func:`mixing_weights` in torch ops on the adjacency's device, for
+    σ rebuilt each round from a surviving graph: ``sizes`` (K,) f32,
+    ``adjacency`` (K, K) bool or float per-edge weights in [0, 1] (a
+    {0, 1}-valued float input gives the bool path's bits)."""
+    A = adjacency
+    zero = torch.zeros((), dtype=torch.float32, device=A.device)
+    if A.is_floating_point():
+        A = A.to(torch.float32)
+        if kind == "paper":
+            w = A * sizes[None, :]
+        elif kind == "metropolis":
+            deg = A.sum(dim=1)
+            w = A * (1.0 / (1.0 + torch.maximum(deg[:, None], deg[None, :])))
+            return w + torch.diag(1.0 - w.sum(dim=1))
+        else:
+            raise ValueError(_unknown_kind_msg(kind))
+    else:
+        if kind == "paper":
+            w = torch.where(A, sizes[None, :], zero)
+        elif kind == "metropolis":
+            deg = A.sum(dim=1, dtype=torch.float32)
+            w = torch.where(A, 1.0 / (1.0 + torch.maximum(deg[:, None],
+                                                          deg[None, :])),
+                            zero)
+            return w + torch.diag(1.0 - w.sum(dim=1))
+        else:
+            raise ValueError(_unknown_kind_msg(kind))
+    denom = w.sum(dim=1, keepdim=True)
+    if include_self:
+        denom = denom + sizes[:, None]
+    return w / torch.clamp_min(denom, 1e-12)
+
+
+def _effective_mix(mix):
+    """Add the implicit self weight so rows sum to 1 exactly (numpy, or
+    a tensor for a σ rebuilt on the card)."""
+    if isinstance(mix, torch.Tensor):
+        return mix + torch.diag(1.0 - mix.sum(dim=1))
     mix = np.asarray(mix, np.float32)
     return mix + np.diag(np.float32(1.0) - mix.sum(axis=1))
 
@@ -201,7 +239,10 @@ def consensus_step(stacked_params, mix, *, impl: str = "dense",
     is ``(params, codec_state)``, without it the params.
 
     ``structure``: a ready ``(idx, sig)`` pair in :func:`sparse_structure`
-    layout (numpy or tensors on the params' device) for the sparse path.
+    layout (numpy or tensors on the params' device) for the sparse path,
+    e.g. a round's σ renormalised on its surviving lanes (any H; σ = 0
+    lanes are exact no-ops). On the dense path ``mix`` may be a (K, K)
+    tensor, a round's σ rebuilt on the card.
     """
     mix = resolve_mix(mix)
     if impl not in ("dense", "sparse", "auto"):
@@ -263,7 +304,8 @@ def _compressed_consensus_step(stacked_params, mix, codec, codec_state,
         idx, sig = _structure(mix, structure, device)
         sig = gamma * sig
     else:
-        M = torch.as_tensor(np.asarray(mix, np.float32), device=device)
+        M = (mix.to(device, torch.float32) if isinstance(mix, torch.Tensor)
+             else torch.as_tensor(np.asarray(mix, np.float32), device=device))
         off = gamma * (M - torch.diag(torch.diag(M)))
         rowsum = off.sum(dim=1)
 

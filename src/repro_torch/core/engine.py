@@ -1,9 +1,9 @@
 """ConsensusEngine — the single entry point for one Eq.-(6) mixing round.
 
-A ``(Topology, K, codec)`` description resolves ONCE, at construction,
-into an execution plan, and every caller drives the same
-``engine.step(stacked_params, codec_state, generator) -> (params,
-codec_state)``.
+A ``(Topology, K, codec, GraphProcess, AgentProcess)`` description
+resolves ONCE, at construction, into an execution plan, and every caller
+drives the same ``engine.step(stacked_params, codec_state, generator) ->
+(params, codec_state)``.
 
 Plans
 -----
@@ -17,23 +17,47 @@ The JAX package's plan names ``dense-xla`` and ``sparse-pallas`` are
 accepted as aliases. ``plan="auto"`` uses the payload-aware density
 heuristic :func:`repro_torch.core.consensus.auto_path`.
 
+Time-varying graphs (``graph=GraphProcess.dropout(p, seed)`` or
+``.schedule(masks)``): each round's edge survival is drawn per edge by
+:func:`repro_torch.core.topology.survival_mask` in the plan's own shape,
+a (K, K) mask on the dense plan, (K, H) neighbour lanes on the sparse
+plan (no (K, K) buffer), and σ is renormalised on the survivors: the
+dense plan rebuilds the (K, K) mix, the sparse plan renormalises its
+lanes, where faded and padding lanes carry σ = 0, exact no-ops in the
+kernels.
+
+Asynchronous consensus (``agents=AgentProcess...``, ``tau=``,
+``staleness_decay=``): each round draws who is awake
+(:func:`repro_torch.core.topology.availability_mask`). Sleeping agents
+freeze (params, codec residuals, round clocks hold bit for bit); their
+neighbours mix the frozen last-published state at weight λ^age until the
+wire's age passes τ, through the same σ renormalisation, which takes
+float lane weights. :class:`AsyncState` carries clocks and ages between
+rounds. ``AgentProcess.always_on()`` with τ = ∞ reduces to the lockstep
+engine bit for bit (weights are exactly {0.0, 1.0}).
+
+:meth:`ConsensusEngine.scan_rounds` runs R rounds as a host loop of
+:meth:`step` / :meth:`async_step`, drawing all R rounds' survival and
+availability in one vectorised call on the params' device first.
+
 Every compressed plan recentres each agent on its OWN decoded copy
 (CHOCO), so under doubly-stochastic σ the population mean is exact
 whatever the codec.
 
-This slice runs lockstep rounds on static graphs on one device: a mesh
-(the sharded and distributed plans), a time-varying graph process, and
-per-agent availability (``agents=`` / ``tau=``) are refused.
+A mesh (the sharded and distributed plans) and per-round telemetry come
+in a later slice of the port and are refused.
 """
 from __future__ import annotations
 
 import difflib
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core import consensus
+from repro_torch.core import topology as topo_lib
 
 PLAN_KINDS = ("dense", "sparse")
 PLAN_ALIASES = {"dense-xla": "dense", "sparse-pallas": "sparse"}
@@ -56,6 +80,48 @@ class ExecutionPlan:
                              f"{names}{hint}")
 
 
+class AsyncState(NamedTuple):
+    """Carry of an async engine: ``clock`` (K,) int32 rounds each agent
+    has participated in; ``age`` plan-shaped int32 rounds since each lane
+    last delivered a fresh wire ((K, K) dense, (K, H) sparse)."""
+
+    clock: torch.Tensor
+    age: torch.Tensor
+
+
+class AsyncRound(NamedTuple):
+    """One round's availability facts (:meth:`ConsensusEngine.
+    async_round`): ``act`` (K,) activity; ``weights`` plan-shaped float32
+    σ input (1 fresh, λ^age stale, 0 dropped); ``delivered`` plan-shaped
+    bools of the wires actually shipped (what Eq. (11) bills); ``age``
+    the post-round wire ages."""
+
+    act: torch.Tensor
+    weights: torch.Tensor
+    delivered: torch.Tensor
+    age: torch.Tensor
+
+
+def where_active(active, new, old):
+    """Per-agent select over dicts of K-stacked tensors: row ``k`` takes
+    ``new[k]`` where ``active[k]`` else ``old[k]``. An all-True (all-False)
+    mask returns the first (second) operand's values exactly."""
+    act = torch.as_tensor(active, dtype=torch.bool)
+    out = {}
+    for name, n in new.items():
+        a = act.reshape(act.shape + (1,) * (n.ndim - 1))
+        out[name] = torch.where(a, n, old[name])
+    return out
+
+
+def _device(t, device) -> torch.device:
+    """Where a draw for round(s) ``t`` runs: ``t``'s device when it is a
+    tensor, else ``device`` (default the card)."""
+    if isinstance(t, torch.Tensor):
+        return t.device
+    return torch.device(device if device is not None else "cuda")
+
+
 class ConsensusEngine:
     """One Eq.-(6) round behind one entry point (see module docstring).
 
@@ -64,15 +130,23 @@ class ConsensusEngine:
     codec:      exchange codec spec/Codec; lossy codecs get error
                 feedback unless ``error_feedback=False``.
     plan:       "auto", one of :data:`PLAN_KINDS`, or a JAX plan alias.
-    data_sizes / mix_kind / include_self: forwarded to ``mixing``.
+    data_sizes / mix_kind / include_self: forwarded to ``mixing`` and
+                reused to renormalise σ on each round's surviving lanes.
     gamma:      CHOCO consensus step size (damps off-diagonal σ).
+    graph:      a :class:`~repro_torch.core.topology.GraphProcess` (None
+                ⇒ static).
+    agents:     a :class:`~repro_torch.core.topology.AgentProcess` (None
+                ⇒ lockstep); attaching one makes the engine async.
+    tau:        hard staleness bound in rounds (async only; None ⇒ ∞).
+    staleness_decay: λ ∈ (0, 1]; stale lanes mix at λ^age.
     """
 
     def __init__(self, topology, *, codec=None, mesh=None,
                  plan: str = "auto", data_sizes=None,
                  mix_kind: str = "paper", include_self: bool = True,
                  gamma: float = 1.0, error_feedback: bool = True,
-                 graph=None, agents=None, tau=None):
+                 graph=None, agents=None, tau=None,
+                 staleness_decay: float = 1.0):
         from repro_torch.comms import codecs
         if isinstance(topology, ConsensusEngine):
             raise TypeError(
@@ -83,14 +157,6 @@ class ConsensusEngine:
             raise ValueError(
                 f"mesh={mesh!r}: the sharded and distributed plans come in "
                 f"{_LATER}; drop mesh= to run the population on one device")
-        if graph is not None and getattr(graph, "kind", None) != "static":
-            raise ValueError(
-                f"graph={graph!r}: time-varying graph processes come in "
-                f"{_LATER}; pass graph=None for a static graph")
-        if agents is not None or tau is not None:
-            raise ValueError(
-                f"agents={agents!r} / tau={tau!r}: asynchronous consensus "
-                f"comes in {_LATER}; drop both for lockstep rounds")
         if mix_kind not in consensus.MIX_KINDS:
             raise ValueError(consensus._unknown_kind_msg(mix_kind))
         self.topology = topology if hasattr(topology, "mixing") else None
@@ -103,9 +169,81 @@ class ConsensusEngine:
         self.K = self.mix.shape[0]
         self.codec = codecs.resolve_codec(codec, error_feedback)
         self.gamma = float(gamma)
+        self.mix_kind = mix_kind
+        self.include_self = include_self
+        self.data_sizes = (None if data_sizes is None
+                           else np.asarray(data_sizes, np.float32))
+        self.graph = (graph if graph is not None
+                      else topo_lib.GraphProcess.static())
+        if agents is not None and not isinstance(agents,
+                                                 topo_lib.AgentProcess):
+            raise TypeError(
+                f"agents= takes a repro_torch.core.topology.AgentProcess "
+                f"(or None), got {agents!r}; build one with "
+                "AgentProcess.always_on() / .bernoulli(p_active) / "
+                ".straggler(K) / .arrival(t_join) / .departure(t_leave)")
+        self.agents = agents
+        if agents is not None:
+            if self.topology is None:
+                raise ValueError(
+                    f"agents={agents!r} needs an engine built from a "
+                    "Topology, but this one came from a raw mix matrix: "
+                    "staleness σ is REBUILT per round from the "
+                    "delivered/stale lanes with the engine's mixing "
+                    "kind, which cannot faithfully renormalize an "
+                    "arbitrary raw mix — construct from a Topology "
+                    "(e.g. topology.ring(K)) or drop agents=")
+            pk = agents.K
+            if pk is not None and pk != self.K:
+                raise ValueError(
+                    f"agents={agents!r} pins a population of {pk} "
+                    f"agents but this engine's topology has K="
+                    f"{self.K}; rebuild the process at K={self.K}")
+        if tau is not None and agents is None:
+            raise ValueError(
+                f"tau={tau!r} (the hard staleness bound) only applies "
+                "to async engines: pass agents=AgentProcess.… alongside "
+                "it, or drop tau= for the lockstep protocol")
+        if tau is not None:
+            tf = float(tau)
+            if np.isnan(tf) or tf < 0:
+                raise ValueError(
+                    f"tau={tau!r} is not a staleness bound: τ counts "
+                    "rounds since the last delivered wire — use "
+                    "tau=None (∞: stale lanes never drop), tau=0 "
+                    "(only fresh wires mix), or a positive round count")
+            tau = None if np.isinf(tf) else tf
+        self.tau = tau
+        self.staleness_decay = float(staleness_decay)
+        if not 0.0 < self.staleness_decay <= 1.0:
+            raise ValueError(
+                f"staleness_decay={staleness_decay!r} must lie in "
+                "(0, 1]: a stale lane mixes at weight λ^age — use "
+                "λ=1.0 (no decay, the lockstep-exact default) or a "
+                "positive fraction like 0.9")
         self.plan = self._resolve_plan(plan)
         self._structure_np = None
-        self._structure_dev = {}
+        self._masked_struct = None     # (idx, lane-valid) of the base graph
+        self._sched_keep = None        # schedule masks gathered to lanes
+        self._on_device = {}           # (name, device) -> tensor
+        if self.graph.kind != "static":
+            if self.topology is None:
+                raise ValueError(
+                    f"graph={self.graph!r} (time-varying) needs an "
+                    "engine built from a Topology, but this one came "
+                    "from a raw mix matrix: each round's σ is REBUILT "
+                    "from the surviving graph with the engine's mixing "
+                    "kind/data_sizes, which cannot faithfully "
+                    "renormalize an arbitrary raw mix — construct from "
+                    "a Topology or use GraphProcess.static()")
+            self._adjacency = np.asarray(self.topology.adjacency, bool)
+            self._symmetric = bool(
+                (self._adjacency == self._adjacency.T).all())
+            if (self.graph.kind == "schedule"
+                    and self.graph.masks.shape[1:] != (self.K, self.K)):
+                raise ValueError(
+                    f"schedule masks are {self.graph.masks.shape[1:]}, "
+                    f"population is K={self.K}")
 
     # -- plan selection ---------------------------------------------------------
     def _resolve_plan(self, plan: str) -> ExecutionPlan:
@@ -124,6 +262,14 @@ class ConsensusEngine:
             return None
         return self.codec.init_state(stacked_params)
 
+    def _on(self, name, make, device) -> torch.Tensor:
+        """A constant table built by ``make()`` (numpy), cached per
+        device."""
+        key = (name, str(torch.device(device)))
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(make(), device=device)
+        return self._on_device[key]
+
     def sparse_structure(self, device):
         """(idx, sig) neighbour-lane tables of the sparse plan on
         ``device``, built once from the mix (indices checked in range)."""
@@ -132,34 +278,327 @@ class ConsensusEngine:
             if idx.size and (idx.min() < 0 or idx.max() >= self.K):
                 raise ValueError(f"neighbour index out of [0, {self.K})")
             self._structure_np = (idx, sig)
-        key = str(torch.device(device))
-        if key not in self._structure_dev:
-            idx, sig = self._structure_np
-            self._structure_dev[key] = (
-                torch.as_tensor(idx, device=device),
-                torch.as_tensor(sig, device=device))
-        return self._structure_dev[key]
+        return (self._on("idx", lambda: self._structure_np[0], device),
+                self._on("sig", lambda: self._structure_np[1], device))
+
+    # -- time-varying graphs ----------------------------------------------------
+    def _sizes(self):
+        return (np.ones(self.K, np.float32) if self.data_sizes is None
+                else self.data_sizes)
+
+    def round_mask(self, t, *, device=None):
+        """(K, K) bool edge-survival mask of round ``t`` under this
+        engine's graph process (None for a static graph); for a 1-D
+        tensor of rounds, (R, K, K). Bit-identical to round ``t`` of the
+        host :func:`repro_torch.core.topology.dropout` stream."""
+        if self.graph.kind == "static":
+            return None
+        dev = _device(t, device)
+        if self.graph.kind == "dropout":
+            return topo_lib.survival_mask(
+                self._adjacency, self.graph.p,
+                self._on("graph_key",
+                         lambda: topo_lib.survival_key(self.graph.seed), dev),
+                t, symmetric=self._symmetric)
+        masks = self._on("schedule", lambda: self.graph.masks, dev)
+        tt = torch.as_tensor(t, dtype=torch.int64, device=dev)
+        return (self._on("adjacency", lambda: self._adjacency, dev)
+                & masks[tt % masks.shape[0]])
+
+    def masked_mixing(self, mask):
+        """Rebuild the (K, K) σ matrix on the surviving graph (bool mask
+        or float lane weights) with the engine's mixing kind, data sizes
+        and include_self."""
+        sizes = self._on("sizes", self._sizes, mask.device)
+        return consensus.mixing_weights_torch(
+            sizes, mask, self.mix_kind, include_self=self.include_self)
+
+    def lane_structure(self):
+        """(idx, valid) neighbour-lane table of the BASE graph for the
+        sparse plan, numpy: idx (K, H) int32 ascending neighbour indices
+        (padding lanes index the agent itself), valid (K, H) bool marking
+        real lanes."""
+        if self._masked_struct is None:
+            A = (np.asarray(self.topology.adjacency, bool).copy()
+                 if self.topology is not None else self.mix != 0)
+            np.fill_diagonal(A, False)
+            deg = A.sum(axis=1)
+            H = max(int(deg.max()), 1) if self.K else 1
+            idx = np.tile(np.arange(self.K, dtype=np.int32)[:, None],
+                          (1, H))
+            for k in range(self.K):
+                nbr = np.flatnonzero(A[k])
+                idx[k, :len(nbr)] = nbr
+            valid = np.arange(H)[None, :] < deg[:, None]
+            self._masked_struct = (idx, valid)
+        return self._masked_struct
+
+    def round_survival(self, t=None, mask=None, *, device=None):
+        """Round ``t``'s edge survival in this plan's own shape: a (K, K)
+        bool mask on the dense plan, surviving-lane (K, H) bools on the
+        sparse plan (never a (K, K) buffer there). ``t`` may be a 1-D
+        tensor of rounds (a leading rounds axis is added: one vectorised
+        draw for a whole chunk); ``mask`` instead converts an explicit
+        (K, K) survival mask to the plan shape. None for a static graph
+        with no explicit mask."""
+        dev = (mask.device if isinstance(mask, torch.Tensor)
+               else _device(t, device))
+        if self.plan.kind == "dense":
+            return (torch.as_tensor(mask, device=dev) if mask is not None
+                    else self.round_mask(t, device=dev))
+        if mask is None and self.graph.kind == "static":
+            return None
+        idx_np, valid_np = self.lane_structure()
+        idx = self._on("lane_idx", lambda: idx_np.astype(np.int64), dev)
+        rows = torch.arange(self.K, device=dev)[:, None]
+        if mask is not None:
+            keep = torch.as_tensor(mask, device=dev)[..., rows, idx]
+        elif self.graph.kind == "dropout":
+            keep = topo_lib.survival_mask(
+                self.K, self.graph.p,
+                self._on("graph_key",
+                         lambda: topo_lib.survival_key(self.graph.seed), dev),
+                t, symmetric=self._symmetric, receivers=rows, senders=idx)
+        else:                                        # schedule masks
+            if self._sched_keep is None:
+                self._sched_keep = np.asarray(
+                    self.graph.masks[:, np.arange(self.K)[:, None], idx_np])
+            stack = self._on("sched_keep", lambda: self._sched_keep, dev)
+            tt = torch.as_tensor(t, dtype=torch.int64, device=dev)
+            keep = stack[tt % stack.shape[0]]
+        return keep & self._on("lane_valid", lambda: valid_np, dev)
+
+    # -- per-agent availability (the async protocol) ----------------------------
+    def availability(self, t, *, device=None):
+        """(K,) activity bools of round ``t`` (all True without agents=);
+        (R, K) for a 1-D tensor of rounds. Bit-identical to the host
+        :func:`repro_torch.core.topology.availability_stream` replay."""
+        return topo_lib.agent_availability(self.agents, self.K, t,
+                                           device=_device(t, device))
+
+    def _real_edges(self):
+        """Plan-shaped bool mask of the real base-graph lanes (numpy):
+        the adjacency on the dense plan, lane validity on the sparse."""
+        if self.plan.kind == "dense":
+            return np.asarray(self.topology.adjacency, bool)
+        return self.lane_structure()[1]
+
+    def _act_shapes(self, act):
+        """(act_recv, act_sender) of the (K,) activity in this plan's
+        survival shape."""
+        if self.plan.kind == "dense":
+            return act[:, None], act[None, :]
+        idx = self._on("lane_idx",
+                       lambda: self.lane_structure()[0].astype(np.int64),
+                       act.device)
+        return act[:, None], act[idx]
+
+    def init_async_state(self, *, device=None) -> AsyncState:
+        """Zeroed :class:`AsyncState` (clocks 0, every wire age 0: "all
+        agents exchanged initial models at t = 0")."""
+        if self.agents is None:
+            raise ValueError(
+                "init_async_state() is the async protocol's carry, but "
+                f"this {self.plan.kind!r} engine has agents=None — pass "
+                "agents=AgentProcess.bernoulli(p_active) (or another "
+                "availability process) at construction")
+        dev = _device(None, device)
+        shape = np.asarray(self._real_edges()).shape
+        return AsyncState(torch.zeros(self.K, dtype=torch.int32, device=dev),
+                          torch.zeros(shape, dtype=torch.int32, device=dev))
+
+    def async_round(self, t, age, *, act=None, link=None) -> AsyncRound:
+        """Round ``t``'s availability facts against the wire ages ``age``.
+        Per lane (receiver k ← sender h), with ``up`` the link's survival:
+
+        * DELIVERED (``act[h] & act[k] & up``): weight 1, age resets to 0;
+        * STALE (``act[k] & ~act[h]``, real lane): weight
+          ``staleness_decay ** age`` until ``age > τ``, then 0;
+        * otherwise weight 0.
+
+        ``act`` and ``link`` pass this round's rows of draws already made
+        for a whole chunk (:meth:`availability`, :meth:`round_survival`);
+        without them the round is drawn here, on ``age``'s device."""
+        if self.agents is None:
+            raise ValueError(
+                "async_round() needs an agents= AgentProcess attached "
+                f"at construction, but this {self.plan.kind!r} engine "
+                "has agents=None (it runs the lockstep protocol; use "
+                "step(t=...) instead)")
+        age = torch.as_tensor(age, dtype=torch.int32)
+        dev = age.device
+        if act is None:
+            act = self.availability(t, device=dev)
+        if link is None:
+            link = self.round_survival(t, device=dev)
+        act_recv, act_send = self._act_shapes(act)
+        real = self._on("real", self._real_edges, dev)
+        up = real if link is None else link
+        delivered = act_send & act_recv & up
+        new_age = torch.where(delivered, 0, age + 1)
+        stale = act_recv & ~act_send & real
+        if self.tau is not None:
+            stale = stale & (new_age <= self.tau)
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.staleness_decay == 1.0:
+            stale_w = one
+        else:
+            stale_w = torch.pow(
+                torch.tensor(self.staleness_decay, dtype=torch.float32,
+                             device=dev), new_age.to(torch.float32))
+        weights = torch.where(delivered, one,
+                              torch.where(stale, stale_w, zero))
+        return AsyncRound(act, weights, delivered, new_age)
+
+    def async_step(self, stacked_params, codec_state=None, generator=None,
+                   *, t=None, state: Optional[AsyncState] = None,
+                   round_info: Optional[AsyncRound] = None):
+        """One async Eq.-(6) round: resolve availability, staleness-mix
+        through :meth:`step`, freeze inactive agents' params and codec
+        residuals, advance clocks and ages. Returns ``(params,
+        codec_state, AsyncState, AsyncRound)``; ``round_info=`` reuses
+        facts already drawn, else they are drawn from ``t``."""
+        if state is None:
+            raise ValueError(
+                f"async_step at t={t!r} needs state= (the AsyncState "
+                "carry, got state=None) — start from "
+                "init_async_state() and thread each call's returned "
+                "state into the next")
+        ar = (round_info if round_info is not None
+              else self.async_round(t, state.age))
+        p, st = self.step(stacked_params, codec_state, generator,
+                          survival=ar.weights)
+        p = where_active(ar.act, p, stacked_params)
+        if st is not None:
+            old = (codec_state if codec_state is not None
+                   else self.init_state(stacked_params))
+            st = where_active(ar.act, st, old)
+        new_state = AsyncState(state.clock + ar.act.to(state.clock.dtype),
+                               ar.age)
+        return p, st, new_state, ar
+
+    def _lane_sigma(self, survival):
+        """(idx, sig) for the sparse plan: σ renormalised directly on the
+        surviving (K, H) lanes, the same formulas as ``mixing_weights``
+        per entry, O(K·H). ``survival`` is bool lane keeps (lockstep) or
+        float lane weights in [0, 1] (async: each lane's mass scales by
+        its weight; {0, 1} floats give the bool path's bits). Faded,
+        sleeping and padding lanes land at σ = 0."""
+        keep = survival
+        dev = keep.device
+        idx = self._on("lane_idx",
+                       lambda: self.lane_structure()[0].astype(np.int64), dev)
+        sizes = self._on("sizes", self._sizes, dev)
+        weighted = keep.is_floating_point()
+        if weighted:
+            keep = keep.to(torch.float32)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.mix_kind == "paper":
+            w = (keep * sizes[idx] if weighted
+                 else torch.where(keep, sizes[idx], zero))
+            denom = w.sum(dim=1)
+            if self.include_self:
+                denom = denom + sizes
+            sig = w / torch.clamp_min(denom, 1e-12)[:, None]
+        elif self.mix_kind == "metropolis":
+            deg = keep.sum(dim=1, dtype=torch.float32)
+            inv = 1.0 / (1.0 + torch.maximum(deg[:, None], deg[idx]))
+            sig = keep * inv if weighted else torch.where(keep, inv, zero)
+        else:
+            raise ValueError(consensus._unknown_kind_msg(self.mix_kind))
+        return self._on("lane_idx32",
+                        lambda: self.lane_structure()[0], dev), sig
 
     # -- the round --------------------------------------------------------------
-    def step(self, stacked_params, codec_state=None, generator=None):
+    def step(self, stacked_params, codec_state=None, generator=None, *,
+             t=None, mask=None, survival=None):
         """One Eq.-(6) round on agent-stacked params (a dict of (K, ...)
         tensors). Returns ``(params, codec_state)`` for every plan and
         codec (state None for codec-free rounds). ``generator`` enables
-        stochastic rounding for quantizing codecs."""
+        stochastic rounding for quantizing codecs.
+
+        Time-varying graphs: ``t`` draws the round's edge survival from
+        the graph process, ``mask`` passes an explicit (K, K) survival
+        mask, ``survival`` a plan-shaped operand already drawn
+        (:meth:`round_survival`, or :meth:`async_round`'s weights). Each
+        renormalises σ on the surviving edges."""
         kind = self.plan.kind
-        structure = None
-        if kind == "sparse":
-            structure = self.sparse_structure(
-                next(iter(stacked_params.values())).device)
+        device = next(iter(stacked_params.values())).device
+        if self.agents is not None and survival is None:
+            # deriving survival from t=/mask= here would ignore WHO is
+            # awake: sleeping agents would mix at full weight
+            raise ValueError(
+                f"this engine carries an availability process "
+                f"{self.agents!r}: step() needs the staleness-weighted "
+                "survival from async_round(t, age).weights passed via "
+                "survival= — or drive whole rounds through async_step()"
+                " / scan_rounds(), which thread the (clock, age) "
+                "AsyncState carry for you")
+        if survival is None and (mask is not None or t is not None):
+            survival = self.round_survival(t, mask=mask, device=device)
+        if survival is None and self.graph.kind != "static":
+            raise ValueError(
+                f"this engine carries a time-varying {self.graph!r}: "
+                "step() needs the round index (t=) or an explicit "
+                "survival mask (mask=); use scan_rounds for whole "
+                "round loops")
+        mix, structure = self.mix, None
+        if survival is not None:
+            if kind == "dense":
+                mix = self.masked_mixing(survival)
+            else:
+                structure = self._lane_sigma(survival)
+        elif kind == "sparse":
+            structure = self.sparse_structure(device)
         if self.codec is None:
             return consensus.consensus_step(
-                stacked_params, self.mix, impl=kind,
-                structure=structure), None
+                stacked_params, mix, impl=kind, structure=structure), None
         # error_feedback=False: self.codec is already resolved
         return consensus.consensus_step(
-            stacked_params, self.mix, impl=kind, codec=self.codec,
+            stacked_params, mix, impl=kind, codec=self.codec,
             codec_state=codec_state, generator=generator, gamma=self.gamma,
             error_feedback=False, structure=structure)
+
+    def scan_rounds(self, stacked_params, codec_state=None, generator=None,
+                    *, rounds: Optional[int] = None, t0: int = 0,
+                    telemetry=None):
+        """Run rounds ``t0 .. t0 + rounds - 1`` as a host loop of
+        :meth:`step` (lockstep) or :meth:`async_step` (async, from a
+        fresh :class:`AsyncState`). The rounds' survival and availability
+        are drawn first, in one vectorised call each on the params'
+        device. Returns ``(params, codec_state)``, the same bits as the
+        same calls made one by one."""
+        if telemetry is not None:
+            raise ValueError(
+                f"telemetry={telemetry!r}: per-round telemetry rows come "
+                f"in {_LATER}; drop telemetry= (the case study bills "
+                "Eq. (11) by replaying the same draws on the host)")
+        if rounds is None:
+            raise ValueError(
+                f"scan_rounds got rounds={rounds!r} — pass rounds= (a "
+                "round count); stochastic rounding takes one generator= "
+                "for all of them")
+        if codec_state is None:
+            codec_state = self.init_state(stacked_params)
+        device = next(iter(stacked_params.values())).device
+        R, is_async = int(rounds), self.agents is not None
+        ts = torch.arange(int(t0), int(t0) + R, device=device)
+        links = (self.round_survival(ts) if self.graph.kind != "static"
+                 else None)
+        acts = self.availability(ts) if is_async else None
+        p, st = stacked_params, codec_state
+        ast = self.init_async_state(device=device) if is_async else None
+        for i in range(R):
+            link = None if links is None else links[i]
+            if is_async:
+                ar = self.async_round(int(t0) + i, ast.age, act=acts[i],
+                                      link=link)
+                p, st, ast, _ = self.async_step(p, st, generator, state=ast,
+                                                round_info=ar)
+            else:
+                p, st = self.step(p, st, generator, survival=link)
+        return p, st
 
     # -- Eq.-(11) pricing -------------------------------------------------------
     def round_comm_joules(self, energy_params, model_bits=None) -> float:
@@ -187,5 +626,10 @@ class ConsensusEngine:
 
     def __repr__(self):
         codec = self.codec.name if self.codec is not None else None
+        graph = ("" if self.graph.kind == "static"
+                 else f", graph={self.graph!r}")
+        agents = "" if self.agents is None else (
+            f", agents={self.agents!r}, tau="
+            f"{'inf' if self.tau is None else self.tau}")
         return (f"ConsensusEngine(K={self.K}, plan={self.plan.kind!r}, "
-                f"codec={codec!r})")
+                f"codec={codec!r}{graph}{agents})")

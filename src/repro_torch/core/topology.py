@@ -10,7 +10,14 @@ optionally per edge and per codec).
 Link classes (Sect. III-B): ``SL`` device↔device sidelink, ``UL``
 device→infrastructure uplink, ``DL`` infrastructure→device downlink.
 
-Static graphs only; time-varying graph processes are not ported yet.
+Time-varying graphs and per-agent availability: :class:`GraphProcess`
+(per-round link survival) and :class:`AgentProcess` (who is awake each
+round) draw through exactly two functions, :func:`survival_mask` and
+:func:`availability_mask`, whose threefry draws (:mod:`repro_torch.core.
+prng`) are bit-identical to the JAX package's on every device. So the
+host replays (:func:`dropout`, :func:`availability_stream`) that bill
+Eq. (11) after the fact equal the masks drawn on the card during the
+rounds.
 """
 from __future__ import annotations
 
@@ -19,8 +26,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch.core import consensus, energy
+from repro_torch.core import consensus, energy, prng
 
 # link efficiency classes (Sect. III-B)
 NONE, SL, UL, DL = 0, 1, 2, 3
@@ -284,6 +292,364 @@ def hierarchical(num_clusters: int, devices_per_cluster: int) -> Topology:
 def from_cluster_network(net) -> Topology:
     """Adapter for :class:`repro_torch.core.multitask.ClusterNetwork`."""
     return clusters(net.num_tasks, net.devices_per_cluster)
+
+
+# -- time-varying topologies ----------------------------------------------------
+
+
+def survival_key(seed: int, device=None) -> torch.Tensor:
+    """The PRNG key a dropout :class:`GraphProcess` with this seed folds
+    its round indices into (the shared fold-in convention)."""
+    return prng.PRNGKey(seed, device)
+
+
+def _round_keys(key, t, extra_dims: int) -> torch.Tensor:
+    """``fold_in(key, t)`` for every round of ``t`` (int or a tensor of
+    rounds), shaped to broadcast over ``extra_dims`` trailing axes."""
+    tt = prng.as_u32(t, key.device)
+    rk = prng.fold_in(key, tt)
+    return rk.reshape(tt.shape + (1,) * extra_dims + (2,))
+
+
+def survival_mask(adjacency, p: float, key, t, symmetric: Optional[bool]
+                  = None, *, receivers=None, senders=None):
+    """Edge-survival bools of round ``t``, the shared fold-in convention
+    defined PER EDGE. Each directed edge (receiver ``i``, sender ``j``)
+    owns one id, ``min(i,j)·K + max(i,j)`` on symmetric graphs (one draw
+    per undirected pair: a faded channel kills both directions) or
+    ``i·K + j`` on asymmetric ones, and survives round ``t`` iff
+
+        ``uniform(fold_in(fold_in(key, t), edge_id)) >= p`` .
+
+    Self loops never fade. ``p = 0`` keeps every edge, ``p = 1`` drops
+    every non-self edge.
+
+    Two call forms share this one draw site:
+
+    * dense: ``survival_mask(adjacency, p, key, t)`` evaluates the
+      convention on the whole (K, K) grid and returns ``adjacency & keep``;
+    * per edge: ``survival_mask(K, p, key, t, symmetric=...,
+      receivers=i, senders=j)`` evaluates it only at the given index
+      arrays (broadcast together) and returns the raw keep bools of that
+      shape, bit-identical to the dense grid at those entries. Callers
+      AND with lane validity themselves; ``symmetric=`` is required.
+
+    The draws run on ``key``'s device. ``t`` is a round index or a 1-D
+    tensor of them; the result then gains a leading rounds axis, so a
+    whole chunk of rounds is one vectorised draw.
+    """
+    dev = key.device
+    A = None
+    if receivers is not None or senders is not None:
+        if receivers is None or senders is None:
+            missing = "senders=" if senders is None else "receivers="
+            raise ValueError(
+                f"per-edge survival draws need BOTH receivers= and "
+                f"senders=, but {missing} is None — pass both endpoint "
+                "index arrays, or a full adjacency for the dense form")
+        if symmetric is None:
+            raise ValueError(
+                f"per-edge survival draws over {np.shape(receivers)} "
+                "endpoint arrays need an explicit symmetric= (there is "
+                "no adjacency to infer pair-folding from) — pass "
+                "symmetric=True for undirected links, False for "
+                "directed")
+        K = int(adjacency)
+        sym = bool(symmetric)
+        i, j = torch.broadcast_tensors(
+            torch.as_tensor(receivers, dtype=torch.int64, device=dev),
+            torch.as_tensor(senders, dtype=torch.int64, device=dev))
+    else:
+        A = np.asarray(adjacency, bool)
+        K = A.shape[0]
+        sym = bool((A == A.T).all()) if symmetric is None else bool(symmetric)
+        ar = torch.arange(K, dtype=torch.int64, device=dev)
+        i, j = ar[:, None].expand(K, K), ar[None, :].expand(K, K)
+    rk = _round_keys(key, t, i.ndim)
+    lo = torch.minimum(i, j) if sym else i
+    hi = torch.maximum(i, j) if sym else j
+    eid = (lo * K + hi) & prng.MASK32
+    u = prng.uniform(prng.fold_in(rk, eid))
+    thresh = torch.tensor(float(p), dtype=torch.float32, device=dev)
+    keep = (u >= thresh) | (i == j)
+    if A is None:
+        return keep
+    return torch.as_tensor(A, device=dev) & keep
+
+
+@dataclass(frozen=True)
+class GraphProcess:
+    """A time-varying communication-graph process: how the engine's σ
+    evolves round over round, resolved once at
+    :class:`repro_torch.core.engine.ConsensusEngine` construction.
+
+    * ``static()``         — the graph never changes (the default);
+    * ``dropout(p, seed)`` — every round, each link of the base graph is
+      independently DOWN with probability ``p``, drawn by
+      :func:`survival_mask` from ``fold_in(PRNGKey(seed), round)``;
+    * ``schedule(masks)``  — an explicit (R, K, K) bool stack of keep
+      masks; round ``t`` applies ``masks[t % R]``.
+
+    Each round's σ is renormalised on the surviving graph (self loops
+    kept, the mass of dropped links reallocated by the mixing kind),
+    never silently zeroed.
+    """
+
+    kind: str = "static"                  # static | dropout | schedule
+    p: float = 0.0
+    seed: int = 0
+    masks: Optional[np.ndarray] = None    # (R, K, K) for "schedule"
+
+    def __post_init__(self):
+        if self.kind not in ("static", "dropout", "schedule"):
+            raise ValueError(f"unknown graph process {self.kind!r}")
+        if self.kind == "dropout" and not 0 <= self.p < 1:
+            raise ValueError(
+                f"dropout probability must be in [0, 1), got {self.p}")
+        if self.kind == "schedule":
+            m = np.asarray(self.masks, bool)
+            if m.ndim != 3 or m.shape[1] != m.shape[2] or not m.shape[0]:
+                raise ValueError(
+                    f"schedule masks must be (R, K, K), got {m.shape}")
+            object.__setattr__(self, "masks", m)
+
+    @staticmethod
+    def static() -> "GraphProcess":
+        return GraphProcess("static")
+
+    @staticmethod
+    def dropout(p: float, seed: int = 0) -> "GraphProcess":
+        return GraphProcess("dropout", p=float(p), seed=int(seed))
+
+    @staticmethod
+    def schedule(masks) -> "GraphProcess":
+        return GraphProcess("schedule", masks=masks)
+
+    def __repr__(self):
+        if self.kind == "dropout":
+            return f"GraphProcess.dropout(p={self.p}, seed={self.seed})"
+        if self.kind == "schedule":
+            return f"GraphProcess.schedule(R={self.masks.shape[0]})"
+        return "GraphProcess.static()"
+
+
+def dropout(topo: Topology, p: float, seed: int = 0,
+            rounds: Optional[int] = None):
+    """Per-round link-dropout sequence on the host: round ``r``'s keep
+    mask is :func:`survival_mask` at ``fold_in(PRNGKey(seed), r)``, the
+    same convention a ``GraphProcess.dropout(p, seed)`` engine draws on
+    the card, so this stream and the engine's masks are bit-identical.
+    Symmetric graphs drop whole undirected pairs; asymmetric edges drop
+    per directed edge. Surviving links keep their class and any per-edge
+    efficiency.
+
+    With ``rounds`` returns a list of ``rounds`` Topologies; without, an
+    infinite generator. Deterministic in ``seed``.
+    """
+    if not 0 <= p < 1:
+        raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+
+    def _rounds():
+        key = survival_key(seed)
+        sym = topo.is_symmetric
+        r = 0
+        while True:
+            mask = survival_mask(topo.adjacency, p, key, r,
+                                 symmetric=sym).numpy()
+            eff = (None if topo.edge_efficiency is None
+                   else np.where(mask, topo.edge_efficiency, 0.0))
+            yield Topology(
+                f"{topo.name}~drop", mask,
+                np.where(mask, topo.link_class, NONE).astype(np.int8),
+                {**topo.meta, "dropout_p": p, "dropout_seed": seed,
+                 "round": r},
+                edge_efficiency=eff)
+            r += 1
+
+    gen = _rounds()
+    if rounds is None:
+        return gen
+    return [next(gen) for _ in range(rounds)]
+
+
+# -- per-agent availability (the async protocol's churn source) -----------------
+
+
+def availability_key(seed: int, device=None) -> torch.Tensor:
+    """Root PRNG key of a per-agent availability stream."""
+    return prng.PRNGKey(seed, device)
+
+
+def availability_mask(K, p_inactive, key, t, *, agents=None):
+    """Per-agent activity bools of round ``t``, the agent half of the
+    fold-in convention (the link half is :func:`survival_mask`). Agent
+    ``k`` is ACTIVE in round ``t`` iff
+
+        ``uniform(fold_in(fold_in(key, t), k)) >= p_inactive_k`` .
+
+    ``p_inactive`` is a scalar or a (K,) vector of per-agent sleep
+    probabilities; ``agents=`` restricts the draw to the given agent ids
+    (any shape), bit-identical to those entries of the full (K,) draw.
+    The draws run on ``key``'s device; ``t`` is a round index or a 1-D
+    tensor of them (a leading rounds axis is added).
+    """
+    dev = key.device
+    ids = (torch.arange(int(K), dtype=torch.int64, device=dev)
+           if agents is None
+           else torch.as_tensor(agents, dtype=torch.int64, device=dev))
+    p = torch.as_tensor(p_inactive, dtype=torch.float32, device=dev)
+    thresh = p if p.ndim == 0 else p[ids]
+    rk = _round_keys(key, t, ids.ndim)
+    u = prng.uniform(prng.fold_in(rk, ids))
+    return u >= thresh
+
+
+@dataclass(frozen=True)
+class AgentProcess:
+    """A per-agent availability process: WHO participates each round,
+    the companion of :class:`GraphProcess` (which says which LINKS are
+    up). Per-round activity is drawn by :func:`agent_availability`:
+
+    * ``always_on()``          — every agent, every round (lockstep; with
+      τ = ∞ the async engine reduces to it bit for bit);
+    * ``bernoulli(p_active)``  — each agent awake each round with
+      probability ``p_active``;
+    * ``straggler(K, ...)``    — per-agent sleep probabilities drawn on
+      the host at construction from a Pareto(``tail``) tail;
+    * ``arrival(t_join)``      — agent ``k`` active iff ``t >= t_join[k]``;
+    * ``departure(t_leave)``   — agent ``k`` active iff ``t < t_leave[k]``.
+
+    An inactive agent neither runs local SGD nor sends or receives wires
+    that round: its params, codec residuals and round clock freeze, and
+    its neighbours mix its last-published state at decayed weight until
+    the wire age passes the engine's bound τ.
+    """
+
+    kind: str = "always_on"   # always_on | bernoulli | straggler
+                              # | arrival | departure
+    p_active: float = 1.0
+    seed: int = 0
+    rates: Optional[np.ndarray] = None     # (K,) sleep probs, straggler
+    t_join: Optional[np.ndarray] = None    # (K,) int rounds, arrival
+    t_leave: Optional[np.ndarray] = None   # (K,) int rounds, departure
+
+    def __post_init__(self):
+        kinds = ("always_on", "bernoulli", "straggler", "arrival",
+                 "departure")
+        if self.kind not in kinds:
+            raise ValueError(
+                f"unknown agent process {self.kind!r}; choose from "
+                f"{kinds} (see AgentProcess's constructors)")
+        if self.kind == "bernoulli" and not 0 <= self.p_active <= 1:
+            raise ValueError(
+                f"bernoulli duty cycle p_active must be in [0, 1], got "
+                f"{self.p_active}")
+        if self.kind == "straggler":
+            r = np.asarray(self.rates, np.float64)
+            if r.ndim != 1 or not r.size:
+                raise ValueError(
+                    f"straggler rates must be a non-empty (K,) vector "
+                    f"of per-agent sleep probabilities, got shape "
+                    f"{r.shape}")
+            if not ((r >= 0) & (r <= 1)).all():
+                raise ValueError(
+                    "straggler rates must all lie in [0, 1], got "
+                    f"min={r.min()} max={r.max()}")
+            object.__setattr__(self, "rates", r)
+        for name in ("t_join", "t_leave"):
+            v = getattr(self, name)
+            if v is None:
+                continue
+            v = np.asarray(v, np.int64)
+            if v.ndim != 1 or not v.size:
+                raise ValueError(
+                    f"{name} must be a non-empty (K,) vector of round "
+                    f"indices, got shape {v.shape}")
+            object.__setattr__(self, name, v)
+
+    @property
+    def K(self) -> Optional[int]:
+        """Population size the process pins, or None if size-free."""
+        for v in (self.rates, self.t_join, self.t_leave):
+            if v is not None:
+                return int(v.shape[0])
+        return None
+
+    @staticmethod
+    def always_on() -> "AgentProcess":
+        return AgentProcess("always_on")
+
+    @staticmethod
+    def bernoulli(p_active: float, seed: int = 0) -> "AgentProcess":
+        return AgentProcess("bernoulli", p_active=float(p_active),
+                            seed=int(seed))
+
+    @staticmethod
+    def straggler(K: int, *, tail: float = 1.1, scale: float = 0.05,
+                  cap: float = 0.9, seed: int = 0,
+                  rates=None) -> "AgentProcess":
+        """Heavy-tail straggler fleet: per-agent sleep probability
+        ``min(cap, scale · Pareto(tail))`` drawn on the host from
+        ``seed`` (pass ``rates=`` to pin them instead)."""
+        if rates is None:
+            rng = np.random.default_rng(seed)
+            rates = np.minimum(float(cap),
+                               float(scale) * rng.pareto(float(tail),
+                                                         size=int(K)))
+        return AgentProcess("straggler", seed=int(seed), rates=rates)
+
+    @staticmethod
+    def arrival(t_join) -> "AgentProcess":
+        return AgentProcess("arrival", t_join=t_join)
+
+    @staticmethod
+    def departure(t_leave) -> "AgentProcess":
+        return AgentProcess("departure", t_leave=t_leave)
+
+    def __repr__(self):
+        if self.kind == "bernoulli":
+            return (f"AgentProcess.bernoulli(p_active={self.p_active}, "
+                    f"seed={self.seed})")
+        if self.kind == "straggler":
+            return (f"AgentProcess.straggler(K={self.K}, "
+                    f"seed={self.seed})")
+        if self.kind == "arrival":
+            return f"AgentProcess.arrival(K={self.K})"
+        if self.kind == "departure":
+            return f"AgentProcess.departure(K={self.K})"
+        return "AgentProcess.always_on()"
+
+
+def agent_availability(process: Optional[AgentProcess], K: int, t,
+                       device=None) -> torch.Tensor:
+    """(K,) activity bools of round ``t`` under ``process`` (None means
+    always on); for a 1-D tensor of rounds, (R, K). The one dispatch the
+    engine's draws on the card and the host replay
+    (:func:`availability_stream`) both go through. Runs on ``t``'s
+    device when ``t`` is a tensor, else on ``device`` (default the
+    CPU)."""
+    dev = t.device if isinstance(t, torch.Tensor) else torch.device(
+        device if device is not None else "cpu")
+    tt = torch.as_tensor(t, dtype=torch.int64, device=dev)
+    if process is None or process.kind == "always_on":
+        return torch.ones(tt.shape + (int(K),), dtype=torch.bool, device=dev)
+    if process.kind == "bernoulli":
+        return availability_mask(K, 1.0 - process.p_active,
+                                 availability_key(process.seed, dev), tt)
+    if process.kind == "straggler":
+        return availability_mask(K, process.rates.astype(np.float32),
+                                 availability_key(process.seed, dev), tt)
+    if process.kind == "arrival":
+        return tt[..., None] >= torch.as_tensor(process.t_join, device=dev)
+    return tt[..., None] < torch.as_tensor(process.t_leave, device=dev)
+
+
+def availability_stream(process: Optional[AgentProcess], K: int,
+                        rounds: int) -> np.ndarray:
+    """(rounds, K) bool host replay of ``process``: the same draws the
+    engine makes on the card, which is how the post-hoc Eq.-(11) bill
+    prices exactly the wires active agents sent."""
+    return agent_availability(process, K, torch.arange(int(rounds))).numpy()
 
 
 def _near_square(K: int):

@@ -15,14 +15,23 @@ round's reached flag stays on the device, a round after the hit leaves
 params and codec state frozen (``torch.where`` on the flag), and the host
 reads the chunk's flags once to recover t_i with ``first_hit``.
 
+Links may fade each round (``dropout_p``) and robots may sleep
+(``availability``, ``tau``, ``staleness_decay``): each task's engine then
+draws a whole chunk's link survival and robot availability in one
+vectorised call on the device, a sleeping robot skips local SGD and
+neither mixes nor updates its residuals, and Eq. (11) bills only the
+wires delivered, by replaying the same draws on the host over exactly the
+rounds used.
+
 Run:  PYTHONPATH=src python -m repro_torch.rl.casestudy --t0 60
 """
 from __future__ import annotations
 
 import argparse
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
+import numpy as np
 import torch
 from torch.func import grad, vmap
 
@@ -30,7 +39,8 @@ import repro_torch
 from repro_torch.comms import codecs
 from repro_torch.configs import get_arch
 from repro_torch.core import energy, maml, scanloop
-from repro_torch.core.engine import ConsensusEngine
+from repro_torch.core import topology as topo_lib
+from repro_torch.core.engine import AsyncState, ConsensusEngine, where_active
 from repro_torch.core.multitask import ClusterNetwork
 from repro_torch.core.protocol import ProtocolResult
 from repro_torch.models import dqn as qmodel
@@ -74,9 +84,23 @@ def _where(flag, new, old):
     return {k: torch.where(flag, new[k], old[k]) for k in new}
 
 
+def delivered_comm_joules(base, masks, energy_params, codec=None) -> float:
+    """Eq.-(11) joules of the wires in ``masks`` (per round a (K, K) bool:
+    receiver k got sender h's wire), each priced at its link class in
+    ``base``, summed round by round from 0.0 in float64."""
+    total = 0.0
+    for m in masks:
+        m = np.asarray(m, bool)
+        billed = topo_lib.Topology(
+            f"{base.name}~billed", m,
+            np.where(m, np.asarray(base.link_class), topo_lib.NONE))
+        total += billed.round_comm_joules(energy_params, codec=codec)
+    return float(total)
+
+
 @dataclass
 class CaseStudy:
-    """Driver of the Fig. 3 experiment (lockstep, static cluster graph)."""
+    """Driver of the Fig. 3 experiment."""
 
     cfg: object = None
     inner_lr: float = 0.01
@@ -91,6 +115,19 @@ class CaseStudy:
     #: exchange codec spec (e.g. "int8"): cluster messages are sent AND
     #: Eq.-(11)-priced in this wire format (error feedback on lossy ones)
     codec: object = None
+    #: per-round link-failure probability: each task's engine carries a
+    #: ``GraphProcess.dropout`` seeded at ``dropout_seed + task_id``, and
+    #: Eq. (11) bills the links that survived
+    dropout_p: float = 0.0
+    dropout_seed: int = 0
+    #: optional ``AgentProcess``: per-round robot availability; each
+    #: task's engine runs async with the process reseeded at
+    #: ``seed + task_id``, and Eq. (11) bills delivered wires only
+    availability: object = None
+    #: hard staleness bound τ in rounds (async only; None = ∞)
+    tau: object = None
+    #: λ ∈ (0, 1]: stale lanes mix at λ^age (1.0 = lockstep-exact)
+    staleness_decay: float = 1.0
     #: consensus plan of the per-cluster engine ("auto", "dense",
     #: "sparse", or the JAX names "dense-xla" / "sparse-pallas")
     plan: str = "auto"
@@ -110,8 +147,26 @@ class CaseStudy:
                                       meta_task_ids=META_TASKS)
         # one cluster's graph: the Eq.-(6) mixing AND the Eq.-(11) pricing
         self.cluster_topology = self.network.cluster_topology()
-        self.engine = ConsensusEngine(self.cluster_topology, codec=self.codec,
-                                      plan=self.plan)
+        self._engines = {
+            tid: ConsensusEngine(
+                self.cluster_topology, codec=self.codec, plan=self.plan,
+                graph=(topo_lib.GraphProcess.dropout(
+                    self.dropout_p, seed=self.dropout_seed + tid)
+                    if self.dropout_p > 0 else None),
+                agents=self._agent_process(tid), tau=self.tau,
+                staleness_decay=self.staleness_decay)
+            for tid in range(gw.NUM_TASKS)}
+        self.engine = self._engines[0]
+        self.fl_delivered = {}
+
+    def _agent_process(self, task_id):
+        """The availability process of one task: ``self.availability``
+        reseeded at ``seed + task_id`` (independent sleep draws per task,
+        replayable on the host)."""
+        if self.availability is None:
+            return None
+        return replace(self.availability,
+                       seed=self.availability.seed + task_id)
 
     def _loss_fn(self, target):
         cfg = self.cfg
@@ -151,9 +206,13 @@ class CaseStudy:
         return params, hist
 
     # -- stage 2 -----------------------------------------------------------------
-    def fl_round(self, task_id, stacked, codec_state, generator):
+    def fl_round(self, task_id, stacked, codec_state, generator,
+                 survival=None, active=None):
         """Local clipped SGD on every robot, one consensus round, and the
-        greedy running reward of robot 0. Returns (params, state, R)."""
+        greedy running reward of robot 0. Returns (params, state, R).
+        ``survival``: the round's plan-shaped link survival or staleness
+        weights; ``active``: (C,) robot availability (sleeping robots skip
+        SGD and neither mix nor update their residuals)."""
         C = self.network.devices_per_cluster
         agents = [{k: v[c] for k, v in stacked.items()} for c in range(C)]
         batches = [sample_episode_batches(
@@ -164,8 +223,19 @@ class CaseStudy:
         loss_fn = self._loss_fn(agents[0])
         new = vmap(lambda p, b: _clipped_sgd_steps(loss_fn, p, b, self.fl_lr))(
             stacked, stacked_b)
-        new, codec_state = self.engine.step(
-            new, codec_state, None if self.codec is None else generator)
+        if active is not None:
+            new = where_active(active, new, stacked)
+        engine = self._engines[task_id]
+        mixed, new_state = engine.step(
+            new, codec_state, None if self.codec is None else generator,
+            survival=survival)
+        if active is not None:
+            mixed = where_active(active, mixed, new)
+            if new_state is not None:
+                old = (codec_state if codec_state is not None
+                       else engine.init_state(new))
+                new_state = where_active(active, new_state, old)
+        new, codec_state = mixed, new_state
         R = dqnrl.evaluate(generator, {k: v[0] for k, v in new.items()},
                            self.cfg, task_id, episodes=4)
         return new, codec_state, R
@@ -173,60 +243,120 @@ class CaseStudy:
     def adapt_task(self, generator, task_id: int, init_params, *,
                    max_rounds: int = 400):
         """Decentralized FL adaptation of one task; returns (params, t_i,
-        reward history). Bills ``self.last_adapt_comm_joules``."""
+        reward history). Bills ``self.last_adapt_comm_joules`` over
+        exactly the rounds used; on fading links or sleeping robots
+        ``self.fl_delivered[task_id]`` keeps the wires the device
+        delivered in those rounds ((t_i,) + the plan's lane shape)."""
         C = self.network.devices_per_cluster
+        eng = self._engines[task_id]
         stacked = {k: v.unsqueeze(0).expand((C,) + v.shape).clone()
                    for k, v in init_params.items()}
-        codec_state = self.engine.init_state(stacked)
+        codec_state = eng.init_state(stacked)
+        is_async = eng.agents is not None
+        dynamic = is_async or self.dropout_p > 0
+        astate = (eng.init_async_state(device=self.device) if is_async
+                  else None)
         reached = torch.zeros((), dtype=torch.bool, device=self.device)
-        hist, rounds = [], max_rounds
+        hist, rounds, delivered = [], max_rounds, []
         for start in range(0, max_rounds, self.chunk):
-            hits, Rs = [], []
-            for _t in range(start, min(start + self.chunk, max_rounds)):
-                new, new_state, R = self.fl_round(task_id, stacked,
-                                                  codec_state, generator)
+            n = min(self.chunk, max_rounds - start)
+            # the chunk's draws, one vectorised call each on the device
+            ts = torch.arange(start, start + n, device=self.device)
+            links = eng.round_survival(ts) if self.dropout_p > 0 else None
+            acts = eng.availability(ts) if is_async else None
+            hits, Rs, delivs = [], [], []
+            for i in range(n):
+                link = None if links is None else links[i]
+                if is_async:
+                    ar = eng.async_round(start + i, astate.age, act=acts[i],
+                                         link=link)
+                    sv, act, deliv = ar.weights, ar.act, ar.delivered
+                else:
+                    sv, act, deliv = link, None, link
+                new, new_state, R = self.fl_round(
+                    task_id, stacked, codec_state, generator, survival=sv,
+                    active=act)
                 live = ~reached
                 stacked = _where(live, new, stacked)
                 if new_state is not None:
                     codec_state = _where(live, new_state, codec_state)
+                if is_async:
+                    astate = AsyncState(
+                        torch.where(live, astate.clock + act.to(torch.int32),
+                                    astate.clock),
+                        torch.where(live, ar.age, astate.age))
                 hit = live & (R >= self.r_target)
                 reached = reached | hit
                 hits.append(hit)
                 Rs.append(torch.where(live, R, torch.nan))
-            hits = torch.stack(hits).cpu().numpy()          # one sync
-            hist.extend(r for r in torch.stack(Rs).tolist() if r == r)
-            h = scanloop.first_hit(hits)
+                if dynamic:
+                    delivs.append(deliv.flatten())
+            cols = [torch.stack(hits).float()[:, None],
+                    torch.stack(Rs).float()[:, None]]
+            if dynamic:
+                cols.append(torch.stack(delivs).float())
+            chunk = torch.cat(cols, 1).cpu().numpy()        # one sync
+            hist.extend(float(r) for r in chunk[:, 1] if r == r)
+            if dynamic:
+                lane_shape = tuple(deliv.shape)
+                delivered.extend(chunk[:, 2:] > 0)
+            h = scanloop.first_hit(chunk[:, 0] > 0)
             if h is not None:
                 rounds = start + h + 1
                 break
-        # Eq.-(11) bill over exactly the rounds used (static graph)
-        self.last_adapt_comm_joules = rounds * float(
-            self.cluster_topology.round_comm_joules(
-                self.energy_params, codec=self.codec))
+        # Eq.-(11) bill over exactly the rounds used: static lockstep runs
+        # price rounds × the full graph; fading or sleeping runs replay the
+        # host streams (bit-identical to the device's draws) and price
+        # each round's delivered wires only: a wire bills iff its link
+        # survived AND both robots were awake
+        base = self.cluster_topology
+        proc = self._agent_process(task_id)
+        if dynamic:
+            self.fl_delivered[task_id] = np.stack(
+                delivered[:rounds]).reshape((rounds,) + lane_shape)
+            drops = (topo_lib.dropout(base, self.dropout_p,
+                                      seed=self.dropout_seed + task_id,
+                                      rounds=rounds)
+                     if self.dropout_p > 0 else [base] * rounds)
+            acts = topo_lib.availability_stream(proc, base.K, rounds)
+            self.last_adapt_comm_joules = delivered_comm_joules(
+                base, [t_r.adjacency & a[:, None] & a[None, :]
+                       for t_r, a in zip(drops, acts)],
+                self.energy_params, self.codec)
+        else:
+            self.last_adapt_comm_joules = rounds * float(
+                base.round_comm_joules(self.energy_params, codec=self.codec))
         return stacked, rounds, hist
 
     def run(self, generator, t0: int, *, max_rounds: int = 400
             ) -> ProtocolResult:
         meta_params, meta_hist = self.meta_train(generator, t0)
-        rounds, hists = [], []
+        rounds, hists, comm = [], [], []
         for tid in range(self.network.num_tasks):
             _, t_i, h = self.adapt_task(generator, tid, meta_params,
                                         max_rounds=max_rounds)
             rounds.append(t_i)
             hists.append(h)
+            comm.append(self.last_adapt_comm_joules)
+        # as in the JAX package, the measured joules replace the modelled
+        # term only when links fade (dropout_p > 0): an availability-only
+        # run bills E_total on the full graph
         return ProtocolResult(
             t0=t0, rounds_per_task=rounds, meta_history=meta_hist,
             fl_histories=hists, energy_params=self.energy_params,
             Q=self.network.Q, cluster_topology=self.cluster_topology,
-            codec=self.codec)
+            codec=self.codec,
+            fl_comm_joules_measured=comm if self.dropout_p > 0 else None)
 
 
 def run_case_study(seed: int = 0, *, t0: int = 210, max_rounds: int = 400,
-                   codec=None, plan: str = "auto", device: str = "cuda",
-                   **kw) -> ProtocolResult:
+                   codec=None, dropout_p: float = 0.0, plan: str = "auto",
+                   device: str = "cuda", **kw) -> ProtocolResult:
     """One Monte-Carlo run of the Fig. 3 experiment (optionally with a
-    compressed, codec-priced sidelink exchange) on ``plan``."""
-    cs = CaseStudy(codec=codec, plan=plan, device=device, **kw)
+    compressed, codec-priced sidelink exchange and/or links that fail
+    with probability ``dropout_p`` each round) on ``plan``."""
+    cs = CaseStudy(codec=codec, dropout_p=dropout_p, plan=plan,
+                   device=device, **kw)
     generator = torch.Generator(device=device).manual_seed(seed)
     return cs.run(generator, t0, max_rounds=max_rounds)
 
@@ -242,11 +372,14 @@ def main(argv: Optional[list] = None):
                          "(or dense-xla | sparse-pallas)")
     ap.add_argument("--codec", default=None,
                     help="exchange codec, e.g. int8, int4, int8:b64, bf16")
+    ap.add_argument("--dropout-p", type=float, default=0.0,
+                    help="per-round link-failure probability in [0, 1)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     kw = dict(max_rounds=args.max_rounds, codec=args.codec, plan=args.plan,
-              device=args.device, inner_steps=10, outer_lr=0.01)
+              dropout_p=args.dropout_p, device=args.device, inner_steps=10,
+              outer_lr=0.01)
     print(f"== stage 1: MAML meta-training, t0={args.t0}, Q=3 tasks "
           f"{META_TASKS} ==")
     res = run_case_study(args.seed, t0=args.t0, **kw)

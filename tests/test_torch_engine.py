@@ -109,10 +109,17 @@ def test_plan_selection_and_refusals():
             assert {"dense": "dense-xla", "sparse": "sparse-pallas"}[got] == want
     with pytest.raises(ValueError, match="sparse"):
         ExecutionPlan("sparce", "typo")
-    for kw in ({"mesh": object()}, {"agents": object()}, {"tau": 3},
-               {"graph": jtopo.GraphProcess.dropout(0.1)}):
-        with pytest.raises(ValueError, match="later slice"):
-            ConsensusEngine(topology.ring(8), **kw)
+    with pytest.raises(ValueError, match="later slice"):
+        ConsensusEngine(topology.ring(8), mesh=object())
+    # time-varying graphs and availability are ported (tests/test_torch_
+    # dynamic.py); what is left is the reference's own validation
+    with pytest.raises(TypeError, match="AgentProcess"):
+        ConsensusEngine(topology.ring(8), agents=object())
+    with pytest.raises(ValueError, match="only applies to async engines"):
+        ConsensusEngine(topology.ring(8), tau=3)
+    assert ConsensusEngine(
+        topology.ring(8),
+        graph=topology.GraphProcess.dropout(0.1)).graph.kind == "dropout"
     with pytest.raises(ValueError, match="Topology"):
         ConsensusEngine(topology.ring(8).mixing()).round_comm_joules(
             energy.PAPER_TABLE_I)

@@ -348,3 +348,81 @@ def test_cuda_flash_attention_bf16_within_rounding(cuda, qscale, window):
         uncapped = ref.attention_reference(q, k, v, causal=True,
                                            window=window).float()
         assert float(((uncapped - want).abs() / gate).max()) > 1.0
+
+
+def _dynamic_sigma(rng, sig, table):
+    """σ tables of rounds where links fade and agents sleep: lanes at
+    σ = 0 (faded, sleeping, padding), fractional λ^age weights, rows that
+    are all zero, and a round in which every lane is dead."""
+    sig = sig.copy()
+    if table == "zeros":
+        sig[rng.uniform(size=sig.shape) < 0.4] = 0.0
+    elif table == "decay":
+        sig *= np.float32(0.9) ** rng.integers(0, 4, sig.shape)
+    elif table == "dead_rows":
+        sig[::2] = 0.0
+    else:                                            # a dead round
+        sig[:] = 0.0
+    return sig.astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", ["zeros", "decay", "dead_rows", "dead"])
+@pytest.mark.parametrize("H,N", [(2, 4099), (4, 262144)])
+def test_cuda_kernels_on_dynamic_sigma_tables(cuda, H, N, table):
+    """Both consensus kernels on the σ tables of fading and async rounds
+    equal their plain versions bit for bit (f32 and bf16 x for B2,
+    per-tensor and block scales for B1); a dead round leaves x as it was."""
+    rng = np.random.default_rng(N + H)
+    idx, sig = _lanes(rng, H)
+    sig = _dynamic_sigma(rng, sig, table)
+    x = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    idx_t, sig_t = torch.from_numpy(idx).to(cuda), torch.from_numpy(sig).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(cuda, dtype)
+        got = ops.consensus_update_pop(xd, idx_t, sig_t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.consensus_update_pop_reference(
+            xd, idx_t, sig_t))
+        if table == "dead":
+            assert torch.equal(got, xd)
+    q = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    for qblock in (None, 64):
+        ns = (K,) if qblock is None else (K, -(-N // qblock))
+        s = torch.from_numpy(rng.uniform(0.001, 0.02, ns).astype(np.float32))
+        args = [t.to(cuda) for t in (x, q, s)] + [idx_t, sig_t]
+        got = ops.quant_consensus_pop(*args, qblock=qblock)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.quant_consensus_pop_reference(*args,
+                                                                  qblock))
+        if table == "dead":
+            assert torch.equal(got, args[0])
+
+
+@pytest.mark.gpu
+def test_cuda_masks_equal_cpu_masks(cuda):
+    """Survival (dense and per-edge) and availability masks drawn on the
+    card equal the same draws on the CPU, for a whole chunk of rounds."""
+    from repro_torch.core import topology
+    topo = topology.small_world(256, k=4, seed=1)
+    rounds = torch.arange(3, 11)
+    for p in (0.0, 0.3, 1.0):
+        masks = [topology.survival_mask(topo.adjacency, p,
+                                        topology.survival_key(7, dev),
+                                        rounds.to(dev)).cpu()
+                 for dev in ("cpu", cuda)]
+        assert torch.equal(*masks)
+        rows = np.arange(256)[:, None]
+        cols = np.random.default_rng(1).integers(0, 256, (256, 4))
+        lanes = [topology.survival_mask(256, p, topology.survival_key(7, dev),
+                                        rounds.to(dev), symmetric=True,
+                                        receivers=rows, senders=cols).cpu()
+                 for dev in ("cpu", cuda)]
+        assert torch.equal(*lanes)
+    rates = np.random.default_rng(2).uniform(size=256)
+    for p_inactive in (0.25, rates):
+        acts = [topology.availability_mask(256, p_inactive,
+                                           topology.availability_key(5, dev),
+                                           rounds.to(dev)).cpu()
+                for dev in ("cpu", cuda)]
+        assert torch.equal(*acts)
