@@ -35,9 +35,29 @@ Phases (any failure exits non-zero; nothing is caught):
                 than the static bill, E_total = Eq. (12) with the measured
                 joules; a profile of one dynamic FL round and the launches
                 its draws add.
-7. profile    — host wall and device kernel time of one case-study FL
+7. drivers    — per-round Eq.-(11) telemetry and the chunked protocol
+                drivers at full width (paper-DQN × K = 256, small_world(k=4),
+                sparse plan, links fading with p = 0.3, agents awake with
+                p = 0.7, τ = 2, λ = 0.9): (a) 8 rounds of ``scan_rounds``
+                with buffered telemetry on the int8 wire equal the
+                telemetry-off rounds bit for bit, every row's link and
+                per-agent counts and the summed joules equal the host replay
+                (``==``), B1 launches 10 × 8 either way; off / buffered /
+                streaming walls and the kernels a row adds; (b)
+                ``run_fl_until_scan`` at chunk 8 against ``run_fl_until``
+                (f32 wire, B2) on a regression pull toward seeded targets,
+                the hit mid-chunk: params, t_i, history and the live rows bit
+                for bit, B2 launches 10 × rounds computed; (c) the ``dynamic``
+                int8 case study again with streaming telemetry into
+                ``build/telemetry.jsonl``: results, params and launches equal
+                the telemetry-off run, per-task streamed joules == the
+                post-hoc bill, t_i events per task, the log passes the
+                schema; (d) ``MTLProtocol`` with the paper-DQN Q-network
+                regressed on one-step rewards (2-robot clusters, t0 = 5,
+                max_rounds 16; dense at K = 2, so no kernel launches).
+8. profile    — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
-8. lm_kernels — the RG-LRU scan and flash-attention kernels against their
+9. lm_kernels — the RG-LRU scan and flash-attention kernels against their
                 plain versions at recurrentgemma-9b's serving shapes (bf16
                 attention at scores of std 1 and of std 20, which the
                 softcap bends; a ragged bf16 case with a window that cuts
@@ -46,7 +66,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 bound, B4's achieved TFLOP/s, and ptxas's registers and
                 spills of the two sources. Every time is the median of 20
                 calls.
-9. serve      — ``repro_torch.launch.serve`` on full-width, full-depth
+10. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
                 recurrentgemma-9b (random weights): 4 prompts of 4096
                 tokens, 32 greedy tokens; each prefill must launch the scan
                 26 and the attention kernel 12 times, decode neither. Then
@@ -560,25 +580,37 @@ def check_dynamic_kernels(pops, errs):
               f"equal their plain versions (max err {errs})", flush=True)
 
 
-def run_dynamic_casestudy():
-    """The case study on fading links (p = 0.3) and sleeping robots
-    (awake with p = 0.75, τ = 2, λ = 0.9), sparse plan, codecs int8 and
-    None; each run counted from 0. Each must launch its own kernel once
-    per leaf per FL round computed and the other never; the bill of the
-    wires the card delivered equals the host replay (==) and is no more
-    than the static bill; E_total is Eq. (12) with the measured joules."""
-    import numpy as np
-    from repro_torch.core import energy, topology
-    from repro_torch.rl.casestudy import CaseStudy, delivered_comm_joules
+DYN_CS = dict(t0=4, max_rounds=8)
 
-    t0, max_rounds = 4, 8
+
+def dynamic_casestudy(spec, telemetry=None):
+    """The case study on fading links (p = 0.3) and sleeping robots (awake
+    with p = 0.75, τ = 2, λ = 0.9) on the sparse plan."""
+    from repro_torch.core import topology
+    from repro_torch.rl.casestudy import CaseStudy
+    return CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
+                     codec=spec, dropout_p=0.3,
+                     availability=topology.AgentProcess.bernoulli(0.75),
+                     tau=2, staleness_decay=0.9, device=DEVICE,
+                     telemetry=telemetry)
+
+
+def run_dynamic_casestudy():
+    """The dynamic case study, codecs int8 and None; each run counted
+    from 0. Each must launch its own kernel once per leaf per FL round
+    computed and the other never; the bill of the wires the card
+    delivered equals the host replay (==) and is no more than the static
+    bill; E_total is Eq. (12) with the measured joules. Returns the int8
+    run too, for the ``drivers`` phase."""
+    import numpy as np
+    from repro_torch.core import energy
+    from repro_torch.rl.casestudy import delivered_comm_joules
+
+    t0, max_rounds = DYN_CS["t0"], DYN_CS["max_rounds"]
     own = {"int8": "quant_consensus_pop", None: "consensus_update_pop"}
     by_path, walls = {}, {}
     for spec in ("int8", None):
-        cs = CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
-                       codec=spec, dropout_p=0.3,
-                       availability=topology.AgentProcess.bernoulli(0.75),
-                       tau=2, staleness_decay=0.9, device=DEVICE)
+        cs = dynamic_casestudy(spec)
         leaves = len(cs.init_params(torch.Generator(device=DEVICE)))
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         zero_counts()
@@ -620,7 +652,9 @@ def run_dynamic_casestudy():
             fail(f"dynamic case study codec={spec} launched {got}, expected "
                  f"{want_launches}")
         by_path[f"dynamic_{str(spec).lower()}"] = got
-    return by_path, walls
+        if spec == "int8":
+            int8_run = (cs, res, got)
+    return by_path, walls, int8_run
 
 
 def profile_dynamic_round(rounds=3):
@@ -696,6 +730,347 @@ def profile_dynamic_round(rounds=3):
           f"sigma: {len(k_round)} kernels a round", flush=True)
     if kernels:
         top_kernels(kernels, rounds)
+
+
+# -- drivers: per-round telemetry and the chunked protocol drivers ---------------
+
+DRV_ROUNDS = 8
+#: repetitions of each telemetry mode in the walls of ``drivers`` (a)
+DRV_REPS = 7
+DRV_FL = dict(max_rounds=12, chunk=8, lr=0.3)
+
+
+def driver_engine(spec):
+    """The K = 256 population of the ``drivers`` phase: small_world(k=4),
+    sparse plan, links fading (p = 0.3) and agents sleeping (awake with
+    p = 0.7, τ = 2, λ = 0.9)."""
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+    eng = ConsensusEngine(topology.small_world(K_POP, k=4, seed=1), codec=spec,
+                          plan="sparse", **dynamic_kw("both"))
+    if eng.plan.kind != "sparse":
+        fail(f"drivers engine resolved to {eng.plan.kind!r}")
+    return eng
+
+
+def host_replay_masks(topo, rounds):
+    """The wires delivered in rounds 0..rounds-1 of ``driver_engine``'s
+    processes, replayed from the host streams: (K, K) bools per round."""
+    from repro_torch.core import topology
+    drops = topology.dropout(topo, 0.3, seed=1, rounds=rounds)
+    acts = topology.availability_stream(topology.AgentProcess.bernoulli(0.7),
+                                        topo.K, rounds)
+    return [d.adjacency & a[:, None] & a[None, :] for d, a in zip(drops, acts)]
+
+
+def count_kernels(fn, name):
+    """Device kernels ``fn`` launches, from a ``torch.profiler`` trace
+    (kept as ``build/profile/<name>.json``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return len(trace_kernels(prof, name)[1])
+
+
+def check_scan_rounds_telemetry(x):
+    """(a) 8 rounds of ``scan_rounds`` on the int8 wire: buffered
+    telemetry leaves params and EF state bit for bit as telemetry off, and
+    launches B1 exactly as often (10 × 8); every row's link counts and
+    per-agent counts equal the host replay and the summed joules equal its
+    bill (``==``). Then walls of off / buffered / streaming runs (each
+    mode ``DRV_REPS`` times, alternating; median and spread) and the
+    kernels a row adds per round."""
+    import numpy as np
+    from repro_torch.core import topology
+    from repro_torch.rl.casestudy import delivered_comm_joules
+    from repro_torch.telemetry import MemorySink, Telemetry
+
+    eng = driver_engine("int8")
+    leaves, R = len(x), DRV_ROUNDS
+    want = {n: (leaves * R if n == "quant_consensus_pop" else 0)
+            for n in KERNELS}
+    runs = {}
+    for mode in (None, "buffered"):
+        tel = None if mode is None else Telemetry()
+        zero_counts()
+        out = eng.scan_rounds(x, rounds=R, telemetry=tel)
+        torch.cuda.synchronize()
+        runs[mode] = (out, launch_counts(), tel)
+    (off, off_st), off_n, _ = runs[None]
+    (on, on_st), on_n, tel = runs["buffered"]
+    if any(not torch.equal(off[k], on[k]) or not torch.equal(off_st[k],
+                                                             on_st[k])
+           for k in x):
+        fail("scan_rounds with telemetry differs from telemetry off")
+    if off_n != want or on_n != want:
+        fail(f"scan_rounds launched {off_n} (off) / {on_n} (buffered), "
+             f"expected {want}")
+    topo = eng.topology
+    masks = host_replay_masks(topo, R)
+    ev = tel.events(driver="consensus")
+    if [e["round"] for e in ev] != list(range(R)):
+        fail(f"scan_rounds telemetry rounds {[e['round'] for e in ev]}")
+    lc = np.asarray(topo.link_class)
+    for e, m in zip(ev, masks):
+        for cls, code in (("sl", topology.SL), ("ul", topology.UL),
+                          ("dl", topology.DL)):
+            hit = m & (lc == code)
+            if e[f"n_{cls}"] != int(hit.sum()) or \
+                    e[f"agent_{cls}"] != hit.sum(0).tolist():
+                fail(f"round {e['round']} {cls}: row counts differ from the "
+                     "host replay")
+    bill = delivered_comm_joules(topo, masks, tel.energy_params, eng.codec)
+    if tel.joules(driver="consensus") != bill:
+        fail(f"telemetry joules {tel.joules(driver='consensus')} != host "
+             f"replay {bill}")
+    # each mode DRV_REPS times, the order reversed every other repetition
+    # so that a drift of the host's speed falls on every mode alike
+    walls = {m: [] for m in ("off", "buffered", "streaming")}
+    for rep in range(DRV_REPS):
+        for mode in (tuple(walls) if rep % 2 == 0 else tuple(walls)[::-1]):
+            t_ = (None if mode == "off" else
+                  Telemetry(mode=mode, sinks=(MemorySink(),)))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.scan_rounds(x, rounds=R, telemetry=t_)
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t) * 1e3 / R)
+    med = {m: statistics.median(w) for m, w in walls.items()}
+    spread = {m: max(w) - min(w) for m, w in walls.items()}
+    row_cost = [b - o for b, o in zip(walls["buffered"], walls["off"])]
+    stream_cost = [s_ - b for s_, b in zip(walls["streaming"],
+                                           walls["buffered"])]
+    k_off = count_kernels(lambda: eng.scan_rounds(x, rounds=R),
+                          "scan_rounds_off")
+    k_on = count_kernels(lambda: eng.scan_rounds(x, rounds=R,
+                                                 telemetry=Telemetry()),
+                         "scan_rounds_buffered")
+    print(f"(a) scan_rounds {R} rounds, K={K_POP} small_world int8 sparse, "
+          f"fading + sleeping: telemetry off == buffered bit for bit; "
+          f"launches {on_n} both; rows == host replay; joules "
+          f"{tel.joules(driver='consensus')} == replay {bill}; edges per "
+          f"round {[e['edges'] for e in ev]}, n_active "
+          f"{[e['n_active'] for e in ev]}, disagreement "
+          f"{[e['disagreement'] for e in ev]}", flush=True)
+    print(f"(a) wall ms per round over {DRV_REPS} alternating runs of "
+          f"each mode, median (max - min): "
+          + ", ".join(f"{m} {med[m]} ({spread[m]})" for m in walls)
+          + f"; per repetition, buffered - off: median "
+          f"{statistics.median(row_cost)} (min {min(row_cost)}, max "
+          f"{max(row_cost)}), streaming - buffered: median "
+          f"{statistics.median(stream_cost)} (min {min(stream_cost)}, max "
+          f"{max(stream_cost)}); runs {walls}", flush=True)
+    print(f"(a) kernels per round off {k_off / R}, buffered {k_on / R} (a "
+          f"row adds {(k_on - k_off) / R})", flush=True)
+    return on_n
+
+
+def check_fl_drivers(x):
+    """(b) ``run_fl_until_scan`` (chunk 8) against ``run_fl_until`` on the
+    f32 wire (B2): each agent pulls each leaf toward a target made from
+    the seed (loss ½‖w − w*‖²), the threshold from a probe run so the hit
+    lands mid-chunk. Both with buffered telemetry: params, t_i, history
+    and the live rows bit for bit; B2 launches 10 × rounds computed."""
+    from repro_torch.core import federated
+    from repro_torch.telemetry import Telemetry
+
+    eng = driver_engine(None)
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    target = {k: torch.randn(v.shape[1:], generator=g, device=DEVICE)
+              for k, v in x.items()}
+    batches = {k: v.expand((K_POP, 1) + v.shape) for k, v in target.items()}
+
+    def loss(p, b):
+        return sum(0.5 * (p[k] - b[k]).square().sum() for k in p)
+
+    def sample(_generator, _t):
+        return batches
+
+    def dist(sp):
+        return sum((sp[k] - target[k]).square().mean() for k in sp)
+
+    def run(driver, thr, **kw):
+        def target_fn(sp):
+            m = dist(sp)
+            return m < thr, m
+        tel = Telemetry()
+        zero_counts()
+        t = time.perf_counter()
+        p, t_i, hist = driver(loss, x, sample, eng, DRV_FL["lr"],
+                              target_fn=target_fn,
+                              max_rounds=DRV_FL["max_rounds"],
+                              generator=torch.Generator(device=DEVICE),
+                              telemetry=tel, **kw)
+        torch.cuda.synchronize()
+        return (p, t_i, hist, tel, launch_counts(),
+                time.perf_counter() - t)
+
+    probe = run(federated.run_fl_until_scan, -1.0, chunk=DRV_FL["chunk"])[2]
+    thr = probe[2] * 0.999
+    res = {"chunk 8": run(federated.run_fl_until_scan, thr,
+                          chunk=DRV_FL["chunk"]),
+           "chunk 1": run(federated.run_fl_until, thr)}
+    p8, t8, h8, tel8, n8, w8 = res["chunk 8"]
+    p1, t1, h1, tel1, n1, w1 = res["chunk 1"]
+    if not 1 < t8 < DRV_FL["chunk"] or (t8, h8) != (t1, h1) or any(
+            not torch.equal(p8[k], p1[k]) for k in p8):
+        fail(f"run_fl_until_scan (t_i {t8}, history {h8}) differs from "
+             f"run_fl_until (t_i {t1}, history {h1}) or missed mid-chunk")
+    if tel8.events(driver="fl") != tel1.events(driver="fl") or \
+            len(tel8.events(driver="fl")) != t8:
+        fail("run_fl_until_scan live rows differ from run_fl_until's")
+    leaves = len(x)
+    computed = {"chunk 8": min(-(-t8 // DRV_FL["chunk"]) * DRV_FL["chunk"],
+                               DRV_FL["max_rounds"]), "chunk 1": t1}
+    for name, n in (("chunk 8", n8), ("chunk 1", n1)):
+        want = {k: (leaves * computed[name] if k == "consensus_update_pop"
+                    else 0) for k in KERNELS}
+        if n != want:
+            fail(f"run_fl_until {name} launched {n}, expected {want}")
+    print(f"(b) FL drivers K={K_POP} f32 sparse, fading + sleeping: probe "
+          f"history {probe}; threshold {thr}; t_i {t8} at chunk 8 == chunk 1, "
+          f"params, history and {t8} live rows bit for bit; launches chunk 8 "
+          f"{n8} ({computed['chunk 8']} rounds computed), chunk 1 {n1}; wall "
+          f"s chunk 8 {w8}, chunk 1 {w1}; joules {tel8.joules()}", flush=True)
+    return n8
+
+
+def run_streaming_casestudy(off):
+    """(c) The ``dynamic`` phase's int8 case study again, with streaming
+    telemetry into ``build/telemetry.jsonl``: t_i, histories, E_total,
+    adapted params and launches equal the telemetry-off run; per task the
+    streamed joules equal the post-hoc bill and there are t_i ``fl``
+    events; the log passes the port's schema."""
+    from repro_torch.kernels import build
+    from repro_torch.telemetry import JsonlSink, Telemetry, validate_jsonl
+
+    cs0, res0, n0 = off
+    path = build.BUILD_ROOT.parent / "telemetry.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tel = Telemetry(mode="streaming", sinks=(JsonlSink(path),))
+    cs = dynamic_casestudy("int8", telemetry=tel)
+    zero_counts()
+    t = time.perf_counter()
+    res = cs.run(torch.Generator(device=DEVICE).manual_seed(0), DYN_CS["t0"],
+                 max_rounds=DYN_CS["max_rounds"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = launch_counts()
+    tel.close()
+    same = (res.rounds_per_task == res0.rounds_per_task
+            and res.meta_history == res0.meta_history
+            and res.fl_histories == res0.fl_histories
+            and res.E_total == res0.E_total
+            and all(torch.equal(cs.fl_params[i][k], cs0.fl_params[i][k])
+                    for i in cs0.fl_params for k in cs0.fl_params[i]))
+    if not same:
+        fail(f"streaming case study t_i {res.rounds_per_task} / E_total "
+             f"{res.E_total} differs from telemetry off "
+             f"{res0.rounds_per_task} / {res0.E_total} (or its histories "
+             "or adapted params do)")
+    if got != n0:
+        fail(f"streaming case study launched {got}, telemetry off {n0}")
+    per_task = [tel.joules(task_id=i) for i in range(6)]
+    counts = [len([e for e in tel.events(driver="fl") if e["task_id"] == i])
+              for i in range(6)]
+    if per_task != res.fl_comm_joules_measured or \
+            counts != res.rounds_per_task:
+        fail(f"streamed joules {per_task} vs post-hoc "
+             f"{res.fl_comm_joules_measured}; events {counts} vs t_i "
+             f"{res.rounds_per_task}")
+    n_events, errors = validate_jsonl(path)
+    if errors or n_events != DYN_CS["t0"] + sum(res.rounds_per_task):
+        fail(f"{path}: {n_events} valid events, problems {errors[:5]}")
+    print(f"(c) streaming case study (int8, p=0.3, awake 0.75): t_i "
+          f"{res.rounds_per_task}, E_total_kJ {res.summary()['E_total_kJ']}, "
+          f"histories and adapted params == telemetry off; launches {got} "
+          f"== off; streamed joules per task {per_task} == post-hoc bill; "
+          f"{n_events} events in {path} pass the schema; wall_s {wall}",
+          flush=True)
+    return got
+
+
+def run_protocol():
+    """(d) ``MTLProtocol`` on the card: the paper-DQN Q-network regressed
+    on the one-step rewards of each gridworld task (q(s, a) → r(s, a) /
+    10), the case study's 2-robot clusters and meta tasks, t0 = 5,
+    max_rounds 16, buffered telemetry. K = 2 sits below the sparse
+    floor, so the engine is dense and no kernel launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import energy
+    from repro_torch.core.multitask import ClusterNetwork
+    from repro_torch.core.protocol import MTLProtocol
+    from repro_torch.models import dqn as qmodel
+    from repro_torch.rl import gridworld as gw
+    from repro_torch.rl.casestudy import META_TASKS
+    from repro_torch.telemetry import Telemetry
+
+    cfg = get_arch("paper-dqn")
+    cells = torch.arange(gw.NUM_CELLS, device=DEVICE)
+    pos = torch.stack([cells // gw.GRID_H, cells % gw.GRID_H], -1)
+    states = gw.one_hot_state(pos)
+    rewards = torch.stack([torch.stack(
+        [gw.step(pos, torch.full_like(cells, a), tid)[1]
+         for a in range(gw.NUM_ACTIONS)], -1) for tid in range(gw.NUM_TASKS)]
+    ).to(torch.float32) / 10.0                      # (tasks, 40, 4)
+
+    def loss_fn(p, b):
+        return (qmodel.forward(p, cfg, b["x"]) - b["y"]).square().mean()
+
+    def batch(idx, task_id):
+        return {"x": states[idx], "y": rewards[task_id][idx]}
+
+    def sample_support(g, task_id, steps):
+        return batch(torch.randint(0, gw.NUM_CELLS, (steps, 16), generator=g,
+                                   device=DEVICE), task_id)
+
+    def sample_query(g, task_id):
+        return batch(torch.randint(0, gw.NUM_CELLS, (16,), generator=g,
+                                   device=DEVICE), task_id)
+
+    def target_fn(p, task_id):
+        err = loss_fn(p, batch(cells, task_id))
+        return err < 0.06, -err
+
+    tel = Telemetry()
+    proto = MTLProtocol(
+        loss_fn=loss_fn,
+        init_fn=lambda g: qmodel.init(cfg, generator=g, device=DEVICE),
+        network=ClusterNetwork(num_tasks=gw.NUM_TASKS, devices_per_cluster=2,
+                               meta_task_ids=META_TASKS),
+        sample_support=sample_support, sample_query=sample_query,
+        target_fn=target_fn, inner_lr=0.05, outer_lr=0.05, fl_lr=0.05,
+        inner_steps=5, fl_local_steps=10, chunk=8, telemetry=tel)
+    t0, max_rounds = 5, 16
+    zero_counts()
+    t = time.perf_counter()
+    res = proto.run(torch.Generator(device=DEVICE).manual_seed(3), t0,
+                    max_rounds=max_rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = launch_counts()
+    want = energy.total_energy(proto.energy_params, t0, proto.net.Q,
+                               res.rounds_per_task, proto.cluster_topology)
+    per_round = proto.engine.round_comm_joules(proto.energy_params)
+    joules = [tel.joules(task_id=i) for i in range(gw.NUM_TASKS)]
+    if (proto.engine.plan.kind != "dense" or any(got.values())
+            or len(res.meta_history) != t0
+            or not all(abs(v) < float("inf") for v in res.meta_history)
+            or not all(1 <= r <= max_rounds for r in res.rounds_per_task)
+            or abs(res.E_total - want) > 1e-9 * want
+            or joules != [sum([per_round] * r) for r in res.rounds_per_task]
+            or len(tel.events(driver="maml")) != t0):
+        fail(f"MTLProtocol: plan {proto.engine.plan.kind} launches {got} "
+             f"t_i {res.rounds_per_task} meta {res.meta_history} E_total "
+             f"{res.E_total} (Eq. (12) {want}) joules {joules}")
+    print(f"(d) MTLProtocol paper-DQN regression on the card: plan "
+          f"{proto.engine.plan.kind} (K = 2; no kernel launches: {got}); t0 "
+          f"{t0}, meta losses {res.meta_history}, t_i {res.rounds_per_task}, "
+          f"E_total_kJ {res.summary()['E_total_kJ']}, per-task telemetry "
+          f"joules {joules}; wall_s {wall}", flush=True)
+    return got
 
 
 def trace_kernels(prof, name):
@@ -1092,10 +1467,8 @@ def main():
     check_dynamic_kernels(pops, errs)
     for name in errs:
         rows[name]["max_abs_err"] = errs[name]
-    del pops
-    torch.cuda.empty_cache()
     stamp("mask and kernel checks")
-    dyn_paths, dyn_walls = run_dynamic_casestudy()
+    dyn_paths, dyn_walls, dyn_int8 = run_dynamic_casestudy()
     by_path.update(dyn_paths)
     # the static int8 run is the script's first case study and carries its
     # warm-up; the codec=None pair are both warm
@@ -1105,6 +1478,21 @@ def main():
         " (static int8 is the first run: warm-up included)", flush=True)
     stamp("dynamic case study")
     profile_dynamic_round()
+
+    phase("drivers")
+    x = pops[K_POP]
+    for path, label, fn, args in (
+            ("drivers_scan_rounds_int8", "(a) scan_rounds telemetry",
+             check_scan_rounds_telemetry, (x,)),
+            ("drivers_fl_f32", "(b) FL drivers", check_fl_drivers, (x,)),
+            ("drivers_casestudy_streaming_int8", "(c) streaming case study",
+             run_streaming_casestudy, (dyn_int8,)),
+            ("drivers_protocol", "(d) MTLProtocol", run_protocol, ())):
+        t = time.perf_counter()
+        by_path[path] = fn(*args)
+        print(f"{label}: {time.perf_counter() - t:.2f} s", flush=True)
+    del pops, x, dyn_int8
+    torch.cuda.empty_cache()
 
     phase("profile")
     profile_round()
@@ -1121,9 +1509,9 @@ def main():
     torch.cuda.empty_cache()
     check_decode_vs_forward(lm_cfg)
 
-    # launches: the sum over the main paths (the case study's two, the
-    # serving run), each counted from 0 in its own run; launches_by_path
-    # keeps them apart
+    # launches: the sum over the main paths (the case study's runs, the
+    # drivers' runs, the serving run), each counted from 0 in its own run;
+    # launches_by_path keeps them apart
     kernels = [dict(name=n, launches=sum(p[n] for p in by_path.values()),
                     launches_by_path={k: p[n] for k, p in by_path.items()},
                     **rows[n]) for n in KERNELS]

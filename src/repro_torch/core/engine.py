@@ -44,8 +44,10 @@ Every compressed plan recentres each agent on its OWN decoded copy
 (CHOCO), so under doubly-stochastic σ the population mean is exact
 whatever the codec.
 
-A mesh (the sharded and distributed plans) and per-round telemetry come
-in a later slice of the port and are refused.
+``scan_rounds(telemetry=)`` records one row per round
+(:mod:`repro_torch.telemetry`) from the same survival or delivered tensor
+the round mixed with. A mesh (the sharded and distributed plans) comes in
+a later slice of the port and is refused.
 """
 from __future__ import annotations
 
@@ -104,8 +106,9 @@ class AsyncRound(NamedTuple):
 
 def where_active(active, new, old):
     """Per-agent select over dicts of K-stacked tensors: row ``k`` takes
-    ``new[k]`` where ``active[k]`` else ``old[k]``. An all-True (all-False)
-    mask returns the first (second) operand's values exactly."""
+    ``new[k]`` where ``active[k]`` else ``old[k]``; a 0-d ``active``
+    selects for every agent at once. An all-True (all-False) mask returns
+    the first (second) operand's values exactly."""
     act = torch.as_tensor(active, dtype=torch.bool)
     out = {}
     for name, n in new.items():
@@ -568,12 +571,14 @@ class ConsensusEngine:
         fresh :class:`AsyncState`). The rounds' survival and availability
         are drawn first, in one vectorised call each on the params'
         device. Returns ``(params, codec_state)``, the same bits as the
-        same calls made one by one."""
-        if telemetry is not None:
-            raise ValueError(
-                f"telemetry={telemetry!r}: per-round telemetry rows come "
-                f"in {_LATER}; drop telemetry= (the case study bills "
-                "Eq. (11) by replaying the same draws on the host)")
+        same calls made one by one.
+
+        ``telemetry`` (:class:`repro_torch.telemetry.Telemetry`) records
+        one ``consensus`` row per round from the survival lanes the round
+        mixed with (on async rounds ``AsyncRound.delivered``, activity and
+        ages; never a second draw), read from the device in one copy at
+        the end (streaming mode: one per round). Params and state are
+        bit-identical with telemetry off, buffered or streaming."""
         if rounds is None:
             raise ValueError(
                 f"scan_rounds got rounds={rounds!r} — pass rounds= (a "
@@ -587,8 +592,13 @@ class ConsensusEngine:
         links = (self.round_survival(ts) if self.graph.kind != "static"
                  else None)
         acts = self.availability(ts) if is_async else None
+        recorder = (telemetry.recorder_for(self) if telemetry is not None
+                    else None)
+        stream = (telemetry.stream_cb(recorder, "consensus")
+                  if telemetry is not None and telemetry.streaming else None)
         p, st = stacked_params, codec_state
         ast = self.init_async_state(device=device) if is_async else None
+        rows = []
         for i in range(R):
             link = None if links is None else links[i]
             if is_async:
@@ -596,8 +606,19 @@ class ConsensusEngine:
                                       link=link)
                 p, st, ast, _ = self.async_step(p, st, generator, state=ast,
                                                 round_info=ar)
+                sv_row, act, age = ar.delivered, ar.act, ar.age
             else:
                 p, st = self.step(p, st, generator, survival=link)
+                sv_row, act, age = link, None, None
+            if recorder is not None:
+                row = recorder.row(p, sv_row, metric=0.0, reached=False,
+                                   live=True, active=act, age=age)
+                if stream is not None:
+                    stream(int(t0) + i, row)
+                rows.append(row)
+        if recorder is not None and rows:
+            telemetry.record_rounds(recorder, recorder.collect(rows), t0,
+                                    driver="consensus")
         return p, st
 
     # -- Eq.-(11) pricing -------------------------------------------------------

@@ -9,14 +9,21 @@
 function that itself takes ``torch.func.grad``). Tasks are batched with
 ``torch.func.vmap``. ``loss_fn(params, batch) -> scalar`` and params are
 a ``{name: tensor}`` dict.
+
+Two drivers run ``rounds`` meta rounds: :func:`maml_train` reads the
+meta-loss back every round and calls a host ``callback``;
+:func:`maml_train_scan` reads the losses once per ``chunk`` rounds. Both
+run the same round, so their params and histories agree bit for bit.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.func import grad, grad_and_value, vmap
 from torch.utils._pytree import tree_leaves, tree_map
+
+from repro_torch.core import scanloop
 
 
 def inner_adapt(loss_fn: Callable, params, batch, lr: float,
@@ -68,3 +75,91 @@ def maml_meta_step(loss_fn: Callable, meta_params, support, query, *,
                "meta_grad_norm": torch.sqrt(sum(
                    x.to(torch.float32).square().sum() for x in g.values()))}
     return new_params, metrics
+
+
+def _default_generator(generator, params):
+    """``generator``, or one seeded 0 on the params' device."""
+    if generator is not None:
+        return generator
+    device = next(iter(params.values())).device
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def maml_train(loss_fn: Callable, meta_params, sample_tasks: Callable,
+               *, rounds: int, inner_lr: float, outer_lr: float,
+               inner_steps: int = 1, first_order: bool = True,
+               generator=None, callback: Optional[Callable] = None):
+    """Run ``rounds`` MAML rounds. ``sample_tasks(generator, round) ->
+    (support, query)`` with a leading task axis. Host-loop driver: one
+    device→host read of the meta-loss per round, and the only driver
+    with a per-round host ``callback(t, params, metrics)``. Returns
+    ``(meta_params, history)``."""
+    generator = _default_generator(generator, meta_params)
+    history = []
+    for t in range(rounds):
+        support, query = sample_tasks(generator, t)
+        meta_params, m = maml_meta_step(
+            loss_fn, meta_params, support, query, inner_lr=inner_lr,
+            outer_lr=outer_lr, inner_steps=inner_steps,
+            first_order=first_order)
+        history.append(float(scanloop.to_host(m["meta_loss"])))
+        if callback is not None:
+            callback(t, meta_params, m)
+    return meta_params, history
+
+
+def maml_train_scan(loss_fn: Callable, meta_params, sample_tasks: Callable,
+                    *, rounds: int, inner_lr: float, outer_lr: float,
+                    inner_steps: int = 1, first_order: bool = True,
+                    generator=None, chunk: int = 32, telemetry=None):
+    """:func:`maml_train` with the meta-loss history read once per
+    ``chunk`` rounds (one device→host copy of the chunk's losses and
+    meta-gradient norms) instead of once per round; params and history
+    are the same bits. ``rounds`` need not be a multiple of ``chunk``.
+
+    ``telemetry`` records one ``maml`` event per round (``meta_loss``,
+    ``meta_grad_norm``) from the chunk's read; in streaming mode each
+    round is also read and emitted as it ends (one read per round)."""
+    generator = _default_generator(generator, meta_params)
+
+    def step(t, params):
+        support, query = sample_tasks(generator, t)
+        return maml_meta_step(
+            loss_fn, params, support, query, inner_lr=inner_lr,
+            outer_lr=outer_lr, inner_steps=inner_steps,
+            first_order=first_order)
+
+    return run_meta_rounds(step, meta_params, rounds=rounds, chunk=chunk,
+                           telemetry=telemetry)
+
+
+def run_meta_rounds(step: Callable, meta_params, *, rounds: int,
+                    chunk: int, telemetry=None):
+    """The chunked loop of :func:`maml_train_scan` and of the case
+    study's meta-training: ``step(t, params) -> (params, metrics)`` runs
+    meta round ``t`` (metrics as :func:`maml_meta_step` gives them), and
+    the chunk's meta-losses and meta-gradient norms are read in one
+    device→host copy (with ``telemetry``, recorded as ``maml`` events;
+    streaming also reads and emits each round as it ends). Returns
+    ``(meta_params, history)``."""
+    if rounds <= 0:
+        return meta_params, []
+    chunk = max(1, min(int(chunk), rounds))
+    stream = (telemetry.maml_stream_cb()
+              if telemetry is not None and telemetry.streaming else None)
+    history = []
+    for start in range(0, rounds, chunk):
+        pending = []
+        for t in range(start, min(start + chunk, rounds)):
+            meta_params, m = step(t, meta_params)
+            if stream is not None:
+                stream(t, m["meta_loss"], m["meta_grad_norm"])
+            pending.append(torch.stack([m["meta_loss"],
+                                        m["meta_grad_norm"]]))
+        host = scanloop.to_host(torch.stack(pending))          # one read
+        if telemetry is not None:
+            telemetry.record_maml_rounds(
+                {"meta_loss": host[:, 0], "meta_grad_norm": host[:, 1]},
+                start)
+        history.extend(float(x) for x in host[:, 0])
+    return meta_params, history

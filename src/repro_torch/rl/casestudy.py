@@ -23,6 +23,11 @@ neither mixes nor updates its residuals, and Eq. (11) bills only the
 wires delivered, by replaying the same draws on the host over exactly the
 rounds used.
 
+With ``telemetry`` (:class:`repro_torch.telemetry.Telemetry`) each meta
+round lands as a ``maml`` event and each FL round as an ``fl`` event
+tagged ``task_id``; the rows ride the chunk's one read, and under dropout
+``telemetry.joules(task_id=i)`` equals the post-hoc bill exactly.
+
 Run:  PYTHONPATH=src python -m repro_torch.rl.casestudy --t0 60
 """
 from __future__ import annotations
@@ -38,9 +43,9 @@ from torch.func import grad, vmap
 import repro_torch
 from repro_torch.comms import codecs
 from repro_torch.configs import get_arch
-from repro_torch.core import energy, maml, scanloop
+from repro_torch.core import energy, federated, maml
 from repro_torch.core import topology as topo_lib
-from repro_torch.core.engine import AsyncState, ConsensusEngine, where_active
+from repro_torch.core.engine import ConsensusEngine, where_active
 from repro_torch.core.multitask import ClusterNetwork
 from repro_torch.core.protocol import ProtocolResult
 from repro_torch.models import dqn as qmodel
@@ -78,10 +83,6 @@ def _clipped_sgd_steps(loss_fn, params, batches, lr: float,
         scale = torch.clamp(clip / torch.clamp_min(gn, 1e-9), max=1.0)
         params = {k: w - lr * scale * g[k] for k, w in params.items()}
     return params
-
-
-def _where(flag, new, old):
-    return {k: torch.where(flag, new[k], old[k]) for k in new}
 
 
 def delivered_comm_joules(base, masks, energy_params, codec=None) -> float:
@@ -133,6 +134,14 @@ class CaseStudy:
     plan: str = "auto"
     #: rounds between host syncs of the reached flags / meta losses
     chunk: int = 8
+    #: optional :class:`repro_torch.telemetry.Telemetry`: meta rounds land
+    #: as ``maml`` events, every task's FL rounds as ``fl`` events tagged
+    #: ``task_id`` (``metric`` = the running reward R, ``reached`` = the
+    #: hit, disagreement on the mixed params), priced with this case
+    #: study's ``energy_params`` so ``telemetry.joules(task_id=i)`` equals
+    #: the post-hoc ``last_adapt_comm_joules`` under dropout. t0, t_i,
+    #: histories and params are bit-identical with telemetry off.
+    telemetry: object = None
     device: str = "cuda"
 
     def __post_init__(self):
@@ -158,6 +167,12 @@ class CaseStudy:
             for tid in range(gw.NUM_TASKS)}
         self.engine = self._engines[0]
         self.fl_delivered = {}
+        self.fl_params = {}
+        if self.telemetry is not None:
+            # recorders carry THIS case study's billing constants so the
+            # stream reconciles exactly with the post-hoc replay
+            for eng in self._engines.values():
+                self.telemetry.recorder_for(eng, self.energy_params)
 
     def _agent_process(self, task_id):
         """The availability process of one task: ``self.availability``
@@ -194,16 +209,12 @@ class CaseStudy:
             inner_steps=self.inner_steps, first_order=self.first_order)
 
     def meta_train(self, generator, t0: int):
-        """Stage 1: t0 meta rounds, losses synced once per chunk."""
-        params = self.init_params(generator)
-        hist, pending = [], []
-        for t in range(t0):
-            params, m = self.meta_round(params, generator)
-            pending.append(m["meta_loss"])
-            if len(pending) == self.chunk or t == t0 - 1:
-                hist.extend(torch.stack(pending).tolist())
-                pending = []
-        return params, hist
+        """Stage 1: t0 meta rounds, losses (and meta-gradient norms)
+        synced once per chunk."""
+        return maml.run_meta_rounds(
+            lambda t, p: self.meta_round(p, generator),
+            self.init_params(generator), rounds=t0, chunk=self.chunk,
+            telemetry=self.telemetry)
 
     # -- stage 2 -----------------------------------------------------------------
     def fl_round(self, task_id, stacked, codec_state, generator,
@@ -246,64 +257,24 @@ class CaseStudy:
         reward history). Bills ``self.last_adapt_comm_joules`` over
         exactly the rounds used; on fading links or sleeping robots
         ``self.fl_delivered[task_id]`` keeps the wires the device
-        delivered in those rounds ((t_i,) + the plan's lane shape)."""
+        delivered in those rounds ((t_i,) + the plan's lane shape), and
+        ``self.fl_params[task_id]`` the adapted params."""
         C = self.network.devices_per_cluster
         eng = self._engines[task_id]
         stacked = {k: v.unsqueeze(0).expand((C,) + v.shape).clone()
                    for k, v in init_params.items()}
-        codec_state = eng.init_state(stacked)
-        is_async = eng.agents is not None
-        dynamic = is_async or self.dropout_p > 0
-        astate = (eng.init_async_state(device=self.device) if is_async
-                  else None)
-        reached = torch.zeros((), dtype=torch.bool, device=self.device)
-        hist, rounds, delivered = [], max_rounds, []
-        for start in range(0, max_rounds, self.chunk):
-            n = min(self.chunk, max_rounds - start)
-            # the chunk's draws, one vectorised call each on the device
-            ts = torch.arange(start, start + n, device=self.device)
-            links = eng.round_survival(ts) if self.dropout_p > 0 else None
-            acts = eng.availability(ts) if is_async else None
-            hits, Rs, delivs = [], [], []
-            for i in range(n):
-                link = None if links is None else links[i]
-                if is_async:
-                    ar = eng.async_round(start + i, astate.age, act=acts[i],
-                                         link=link)
-                    sv, act, deliv = ar.weights, ar.act, ar.delivered
-                else:
-                    sv, act, deliv = link, None, link
-                new, new_state, R = self.fl_round(
-                    task_id, stacked, codec_state, generator, survival=sv,
-                    active=act)
-                live = ~reached
-                stacked = _where(live, new, stacked)
-                if new_state is not None:
-                    codec_state = _where(live, new_state, codec_state)
-                if is_async:
-                    astate = AsyncState(
-                        torch.where(live, astate.clock + act.to(torch.int32),
-                                    astate.clock),
-                        torch.where(live, ar.age, astate.age))
-                hit = live & (R >= self.r_target)
-                reached = reached | hit
-                hits.append(hit)
-                Rs.append(torch.where(live, R, torch.nan))
-                if dynamic:
-                    delivs.append(deliv.flatten())
-            cols = [torch.stack(hits).float()[:, None],
-                    torch.stack(Rs).float()[:, None]]
-            if dynamic:
-                cols.append(torch.stack(delivs).float())
-            chunk = torch.cat(cols, 1).cpu().numpy()        # one sync
-            hist.extend(float(r) for r in chunk[:, 1] if r == r)
-            if dynamic:
-                lane_shape = tuple(deliv.shape)
-                delivered.extend(chunk[:, 2:] > 0)
-            h = scanloop.first_hit(chunk[:, 0] > 0)
-            if h is not None:
-                rounds = start + h + 1
-                break
+        dynamic = eng.agents is not None or self.dropout_p > 0
+
+        def round_fn(t, p, codec_state, survival, active):
+            new, new_state, R = self.fl_round(
+                task_id, p, codec_state, generator, survival=survival,
+                active=active)
+            return new, new_state, R >= self.r_target, R, True
+
+        stacked, _, rounds, hist, delivered = federated.run_chunked_rounds(
+            eng, round_fn, stacked, max_rounds=max_rounds, chunk=self.chunk,
+            telemetry=self.telemetry, telemetry_extra={"task_id": task_id},
+            keep_delivered=True)
         # Eq.-(11) bill over exactly the rounds used: static lockstep runs
         # price rounds × the full graph; fading or sleeping runs replay the
         # host streams (bit-identical to the device's draws) and price
@@ -312,8 +283,7 @@ class CaseStudy:
         base = self.cluster_topology
         proc = self._agent_process(task_id)
         if dynamic:
-            self.fl_delivered[task_id] = np.stack(
-                delivered[:rounds]).reshape((rounds,) + lane_shape)
+            self.fl_delivered[task_id] = delivered
             drops = (topo_lib.dropout(base, self.dropout_p,
                                       seed=self.dropout_seed + task_id,
                                       rounds=rounds)
@@ -326,6 +296,7 @@ class CaseStudy:
         else:
             self.last_adapt_comm_joules = rounds * float(
                 base.round_comm_joules(self.energy_params, codec=self.codec))
+        self.fl_params[task_id] = stacked
         return stacked, rounds, hist
 
     def run(self, generator, t0: int, *, max_rounds: int = 400

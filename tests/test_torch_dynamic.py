@@ -34,6 +34,7 @@ from repro_torch.core.engine import (AsyncState, ConsensusEngine,  # noqa: E402
                                      where_active)
 from repro_torch.core.protocol import ProtocolResult  # noqa: E402
 from repro_torch.rl import casestudy  # noqa: E402
+from repro_torch.telemetry import Telemetry  # noqa: E402
 
 K = 16
 PLANS = {"dense": "dense-xla", "sparse": "sparse-pallas"}
@@ -352,8 +353,10 @@ def test_engine_refusals_mirror_jax():
         _raises_like(lambda: lock.step(_t(p)), lambda: jlock.step(_j(p)))
         with pytest.raises(ValueError, match="agents=None"):
             lock.async_round(0, torch.zeros(1, dtype=torch.int32))
-        with pytest.raises(ValueError, match="later slice"):
-            eng.scan_rounds(_t(p), rounds=2, telemetry=object())
+        # telemetry= records one row per round (no longer refused)
+        tel = Telemetry()
+        eng.scan_rounds(_t(p), rounds=2, telemetry=tel)
+        assert [e["round"] for e in tel.events(driver="consensus")] == [0, 1]
         with pytest.raises(ValueError, match="rounds="):
             eng.scan_rounds(_t(p))
 

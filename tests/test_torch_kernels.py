@@ -426,3 +426,37 @@ def test_cuda_masks_equal_cpu_masks(cuda):
                                            rounds.to(dev)).cpu()
                 for dev in ("cpu", cuda)]
         assert torch.equal(*acts)
+
+
+@pytest.mark.gpu
+def test_cuda_telemetry_rows_equal_cpu_rows(cuda):
+    """Three async rounds with fading links on the sparse plan (K = 256,
+    int8 wire through B1), drawn and recorded on the card and on the CPU:
+    every row's link counts, per-sender counts (``index_add_`` over the
+    lane table), activity, ages and float64 joules are equal; the
+    disagreement (a reduction in another order) within rel 1e-5."""
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+    from repro_torch.telemetry import Telemetry
+    topo = topology.small_world(256, k=4, seed=1)
+    rng = np.random.default_rng(3)
+    params = {"w": rng.standard_normal((256, 4099)).astype(np.float32),
+              "b": rng.standard_normal((256, 7)).astype(np.float32)}
+    events = []
+    for dev in ("cpu", cuda):
+        eng = ConsensusEngine(
+            topo, codec="int8", plan="sparse",
+            graph=topology.GraphProcess.dropout(0.3, seed=1),
+            agents=topology.AgentProcess.bernoulli(0.7), tau=2,
+            staleness_decay=0.9)
+        tel = Telemetry()
+        eng.scan_rounds({k: torch.from_numpy(v).to(dev)
+                         for k, v in params.items()}, rounds=3, telemetry=tel)
+        events.append(tel.events(driver="consensus"))
+    assert len(events[0]) == len(events[1]) == 3
+    for e, g in zip(*events):
+        for f in ("n_sl", "n_ul", "n_dl", "edges", "n_active", "max_age",
+                  "agent_sl", "agent_ul", "agent_dl", "joules",
+                  "agent_joules"):
+            assert e[f] == g[f], f
+        assert g["disagreement"] == pytest.approx(e["disagreement"], rel=1e-5)
