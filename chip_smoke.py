@@ -55,9 +55,21 @@ Phases (any failure exits non-zero; nothing is caught):
                 schema; (d) ``MTLProtocol`` with the paper-DQN Q-network
                 regressed on one-step rewards (2-robot clusters, t0 = 5,
                 max_rounds 16; dense at K = 2, so no kernel launches).
-8. profile    — host wall and device kernel time of one case-study FL
+8. paper      — the paper's experiments at full paper-DQN width on the
+                sparse plan, codec None (B2 carries every combine): (a)
+                ``CaseStudy.run`` at ``r_target=-1e9``, t0 2, max_rounds 4,
+                at chunk 1 and chunk 4: every task's t_i, history and
+                adapted params ``==``, B2 launches 10 × rounds computed (60
+                / 240), B1 none; (b) the Fig. 4 sweep reduced to 1 seed,
+                grid (0, 2, 4), max_rounds 8: energies ``==`` recomputed
+                from the mean t_i, and grid (4,) alone gives the same t_i
+                at t0 = 4; (c) the MAML stage alone: ms per meta round
+                (median of 7), kernels per meta round and the busy share;
+                (d) the twin of ``examples/async_fleet.py`` (int8, sparse,
+                B1): rows == the host replay, joules == the bill.
+9. profile    — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
-9. lm_kernels — the RG-LRU scan and flash-attention kernels against their
+10. lm_kernels — the RG-LRU scan and flash-attention kernels against their
                 plain versions at recurrentgemma-9b's serving shapes (bf16
                 attention at scores of std 1 and of std 20, which the
                 softcap bends; a ragged bf16 case with a window that cuts
@@ -66,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 bound, B4's achieved TFLOP/s, and ptxas's registers and
                 spills of the two sources. Every time is the median of 20
                 calls.
-10. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
+11. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
                 recurrentgemma-9b (random weights): 4 prompts of 4096
                 tokens, 32 greedy tokens; each prefill must launch the scan
                 26 and the attention kernel 12 times, decode neither. Then
@@ -1073,6 +1085,231 @@ def run_protocol():
     return got
 
 
+# -- paper: the paper's experiments on the port ---------------------------------
+
+PAPER_C1 = dict(t0=2, max_rounds=4, chunks=(1, 4))
+PAPER_SWEEP = dict(seeds=1, max_rounds=8, t0_grid=(0, 2, 4))
+#: meta rounds timed alone in (c), and meta rounds in its trace
+PAPER_META = dict(reps=7, traced=2)
+
+
+def paper_casestudy(**kw):
+    """The case study at full paper-DQN width on the sparse plan, codec
+    None (every combine through B2), as the sweep runs it."""
+    from repro_torch.rl.casestudy import CaseStudy
+    cs = CaseStudy(plan="sparse", inner_steps=10, outer_lr=0.01,
+                   device=DEVICE, **kw)
+    if cs.engine.plan.kind != "sparse":
+        fail(f"paper case study resolved to {cs.engine.plan.kind!r}")
+    return cs
+
+
+def dqn_leaves():
+    """Leaves of the full-width paper-DQN (10)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dqn as qmodel
+    return len(qmodel.init(get_arch("paper-dqn"), device=DEVICE))
+
+
+def b2_only(rounds, leaves):
+    """The launch counts of a run that computed ``rounds`` FL rounds of a
+    ``leaves``-leaf model on the f32 wire: B2 once per leaf per round."""
+    return {n: rounds * leaves if n == "consensus_update_pop" else 0
+            for n in KERNELS}
+
+
+def check_paper_c1():
+    """(a) ``CaseStudy.run`` with ``r_target=-1e9`` (every task hits in
+    round 1), t0 2, max_rounds 4, at chunk 1 and at chunk 4: every task's
+    t_i, history and adapted params and the meta history ``==``; B2
+    launches 10 × rounds computed (60 / 240), B1 never."""
+    t0, max_rounds = PAPER_C1["t0"], PAPER_C1["max_rounds"]
+    runs, by_path = {}, {}
+    for chunk in PAPER_C1["chunks"]:
+        cs = paper_casestudy(r_target=-1e9, chunk=chunk)
+        zero_counts()
+        t = time.perf_counter()
+        res = cs.run(torch.Generator(device=DEVICE).manual_seed(0), t0,
+                     max_rounds=max_rounds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = launch_counts()
+        computed = sum(min(-(-r // chunk) * chunk, max_rounds)
+                       for r in res.rounds_per_task)
+        want = b2_only(computed, dqn_leaves())
+        print(f"(a) chunk {chunk}: t_i {res.rounds_per_task}, meta losses "
+              f"{res.meta_history}, {computed} FL rounds computed, launches "
+              f"{got} (expected {want}); wall_s {wall}", flush=True)
+        if res.rounds_per_task != [1] * 6 or got != want:
+            fail(f"C1 run at chunk {chunk}: t_i {res.rounds_per_task}, "
+                 f"launches {got}, expected [1] * 6 and {want}")
+        runs[chunk] = (res, cs.fl_params)
+        by_path[f"paper_c1_chunk{chunk}"] = got
+    (r1, p1), (r4, p4) = (runs[c] for c in PAPER_C1["chunks"])
+    if (r1.rounds_per_task, r1.fl_histories, r1.meta_history) != \
+            (r4.rounds_per_task, r4.fl_histories, r4.meta_history) or any(
+                not torch.equal(p1[i][k], p4[i][k]) for i in p1 for k in p1[i]):
+        fail("CaseStudy.run at chunk 4 differs from chunk 1 (t_i, histories "
+             "or adapted params)")
+    print("(a) chunk 1 == chunk 4: every task's t_i, history and adapted "
+          "params, and the meta history, bit for bit", flush=True)
+    return by_path
+
+
+def check_paper_sweep():
+    """(b) The Fig. 4 sweep reduced to 1 seed, grid (0, 2, 4), max_rounds
+    8, chunk 8 (it prints each t0's wall and the FL rounds computed beside
+    those used): its energies ``==`` ``_add_energies`` recomputed from the
+    JSON's mean t_i, B2 launches 10 × rounds computed; then grid (4,)
+    alone gives the same t_i at t0 = 4."""
+    from repro_torch.kernels import build
+    from repro_torch.rl import fig4_tradeoff
+
+    leaves = dqn_leaves()
+    out = build.BUILD_ROOT.parent / "results" / "smoke_torch_fig4.json"
+    by_path, results = {}, {}
+    for name, grid in (("paper_sweep", PAPER_SWEEP["t0_grid"]),
+                       ("paper_sweep_subset", PAPER_SWEEP["t0_grid"][-1:])):
+        zero_counts()
+        t = time.perf_counter()
+        res = fig4_tradeoff.run(seeds=PAPER_SWEEP["seeds"],
+                                max_rounds=PAPER_SWEEP["max_rounds"],
+                                t0_grid=grid, out=str(out), plan="sparse",
+                                device=DEVICE)
+        wall = time.perf_counter() - t
+        got = launch_counts()
+        computed = sum(sum(c) for per_seed in
+                       res["run"]["rounds_computed"].values()
+                       for c in per_seed)
+        want = b2_only(computed, leaves)
+        data = json.loads(out.read_text())
+        recomputed = {"mean_rounds": data["mean_rounds"], "energies": {}}
+        fig4_tradeoff._add_energies(recomputed, grid)
+        print(f"(b) grid {grid}: t_i {data['rounds']}, {computed} FL rounds "
+              f"computed, launches {got} (expected {want}); wall_s {wall}",
+              flush=True)
+        if data["run"]["plan"] != "sparse" or got != want or \
+                data["energies"] != json.loads(json.dumps(
+                    recomputed["energies"])):
+            fail(f"sweep grid {grid}: plan {data['run']['plan']}, launches "
+                 f"{got} (expected {want}), energies {data['energies']} vs "
+                 f"recomputed {recomputed['energies']}")
+        results[name] = data
+        by_path[name] = got
+    t0 = str(PAPER_SWEEP["t0_grid"][-1])
+    full, sub = results["paper_sweep"], results["paper_sweep_subset"]
+    if full["rounds"][t0] != sub["rounds"][t0]:
+        fail(f"t_i at t0={t0}: full grid {full['rounds'][t0]}, subset "
+             f"{sub['rounds'][t0]}")
+    print(f"(b) subset grid == full grid at t0={t0}: t_i {sub['rounds'][t0]}; "
+          f"energies == recomputed; {out}", flush=True)
+    return by_path
+
+
+def measure_meta_round():
+    """(c) The MAML stage alone: ``CaseStudy.meta_round`` at full width
+    (3 meta tasks, 10 inner steps, first order). Wall ms per meta round
+    (median of ``PAPER_META['reps']``, a synchronize around each), then
+    kernels per meta round and the device's busy share from one
+    ``torch.profiler`` trace. A meta round launches no consensus kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = paper_casestudy()
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    params = cs.init_params(gen)
+    params, _ = cs.meta_round(params, gen)               # warm-up
+    zero_counts()
+    walls = []
+    for _ in range(PAPER_META["reps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, m = cs.meta_round(params, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    got = launch_counts()
+    n = PAPER_META["traced"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            params, m = cs.meta_round(params, gen)
+        torch.cuda.synchronize()
+    out, kernels = trace_kernels(prof, "meta_round")
+    wall = statistics.median(walls)
+    busy = sum(e.get("dur", 0) for e in kernels) / n / 1e3
+    loss = float(m["meta_loss"])
+    print(f"(c) meta round (3 tasks x 10 inner steps, paper-DQN): wall ms "
+          f"median {wall} (min {min(walls)}, max {max(walls)}; {walls}); "
+          f"kernels_per_round={len(kernels) / n} device_busy_ms={busy} "
+          f"busy_share={busy / wall}; meta loss {loss}; launches {got} "
+          f"(trace {out})", flush=True)
+    if any(got.values()) or not abs(loss) < float("inf"):
+        fail(f"meta round launched {got} or gave meta loss {loss}")
+    if kernels:
+        top_kernels(kernels, n)
+    else:
+        print("profiler trace holds no device kernels: device time not "
+              "measured", flush=True)
+    return {"paper_meta_round": got}
+
+
+def check_fleet():
+    """(d) The twin of ``examples/async_fleet.py`` on the card, forced onto
+    the sparse plan (B1 carries every int8 combine): each fleet's rows'
+    link and per-agent counts, n_active and joules equal the host replay
+    round by round, and the summed joules the replayed bill (``==``); B1
+    launches 5 × 12 × 1 leaf."""
+    import numpy as np
+    from repro_torch.core import topology
+    from repro_torch.launch import async_fleet
+    from repro_torch.rl.casestudy import delivered_comm_joules
+
+    K, R = async_fleet.K, async_fleet.ROUNDS
+    stacked = async_fleet.fleet_params(DEVICE)
+    zero_counts()
+    fleets = async_fleet.processes()
+    for label, agents in fleets:
+        eng, mixed, tel = async_fleet.run(agents, label, stacked,
+                                          plan="sparse")
+        if eng.plan.kind != "sparse" or not torch.isfinite(mixed["w"]).all():
+            fail(f"fleet {label!r}: plan {eng.plan.kind}, params not finite")
+        topo = eng.topology
+        acts = topology.availability_stream(agents, K, R)
+        masks = [topo.adjacency & a[:, None] & a[None, :] for a in acts]
+        ev = tel.events(driver="consensus")
+        lc = np.asarray(topo.link_class)
+        for e, m, a in zip(ev, masks, acts):
+            if e["n_active"] != int(a.sum()):
+                fail(f"fleet {label!r} round {e['round']}: n_active "
+                     f"{e['n_active']} != replay {int(a.sum())}")
+            for cls, code in (("sl", topology.SL), ("ul", topology.UL),
+                              ("dl", topology.DL)):
+                hit = m & (lc == code)
+                if e[f"n_{cls}"] != int(hit.sum()) or \
+                        e[f"agent_{cls}"] != hit.sum(0).tolist():
+                    fail(f"fleet {label!r} round {e['round']} {cls}: row "
+                         "counts differ from the host replay")
+        # each round's row against that round's replayed bill, and the
+        # ledger's sum against the same sum of the replayed bills (Python
+        # 3.12's sum() is compensated; a left-to-right += of 12 × 44.8 J
+        # lands one ulp away)
+        bills = [delivered_comm_joules(topo, [m], tel.energy_params,
+                                       eng.codec) for m in masks]
+        if len(ev) != R or [e["joules"] for e in ev] != bills or \
+                tel.joules(driver="consensus") != sum(bills):
+            fail(f"fleet {label!r}: {len(ev)} rows, joules "
+                 f"{[e['joules'] for e in ev]} (sum "
+                 f"{tel.joules(driver='consensus')}) != replay {bills}")
+    got = launch_counts()
+    want = {n: len(fleets) * R if n == "quant_consensus_pop" else 0
+            for n in KERNELS}
+    print(f"(d) {len(fleets)} fleets x {R} rounds, int8 sparse: rows == host "
+          f"replay, joules == bill; launches {got} (expected {want})",
+          flush=True)
+    if got != want:
+        fail(f"fleets launched {got}, expected {want}")
+    return {"paper_fleet_int8": got}
+
+
 def trace_kernels(prof, name):
     """Export ``prof``'s trace to ``build/profile/<name>.json`` beside the
     kernels; return its path and its device-kernel events."""
@@ -1494,6 +1731,15 @@ def main():
     del pops, x, dyn_int8
     torch.cuda.empty_cache()
 
+    phase("paper")
+    for label, fn in (("(a) C1", check_paper_c1),
+                      ("(b) sweep", check_paper_sweep),
+                      ("(c) meta round", measure_meta_round),
+                      ("(d) async fleet", check_fleet)):
+        t = time.perf_counter()
+        by_path.update(fn())
+        print(f"{label}: {time.perf_counter() - t:.2f} s", flush=True)
+
     phase("profile")
     profile_round()
 
@@ -1510,7 +1756,8 @@ def main():
     check_decode_vs_forward(lm_cfg)
 
     # launches: the sum over the main paths (the case study's runs, the
-    # drivers' runs, the serving run), each counted from 0 in its own run;
+    # drivers' runs, the paper's runs, the serving run), each counted from
+    # 0 in its own run;
     # launches_by_path keeps them apart
     kernels = [dict(name=n, launches=sum(p[n] for p in by_path.values()),
                     launches_by_path={k: p[n] for k, p in by_path.items()},

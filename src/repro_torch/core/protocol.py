@@ -77,6 +77,16 @@ class ProtocolResult:
         }
 
 
+def stage_generators(generator, n: int):
+    """``n`` independent generators on ``generator``'s device, seeded from
+    one ``torch.randint`` draw of ``generator`` (read back once): the
+    port's counterpart of splitting a key between the stages of a run."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                          device=generator.device).tolist()
+    return [torch.Generator(device=generator.device).manual_seed(s)
+            for s in seeds]
+
+
 def _stack(trees):
     """Stack same-structured batch pytrees along a new leading axis."""
     flat = [tree_flatten(t) for t in trees]
@@ -103,16 +113,20 @@ class MTLProtocol:
     chunk:          rounds between two device→host reads in BOTH stages
                     (:func:`repro_torch.core.maml.maml_train_scan`,
                     :func:`repro_torch.core.federated.run_fl_until_scan`);
-                    t0 / t_i trajectories are bit-identical to ``chunk=1``.
+                    the meta history and every task's t_i, history and
+                    params are bit-identical to ``chunk=1``.
     telemetry:      optional :class:`repro_torch.telemetry.Telemetry`
                     threaded through BOTH stages — meta rounds land as
                     ``maml`` events, every task's FL rounds as ``fl``
                     events tagged ``task_id``. Results are bit-identical
                     with telemetry off, buffered or streaming.
 
-    One :class:`torch.Generator` drives the whole run: the init, every
-    sampler call and the codec's stochastic rounding draw from it in
-    order.
+    :meth:`run` splits its :class:`torch.Generator` up front
+    (:func:`stage_generators`) into one for meta-training (the init and
+    the meta samplers) and one for each task's adaptation (its samplers
+    and the codec's stochastic rounding), as the JAX package splits its
+    key. A chunk that ends after a task's hit draws its discarded rounds
+    from that task's generator only, so no stage depends on ``chunk``.
     """
 
     def __init__(self, *, loss_fn, init_fn, network: ClusterNetwork,
@@ -204,10 +218,11 @@ class MTLProtocol:
     # -- full protocol --------------------------------------------------------
     def run(self, generator, t0: int, *, max_rounds: int = 500
             ) -> ProtocolResult:
-        meta_params, meta_hist = self.meta_train(generator, t0)
+        gmeta, *gtasks = stage_generators(generator, 1 + self.net.num_tasks)
+        meta_params, meta_hist = self.meta_train(gmeta, t0)
         rounds, hists = [], []
-        for task_id in range(self.net.num_tasks):
-            _, t_i, hist = self.adapt_task(generator, task_id, meta_params,
+        for task_id, g in enumerate(gtasks):
+            _, t_i, hist = self.adapt_task(g, task_id, meta_params,
                                            max_rounds=max_rounds)
             rounds.append(t_i)
             hists.append(hist)

@@ -47,7 +47,7 @@ from repro_torch.core import energy, federated, maml
 from repro_torch.core import topology as topo_lib
 from repro_torch.core.engine import ConsensusEngine, where_active
 from repro_torch.core.multitask import ClusterNetwork
-from repro_torch.core.protocol import ProtocolResult
+from repro_torch.core.protocol import ProtocolResult, stage_generators
 from repro_torch.models import dqn as qmodel
 from repro_torch.rl import dqn as dqnrl
 from repro_torch.rl import gridworld as gw
@@ -301,10 +301,17 @@ class CaseStudy:
 
     def run(self, generator, t0: int, *, max_rounds: int = 400
             ) -> ProtocolResult:
-        meta_params, meta_hist = self.meta_train(generator, t0)
+        """Stage 1, then every task's adaptation from the meta params.
+        ``generator`` is split up front (:func:`stage_generators`) into one
+        generator for meta-training and one per task, as the JAX package
+        splits its key, so every task's t_i, history and params are the
+        same bits at every ``chunk``."""
+        gmeta, *gtasks = stage_generators(generator,
+                                          1 + self.network.num_tasks)
+        meta_params, meta_hist = self.meta_train(gmeta, t0)
         rounds, hists, comm = [], [], []
-        for tid in range(self.network.num_tasks):
-            _, t_i, h = self.adapt_task(generator, tid, meta_params,
+        for tid, g in enumerate(gtasks):
+            _, t_i, h = self.adapt_task(g, tid, meta_params,
                                         max_rounds=max_rounds)
             rounds.append(t_i)
             hists.append(h)

@@ -229,6 +229,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for name in ("rl/fig4_tradeoff.py", "rl/fig3_energy.py",
+                 "launch/async_fleet.py"):
+        assert ROOT / "src" / "repro_torch" / name in files, name
     for f in files:
         for name in _imports(f):
             top = name.split(".")[0]
