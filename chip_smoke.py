@@ -67,9 +67,28 @@ Phases (any failure exits non-zero; nothing is caught):
                 (median of 7), kernels per meta round and the busy share;
                 (d) the twin of ``examples/async_fleet.py`` (int8, sparse,
                 B1): rows == the host replay, joules == the bill.
-9. profile    — host wall and device kernel time of one case-study FL
+9. mesh       — the sharded and distributed plans: (a) B1/B2 in their
+                source form (a block of owned rows mixing from the
+                gathered population or wire; one agent from M received
+                rows) against their plain versions at K = 16384, N = 2048,
+                timed beside the population form; (b) ``sharded`` (4
+                blocks) == ``sparse`` bit for bit at K = 4096 and 16384 on
+                ring, N = 2048, codecs None / int8 / int8:b64, static,
+                fading (p = 0.3) and async (p_active 0.7, τ = 2, λ = 0.9),
+                launches exactly 4 per leaf per round, and one static round
+                of each timed; (c) ``distributed`` against ``sparse`` at
+                K = 256 small_world(k=4), fc1.w width, within the engine
+                gate (int8: the int-wire tolerance), one launch per leaf
+                per round, its slot masks == the CPU's, timed; (d) an NCCL
+                process group of world size 1: the mesh path == the
+                one-process path for both plans on a masked round; (e) one
+                masked sharded round at K = 16384 adds at most 4x the
+                population's f32 bytes to the peak allocation; (f)
+                ``repro_torch.launch.consensus_scale --smoke`` with its
+                gates.
+10. profile   — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
-10. lm_kernels — the RG-LRU scan and flash-attention kernels against their
+11. lm_kernels — the RG-LRU scan and flash-attention kernels against their
                 plain versions at recurrentgemma-9b's serving shapes (bf16
                 attention at scores of std 1 and of std 20, which the
                 softcap bends; a ragged bf16 case with a window that cuts
@@ -78,7 +97,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 bound, B4's achieved TFLOP/s, and ptxas's registers and
                 spills of the two sources. Every time is the median of 20
                 calls.
-11. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
+12. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
                 recurrentgemma-9b (random weights): 4 prompts of 4096
                 tokens, 32 greedy tokens; each prefill must launch the scan
                 26 and the attention kernel 12 times, decode neither. Then
@@ -1310,6 +1329,276 @@ def check_fleet():
     return {"paper_fleet_int8": got}
 
 
+# -- mesh: the sharded and distributed plans ------------------------------------
+
+MESH_KS = (4096, 16384)          # the scale benchmark's sharded rows
+MESH_N = 2048
+MESH_BLOCKS = 4
+
+
+def mesh_population(K, n=MESH_N, seed=0):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return {"w": torch.randn((K, n), generator=g, device=DEVICE)}
+
+
+def check_mesh_kernels(errs):
+    """(a) B1/B2 in their source form, at the sharded plan's shapes (each
+    of 4 blocks of K = 16384 ring agents mixing from the (K, 2048)
+    population or its int8 / int8:b64 wire) and the distributed plan's
+    (one agent mixing M received rows), against their plain versions;
+    then the source form's time beside the population form's."""
+    from repro_torch.comms import codecs
+    from repro_torch.core import consensus, topology
+    from repro_torch.kernels import ops, ref
+
+    K = MESH_KS[-1]
+    x = mesh_population(K)["w"]
+    idx, sig = (torch.as_tensor(a, device=DEVICE) for a in
+                consensus.sparse_structure(topology.ring(K).mixing()))
+    B = K // MESH_BLOCKS
+
+    def compare(name, got, want, what):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        errs[name] = max(errs[name], err)
+        if not torch.isfinite(got.float()).all() or err > F32_TOL:
+            fail(f"{name} source form {what}: max |kernel - plain| = {err}")
+
+    for b in range(MESH_BLOCKS):
+        blk = slice(b * B, (b + 1) * B)
+        compare("consensus_update_pop",
+                ops.consensus_update_pop(x[blk], idx[blk], sig[blk], src=x),
+                ref.consensus_update_pop_reference(x[blk], idx[blk],
+                                                   sig[blk], x),
+                f"block {b}")
+        for spec in ("int8", "int8:b64"):
+            c = codecs.get_codec(spec)
+            enc = c.encode_leaf(x)
+            q, s = enc["q"], enc["scale"]
+            compare("quant_consensus_pop",
+                    ops.quant_consensus_pop(x[blk], q[blk], s[blk], idx[blk],
+                                            sig[blk], qblock=c.block,
+                                            q_src=q, s_src=s),
+                    ref.quant_consensus_pop_reference(
+                        x[blk], q[blk], s[blk], idx[blk], sig[blk], c.block,
+                        q, s), f"block {b} {spec}")
+    M = 6
+    lanes = torch.arange(M, device=DEVICE)[None, :]
+    w = torch.full((1, M), 0.1, device=DEVICE)
+    compare("consensus_update_pop",
+            ops.consensus_update_pop(x[:1], lanes, w, src=x[1:M + 1]),
+            ref.consensus_update_pop_reference(x[:1], lanes, w, x[1:M + 1]),
+            "one agent, M = 6 received rows")
+    blk = slice(0, B)
+    t_src = median_ms(lambda: ops.consensus_update_pop(x[blk], idx[blk],
+                                                       sig[blk], src=x))
+    t_pop = median_ms(lambda: ops.consensus_update_pop(x, idx, sig))
+    print(f"(a) source form == plain version (max err {errs}); B2 on one "
+          f"block of {B} rows from the ({K}, {MESH_N}) source "
+          f"{t_src} ms, population form over all {K} rows {t_pop} ms",
+          flush=True)
+
+
+def shared_mixing(topo):
+    """``topo`` with its uniform Eq.-(6) σ matrix built once and handed to
+    every engine built on it: (b) builds 18 engines on one ring, and each
+    would otherwise rebuild the (K, K) matrix on the host (1 GiB at
+    K = 16384)."""
+    mix = topo.mixing()
+
+    class Shared(type(topo)):
+        def mixing(self, data_sizes=None, kind="paper", include_self=True):
+            if data_sizes is None and kind == "paper" and include_self:
+                return mix
+            return super().mixing(data_sizes, kind, include_self)
+
+    return Shared(**{f.name: getattr(topo, f.name)
+                     for f in dataclasses.fields(topo)})
+
+
+def check_sharded():
+    """(b) The sharded plan (4 blocks) == the sparse plan bit for bit at
+    K = 4096 and 16384 on ring, N = 2048: codecs None, int8, int8:b64;
+    static, links fading (p = 0.3) and agents asleep (p_active 0.7, τ = 2,
+    λ = 0.9); 2 rounds of ``scan_rounds`` each. Counted from 0 per run:
+    the sharded rounds launch their kernel 4 × 1 leaf × 2 rounds times and
+    the other kernel never. Times one static round of each codec."""
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+
+    counts, times = {}, {}
+    for K in MESH_KS:
+        x = mesh_population(K)
+        ring = shared_mixing(topology.ring(K))
+        for spec in (None, "int8", "int8:b64"):
+            kernel = ("consensus_update_pop" if spec is None
+                      else "quant_consensus_pop")
+            for proc in ("static",) + DYN_PROCESSES[:2]:
+                kw = {} if proc == "static" else dynamic_kw(proc)
+                sparse = ConsensusEngine(ring, codec=spec, plan="sparse",
+                                         **kw)
+                sharded = ConsensusEngine(ring, codec=spec, plan="sharded",
+                                          num_blocks=MESH_BLOCKS, **kw)
+                want, wst = sparse.scan_rounds(x, rounds=2)
+                zero_counts()
+                got, gst = sharded.scan_rounds(x, rounds=2)
+                torch.cuda.synchronize()
+                got_counts = launch_counts()
+                n = got_counts[kernel]
+                if n != MESH_BLOCKS * len(x) * 2 or sum(
+                        got_counts.values()) != n:
+                    fail(f"sharded K={K} {spec} {proc}: launches "
+                         f"{got_counts}, want {kernel} = {MESH_BLOCKS} x "
+                         f"{len(x)} leaf x 2 rounds")
+                if any(not torch.equal(got[k], want[k]) for k in x) or (
+                        wst is not None and any(
+                            not torch.equal(gst[k], wst[k]) for k in x)):
+                    fail(f"sharded K={K} {spec} {proc} differs from the "
+                         "sparse plan")
+                counts[f"mesh_sharded_K{K}_{spec}_{proc}"] = got_counts
+                if proc == "static":
+                    st = sharded.init_state(x)
+                    times[(K, spec)] = (
+                        median_ms(lambda: sharded.step(x, st), iters=7),
+                        median_ms(lambda: sparse.step(x, st), iters=7))
+        del x
+        torch.cuda.empty_cache()
+    for (K, spec), (t_sh, t_sp) in times.items():
+        print(f"(b) K={K} ring N={MESH_N} codec={spec}: sharded "
+              f"({MESH_BLOCKS} blocks) == sparse bit for bit (static, "
+              f"dropout, async); static round sharded {t_sh} ms, sparse "
+              f"{t_sp} ms (median of 7)", flush=True)
+    return counts
+
+
+def check_distributed(cfg):
+    """(c) The distributed plan against the sparse plan at K = 256
+    small_world(k=4), the paper-DQN's fc1.w width: static and fading,
+    codecs None and int8, 2 rounds, within the engine gate (f32) or the
+    int-wire tolerance (int8); one launch per leaf per round; its (M, K)
+    slot masks drawn on the card == the CPU's; then the distributed
+    round's time against the sparse plan's."""
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+
+    topo = topology.small_world(K_POP, k=4, seed=1)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = {"fc1.w": stacked_params(cfg, K_POP, gen)["fc1.w"]}
+    counts, worst = {}, 0.0
+    for spec in (None, "int8"):
+        kernel = ("consensus_update_pop" if spec is None
+                  else "quant_consensus_pop")
+        for proc in ("static", "dropout"):
+            kw = {} if proc == "static" else dynamic_kw(proc)
+            sparse = ConsensusEngine(topo, codec=spec, plan="sparse", **kw)
+            dist_ = ConsensusEngine(topo, codec=spec, plan="distributed",
+                                    **kw)
+            want, wst = sparse.scan_rounds(x, rounds=2)
+            zero_counts()
+            got, gst = dist_.scan_rounds(x, rounds=2)
+            torch.cuda.synchronize()
+            c = launch_counts()
+            if c[kernel] != len(x) * 2 or sum(c.values()) != c[kernel]:
+                fail(f"distributed {spec} {proc}: launches {c}, want "
+                     f"{kernel} = 1 leaf x 2 rounds")
+            counts[f"mesh_distributed_{spec}_{proc}"] = c
+            for k in x:
+                # f32 wire: only the summation order differs; int wire: a
+                # round's last-ulp difference can flip a lane of the next
+                # round's quantization, so the JAX package's int-wire
+                # tolerance (tests/test_engine.py): 3 quantizer steps
+                gate = (engine_gate(x[k]) if spec is None
+                        else 3.0 * float(x[k].abs().max()) / 127.0)
+                for a, b in ((got, want), (gst, wst)):
+                    if a is None:
+                        continue
+                    err = float((a[k] - b[k]).abs().max())
+                    if not torch.isfinite(a[k]).all() or err > gate:
+                        fail(f"distributed {spec} {proc} {k}: vs sparse "
+                             f"{err} > {gate}")
+                    worst = max(worst, err / gate)
+    eng = ConsensusEngine(topo, plan="distributed", **dynamic_kw("dropout"))
+    ts = torch.arange(3, 11)
+    if not torch.equal(eng.round_survival(ts.to(DEVICE)).cpu(),
+                       eng.round_survival(ts)):
+        fail("distributed slot masks drawn on the card differ from the CPU's")
+    sparse = ConsensusEngine(topo, plan="sparse")
+    dist_ = ConsensusEngine(topo, plan="distributed")
+    t_d = median_ms(lambda: dist_.step(x), iters=7)
+    t_s = median_ms(lambda: sparse.step(x), iters=7)
+    M, H = len(dist_.schedule()), sparse.lane_structure()[0].shape[1]
+    print(f"(c) distributed vs sparse at K={K_POP} small_world(k=4) fc1.w: "
+          f"max err {worst:.3g} of the gate; slot masks (M={M}, K) of "
+          f"rounds 3..10 == the CPU's; round distributed {t_d} ms (M={M} "
+          f"slots) vs sparse {t_s} ms (H={H} lanes), median of 7",
+          flush=True)
+    return counts
+
+
+def check_nccl_mesh():
+    """(d) A process group of world size 1 on NCCL: the sharded plan
+    (K = 4096 on ring, one block) and the distributed plan (K = 1) on the
+    mesh == the same engines without one, on a masked round, codecs None
+    and int8. One rank shows the mesh bookkeeping only: the distributed
+    plan at K = 1 has no slot, so no send/recv runs, and the all_gather
+    of one rank is a copy. The multi-rank exchanges are held to their
+    emulation by the gloo tests on the CPU (tests/test_torch_mesh.py)."""
+    from repro_torch.core import topology
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import multichip
+
+    store = Path(__file__).resolve().parent / "build" / "nccl_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    mesh_lib.init_local_group(0, 1, str(store), backend="nccl")
+    try:
+        mesh = mesh_lib.make_agent_mesh()
+        rows = [multichip.parity_case(topo, plan, codec, mesh, DEVICE)
+                for codec in (None, "int8")
+                for topo, plan in ((topology.ring(MESH_KS[0]), "sharded"),
+                                   (topology.full(1), "distributed"))]
+    finally:
+        mesh_lib.destroy_local_group()
+    bad = [r for r in rows if not (r["ok"] and r["bit_equal"])]
+    if bad:
+        fail(f"NCCL mesh path differs from its emulation: {bad}")
+    print("(d) NCCL world size 1: " + "; ".join(
+        f"{r['plan']} K={r['K']} codec={r['codec']} mesh == emulation"
+        for r in rows) + " (one rank: no send/recv ran and the all_gather "
+          "was a copy; multi-rank exchanges are held by the gloo tests "
+          "only)", flush=True)
+
+
+def check_h1():
+    """(e) One masked sharded round at K = 16384, N = 2048 adds at most
+    4x the population's f32 bytes to the peak allocation (no (K, K)
+    buffer: one would be 1 GiB), codecs None and int8."""
+    from repro_torch.launch import multichip
+
+    for codec in (None, "int8"):
+        r = multichip.h1_memory(codec=codec, device=DEVICE)
+        print(f"(e) masked sharded round K={r['K']} N={r['n_params']} "
+              f"codec={codec}: peak added {r['added_bytes']} B <= "
+              f"{r['bound_bytes']} B (a (K, K) f32 buffer is "
+              f"{r['kk_f32_bytes']} B)", flush=True)
+
+
+def run_scale_smoke():
+    """(f) The scale benchmark's ``--smoke`` sections and gates on the
+    card (``repro_torch.launch.consensus_scale``)."""
+    from repro_torch.launch import consensus_scale
+
+    out = Path(__file__).resolve().parent / "build" / "results" / \
+        "torch_consensus_scale_smoke.json"
+    payload = consensus_scale.run(smoke=True, device=DEVICE, out=str(out))
+    loop, tel = payload["rounds_loop"], payload["telemetry_rows"]
+    print(f"(f) consensus_scale --smoke: gates held (chunk 32 "
+          f"{loop[-1]['us_per_round']:.1f} vs chunk 1 "
+          f"{loop[0]['us_per_round']:.1f} us/round; buffered telemetry "
+          f"{tel[1]['overhead_vs_off']:.3f}x off); {out}", flush=True)
+
+
 def trace_kernels(prof, name):
     """Export ``prof``'s trace to ``build/profile/<name>.json`` beside the
     kernels; return its path and its device-kernel events."""
@@ -1738,6 +2027,20 @@ def main():
                       ("(d) async fleet", check_fleet)):
         t = time.perf_counter()
         by_path.update(fn())
+        print(f"{label}: {time.perf_counter() - t:.2f} s", flush=True)
+
+    phase("mesh")
+    check_mesh_kernels(errs)
+    for name in errs:
+        rows[name]["max_abs_err"] = errs[name]
+    for label, fn, args in (("(b) sharded", check_sharded, ()),
+                            ("(c) distributed", check_distributed, (cfg,)),
+                            ("(d) NCCL mesh", check_nccl_mesh, ()),
+                            ("(e) memory", check_h1, ()),
+                            ("(f) scale smoke", run_scale_smoke, ())):
+        t = time.perf_counter()
+        by_path.update(fn(*args) or {})
+        torch.cuda.empty_cache()
         print(f"{label}: {time.perf_counter() - t:.2f} s", flush=True)
 
     phase("profile")

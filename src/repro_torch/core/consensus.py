@@ -3,15 +3,27 @@
     W^{(k)}_{t+1} = W^{(k)}_t + Σ_{h∈N_k} σ_{k,h} (W^{(h)}_t − W^{(k)}_t),
     σ_{k,h} = |E_h| / Σ_{j∈N_k} |E_j|
 
-Numpy helpers build the σ matrix and the sparse neighbour tables; the
-step functions mix agent-stacked params (a dict of (K, ...) tensors):
+Numpy helpers build the σ matrix, the sparse neighbour tables and the
+permutation schedule; the step functions mix agent-stacked params (a dict
+of (K, ...) tensors):
 
-* ``impl="dense"``  — one (K, K) matmul per leaf (the reference);
-* ``impl="sparse"`` — one launch per leaf of the population-level
-  consensus kernels in :mod:`repro_torch.kernels.ops`, gathering each
-  agent's H neighbour rows straight from the (K, N) stack; int wires
-  stay int8 lanes into the fused dequantizing kernel;
-* ``impl="auto"``   — :func:`auto_path` picks one of the two.
+* ``consensus_step(impl="dense")``  — one (K, K) matmul per leaf (the
+  reference);
+* ``consensus_step(impl="sparse")`` — one launch per leaf of the
+  population-level consensus kernels in :mod:`repro_torch.kernels.ops`,
+  gathering each agent's H neighbour rows straight from the (K, N) stack;
+  int wires stay int8 lanes into the fused dequantizing kernel;
+  ``impl="auto"`` lets :func:`auto_path` pick one of the two;
+* :func:`sharded_consensus_step` — the population in ``num_blocks``
+  blocks of agents: each block encodes its own rows, the (K, ·) codec
+  wire is gathered (``all_gather_into_tensor`` over a process group, or
+  the concatenation of the block wires in one process), and each block
+  mixes its own rows from the gathered wire, one kernel launch per block
+  per leaf;
+* :func:`distributed_consensus_step` — one agent per position; neighbour
+  wires travel in the slots of :func:`permutation_schedule`
+  (``batch_isend_irecv`` over a process group, or, in one process, the
+  schedule as (K, M) kernel lanes, one launch per leaf).
 
 Pick through :class:`repro_torch.core.engine.ConsensusEngine` rather than
 calling these directly.
@@ -152,12 +164,31 @@ def resolve_mix(mix, data_sizes=None, kind: str = "paper",
 
 
 #: K · max-degree floor below which ``auto`` keeps the dense (K, K)
-#: matmul. The value (512) is a CPU calibration carried over from the JAX
-#: package's ``BENCH_consensus_scale.json`` rows (per-agent gather
-#: dispatch overhead against one small matmul, on a CPU). It has not been
-#: measured on the card, where the population kernels launch once per
-#: leaf; it is to be re-measured there (ROADMAP A11).
-SPARSE_GATHER_FLOOR = 512
+#: matmul, set on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit by
+#: the JAX package's own rule (the K·H of the first f32 row where the
+#: sparse plan beats the dense one, every row below it losing) from three
+#: runs of ``python -m repro_torch.launch.consensus_scale --n-params
+#: 2048,262144,811012`` with the plans timed in turns (PERF.md §6). The
+#: sweep has no row between K·H = 2 and 24. At 2, the case study's own
+#: 2-robot cluster engine (the whole paper-DQN in 10 leaves), the sparse
+#: plan lost in all three runs (0.71×, 0.74×, 0.71×: each B2 launch costs
+#: more host time than the dense plan's small matmul). At 24 (the K = 12
+#: ring) it won in all three, the smallest K·H where it did. Rows near
+#: the floor swing between winning and losing, within noise: one run read
+#: 0.92× for the K = 12 cluster at K·H = 36 (its quartiles overlap the
+#: dense plan's), and an earlier run that timed the plans one after the
+#: other read 0.88× for the K = 12 ring at N = 262,144. The JAX package
+#: keeps its CPU calibration, 512.
+SPARSE_GATHER_FLOOR = 24
+
+
+def _max_degree(mix):
+    """(K, H): population size and max off-diagonal degree of a mix."""
+    M = np.asarray(mix)
+    K = M.shape[0]
+    off = M.copy()
+    np.fill_diagonal(off, 0.0)
+    return K, (int((off != 0).sum(axis=1).max()) if K else 0)
 
 
 def auto_path(mix, codec=None) -> str:
@@ -165,18 +196,20 @@ def auto_path(mix, codec=None) -> str:
     beat the dense matmul, else ``"dense"``.
 
     Below :data:`SPARSE_GATHER_FLOOR` total gather work (K · max degree)
-    the population stays dense. With an int ``codec`` the gathered payload
-    is int8 lanes (plus block scales), so the degree is discounted by the
-    wire's bytes per parameter before the max-degree > K/4 test; every
-    other codec decodes to f32 before the gather and counts at full width.
-    """
-    M = np.asarray(mix)
-    K = M.shape[0]
-    off = M.copy()
-    np.fill_diagonal(off, 0.0)
-    H = int((off != 0).sum(axis=1).max()) if K else 0
+    the population stays dense; above it :func:`degree_path` decides."""
+    K, H = _max_degree(mix)
     if K * max(float(H), 1.0) < SPARSE_GATHER_FLOOR:
         return "dense"
+    return degree_path(mix, codec)
+
+
+def degree_path(mix, codec=None) -> str:
+    """The degree test of :func:`auto_path` alone: ``"sparse"`` unless the
+    max degree exceeds K/4. With an int ``codec`` the gathered payload is
+    int8 lanes (plus block scales), so the degree is discounted by the
+    wire's bytes per parameter first; every other codec decodes to f32
+    before the gather and counts at full width."""
+    K, H = _max_degree(mix)
     codec = getattr(codec, "inner", codec)       # unwrap ErrorFeedback
     qblock = getattr(codec, "block", None)
     gathers_wire = getattr(codec, "qbits", None) is not None
@@ -192,17 +225,38 @@ def sparse_structure(mix):
     agent's own index and σ = 0 (an exact no-op in Eq. 6); diagonal self
     weights are dropped (the update form x + Σ σ(nb − x) carries them)."""
     M = np.asarray(mix, np.float32)
-    K = M.shape[0]
-    off = M.copy()
-    np.fill_diagonal(off, 0.0)
-    H = max(int((off != 0).sum(axis=1).max()), 1)
-    idx = np.tile(np.arange(K, dtype=np.int32)[:, None], (1, H))
-    sig = np.zeros((K, H), np.float32)
-    for k in range(K):
-        nbr = np.flatnonzero(off[k])
-        idx[k, :len(nbr)] = nbr
-        sig[k, :len(nbr)] = off[k, nbr]
+    nz = M != 0
+    np.fill_diagonal(nz, False)
+    idx, rows, pos, cols = neighbour_lanes(nz)
+    sig = np.zeros(idx.shape, np.float32)
+    sig[rows, pos] = M[rows, cols]
     return idx, sig
+
+
+def is_symmetric(nz) -> bool:
+    """Whether a (K, K) bool mask equals its transpose, from its nonzero
+    positions alone (O(nnz) after one flat scan; the dense transposed
+    comparison walks the matrix column-wise)."""
+    K = nz.shape[0]
+    flat = np.flatnonzero(nz)
+    rows, cols = np.divmod(flat, K)
+    return bool(np.array_equal(np.sort(cols * K + rows), flat))
+
+
+def neighbour_lanes(nz):
+    """Lane table of a (K, K) bool neighbour mask: ``idx`` (K, H) int32
+    with row k's neighbours in ascending order, padded with k itself, H =
+    max(max degree, 1); and the (rows, lane positions, neighbours) of the
+    real lanes, for filling per-lane values."""
+    K = nz.shape[0]
+    # row-major flat positions: each row's neighbours come out ascending
+    rows, cols = np.divmod(np.flatnonzero(nz), K)
+    deg = np.bincount(rows, minlength=K)
+    H = max(int(deg.max()), 1) if K else 1
+    idx = np.tile(np.arange(K, dtype=np.int32)[:, None], (1, H))
+    pos = np.arange(rows.size) - np.repeat(np.cumsum(deg) - deg, deg)
+    idx[rows, pos] = cols
+    return idx, rows, pos, cols
 
 
 # ---------------------------------------------------------------------------
@@ -309,14 +363,7 @@ def _compressed_consensus_step(stacked_params, mix, codec, codec_state,
         off = gamma * (M - torch.diag(torch.diag(M)))
         rowsum = off.sum(dim=1)
 
-    if stateful:
-        if codec_state is None:
-            codec_state = codec.init_state(stacked_params)
-        if set(codec_state) != set(stacked_params):
-            raise ValueError(
-                f"codec_state has leaves {sorted(codec_state)} but the "
-                f"params have {sorted(stacked_params)} — thread the state "
-                "returned by the previous step (or None for zeros)")
+    codec_state = _check_state(codec, codec_state, stacked_params)
 
     new_params, new_state = {}, {}
     for name, x in stacked_params.items():
@@ -347,3 +394,340 @@ def consensus_error(stacked_params) -> torch.Tensor:
         tot = tot + dev.square().sum()
         n += dev.numel()
     return tot / n
+
+
+# ---------------------------------------------------------------------------
+# the mesh plans: sharded blocks and one agent per position
+# ---------------------------------------------------------------------------
+
+
+def permutation_schedule(mix, gamma: float = 1.0):
+    """Decompose a concrete σ matrix into permutation slots for the
+    distributed plan: a list of ``(pairs, sig)``, ``pairs`` a full
+    source→target permutation of the K positions and ``sig`` the (K,)
+    Eq.-(6) weights each target applies to what it receives in that slot
+    (γ·σ_{tgt,src}; 0 where the slot carries no real edge for it).
+
+    Greedy maximal-matching cover: every directed edge rides exactly one
+    slot, so the slot count is at least the max degree and usually equal
+    to it (ring: 2). Each matching is completed to a full permutation; the
+    completion lanes carry σ = 0, an exact no-op in Eq. (6). The JAX
+    package's schedule, pairs and σ alike."""
+    M = np.asarray(mix, np.float32)
+    K = M.shape[0]
+    off = M.copy()
+    np.fill_diagonal(off, 0.0)
+    edges = {(k, h) for k in range(K)
+             for h in np.flatnonzero(off[k] != 0.0)}
+    schedule = []
+    while edges:
+        used_src, used_tgt = set(), set()
+        pairs, sig = [], np.zeros(K, np.float32)
+        for k, h in sorted(edges):
+            if h in used_src or k in used_tgt:
+                continue
+            pairs.append((h, k))
+            sig[k] = gamma * off[k, h]
+            used_src.add(h)
+            used_tgt.add(k)
+        edges -= {(tgt, src) for src, tgt in pairs}
+        free_src = [s for s in range(K) if s not in used_src]
+        free_tgt = [t for t in range(K) if t not in used_tgt]
+        pairs.extend(zip(free_src, free_tgt))
+        schedule.append((tuple(pairs), sig))
+    return schedule
+
+
+def schedule_sources(schedule, K: int) -> np.ndarray:
+    """(M, K) int32: the position each target receives from in slot m."""
+    srcs = np.zeros((len(schedule), K), np.int32)
+    for m, (pairs, _sig) in enumerate(schedule):
+        for src, tgt in pairs:
+            srcs[m, tgt] = src
+    return srcs
+
+
+def mesh_axis_size(mesh, axis_name: str):
+    """Size of ``mesh``'s ``axis_name`` dimension (None without a mesh or
+    without that axis). ``mesh`` is a
+    ``torch.distributed.device_mesh.DeviceMesh``."""
+    if mesh is None:
+        return None
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axis_name not in names:
+        return None
+    return int(mesh.size(names.index(axis_name)))
+
+
+def _encode_rows(codec, xf, residual, generator):
+    """One leaf's rows onto the wire: ``(payload, x̂, residual')``. Without
+    a codec the payload is the f32 rows themselves."""
+    if codec is None:
+        return {"v": xf}, xf, None
+    return codec.transmit(xf, residual, generator)
+
+
+def _int_wire(codec):
+    """The IntCodec under ``codec`` (its wire stays int8 lanes into B1),
+    else None."""
+    from repro_torch.comms import codecs
+    base = codec.inner if isinstance(codec, codecs.ErrorFeedback) else codec
+    return base if isinstance(base, codecs.IntCodec) else None
+
+
+def _source(codec, wire, n: int):
+    """What the neighbours are read from: the f32 rows without a codec,
+    the int8 lanes and scales of an int wire, else the decoded wire."""
+    if codec is None:
+        return wire["v"]
+    if _int_wire(codec) is not None:
+        return wire
+    return codec.decode_leaf(wire, n)
+
+
+def _mix_rows(codec, xf, payload, xhat, source, idx, sig):
+    """Mix K owned rows ``xf`` from a (Ks, ·) ``source`` (:func:`_source`)
+    through B1/B2, each owned row recentred on its own decoded copy
+    ``xhat``: int wires stay int8 lanes into the fused dequantizing
+    kernel; every other codec mixes decoded rows, as the sparse plan
+    does."""
+    from repro_torch.kernels import ops
+
+    if codec is None:
+        return ops.consensus_update_pop(xf, idx, sig, src=source)
+    base = _int_wire(codec)
+    if base is not None:
+        return ops.quant_consensus_pop(xf, payload["q"], payload["scale"],
+                                       idx, sig, qblock=base.block,
+                                       q_src=source["q"],
+                                       s_src=source["scale"])
+    return xf + (ops.consensus_update_pop(xhat, idx, sig, src=source) - xhat)
+
+
+def _check_state(codec, codec_state, stacked_params):
+    """The stacked error-feedback residuals (zeros when None), or None for
+    a stateless codec."""
+    if codec is None or not codec.stateful:
+        return None
+    if codec_state is None:
+        return codec.init_state(stacked_params)
+    if set(codec_state) != set(stacked_params):
+        raise ValueError(
+            f"codec_state has leaves {sorted(codec_state)} but the params "
+            f"have {sorted(stacked_params)} — thread the state returned by "
+            "the previous step (or None for zeros)")
+    return codec_state
+
+
+def sharded_consensus_step(stacked_params, mix, *, num_blocks: int,
+                           axis_name: str = "agents", mesh=None,
+                           codec=None, codec_state=None, generator=None,
+                           gamma: float = 1.0, error_feedback: bool = True,
+                           structure=None):
+    """Eq. (6) on the sharded plan: the K agents split into ``num_blocks``
+    contiguous blocks of B = K / num_blocks. Per leaf, each block encodes
+    its own rows, the (K, ·) wire (codec bytes, not f32) is gathered, and
+    each block mixes its own rows from it: one B1/B2 launch per block.
+    No (K, K) buffer and no (K, H, N) neighbour tensor exist.
+
+    With ``mesh`` (a ``DeviceMesh`` whose ``axis_name`` dimension has
+    ``num_blocks`` positions) each process holds ITS block, (B, ...) rows,
+    and the wire travels by ``all_gather_into_tensor``; without it
+    ``stacked_params`` is the whole (K, ...) population and the blocks run
+    in turn in this process, the same per-block functions with the
+    all_gather replaced by the concatenation of the block wires. With
+    round-to-nearest (``generator=None``) either is bit-identical to the
+    sparse plan at any ``num_blocks`` that divides K.
+
+    ``structure``: a round's ``(idx, sig)`` lanes over the whole
+    population ((K, H), e.g. σ renormalised on surviving lanes; faded lanes
+    carry σ = 0). Returns ``(params, codec_state)``.
+    """
+    from repro_torch.comms import codecs
+    mix = resolve_mix(mix)
+    codec = codecs.resolve_codec(codec, error_feedback)
+    K = (np.asarray(mix).shape[0] if structure is None
+         else int(structure[0].shape[0]))
+    if num_blocks < 1 or K % num_blocks:
+        raise ValueError(
+            f"num_blocks={num_blocks} must divide the population K={K}; "
+            "pick a divisor of K")
+    B = K // num_blocks
+    use_mesh = mesh_axis_size(mesh, axis_name) == num_blocks
+    rows = next(iter(stacked_params.values())).shape[0]
+    want = B if use_mesh else K
+    if rows != want:
+        what = ("this position's block" if use_mesh
+                else "the whole population")
+        raise ValueError(
+            f"the sharded plan takes {want} rows per process (K={K}, "
+            f"num_blocks={num_blocks}, mesh={'yes' if use_mesh else 'no'}), "
+            f"got {rows}: pass {what}")
+    device = _device_of(stacked_params)
+    idx, sig = _structure(mix, structure, device)
+    sig = gamma * sig
+    state = _check_state(codec, codec_state, stacked_params)
+    # ``blocks``: the population rows each block owns (indexing the lane
+    # tables); ``local``: the same rows in ``stacked_params``
+    if use_mesh:
+        import torch.distributed as dist
+        group = mesh.get_group(axis_name)
+        r = mesh.get_local_rank(axis_name)
+        blocks, local = [slice(r * B, (r + 1) * B)], [slice(0, B)]
+    else:
+        blocks = [slice(b * B, (b + 1) * B) for b in range(num_blocks)]
+        local = blocks
+
+    new_params, new_state = {}, {}
+    for name, x in stacked_params.items():
+        xf = x.to(torch.float32).reshape(rows, -1)
+        rf = None if state is None else state[name].reshape(rows, -1)
+        r_out = None if state is None else torch.empty_like(rf)
+        payloads = []
+        for lb in local:
+            payload, _xhat, r_new = _encode_rows(
+                codec, xf[lb], None if rf is None else rf[lb], generator)
+            if r_out is not None:
+                r_out[lb] = r_new
+            payloads.append(payload)
+        wire = {}
+        for key, part in payloads[0].items():
+            buf = torch.empty((K,) + tuple(part.shape[1:]), dtype=part.dtype,
+                              device=device)
+            if use_mesh:
+                dist.all_gather_into_tensor(buf, part.contiguous(),
+                                            group=group)
+            else:
+                for gb, payload in zip(blocks, payloads):
+                    buf[gb] = payload[key]
+            wire[key] = buf
+        del payloads[:]             # the wire holds every block's payload
+        source = _source(codec, wire, xf.shape[1])
+        decoded = codec is not None and _int_wire(codec) is None
+        y = torch.empty_like(xf)
+        for lb, gb in zip(local, blocks):
+            # a block's own decoded copy is its rows of the decoded wire
+            own = {k: v[gb] for k, v in wire.items()}
+            y[lb] = _mix_rows(codec, xf[lb], own,
+                              source[gb] if decoded else None, source,
+                              idx[gb], sig[gb])
+        new_params[name] = y.reshape(x.shape).to(x.dtype)
+        if r_out is not None:
+            new_state[name] = r_out.reshape(x.shape)
+    return new_params, (new_state if state is not None else None)
+
+
+def distributed_consensus_step(stacked_params, mix, *,
+                               axis_name: str = "agents", mesh=None,
+                               codec=None, codec_state=None, generator=None,
+                               gamma: float = 1.0,
+                               error_feedback: bool = True,
+                               schedule=None, sig_override=None,
+                               sources=None):
+    """Eq. (6) on the distributed plan: one agent per position, neighbour
+    wires carried by the slots of :func:`permutation_schedule`, the codec
+    wire (int8 lanes and scales, bf16, ...) as the payload.
+
+    With ``mesh`` (a ``DeviceMesh`` whose ``axis_name`` dimension has K
+    positions) each process holds its one agent, (1, ...) rows, ships its
+    wire in every slot and receives M payloads by ``batch_isend_irecv``,
+    then mixes its row from them (one B1/B2 launch per leaf, the M
+    payloads as the source). Without it the schedule becomes kernel lanes
+    over the whole (K, ...) population, ``idx = srcs.T`` and ``sig`` the
+    (K, M) slot weights, one launch per leaf; completion slots carry σ = 0.
+    Both sum the slots in schedule order, so they agree bit for bit.
+
+    ``sig_override``: (K, M) per-slot weights replacing the schedule's
+    γ·σ for this round (σ renormalised on surviving slots). ``sources``:
+    the schedule's (M, K) sources (:func:`schedule_sources`), e.g. a
+    tensor already on the device. Returns ``(params, codec_state)``.
+    """
+    from repro_torch.comms import codecs
+    mix = resolve_mix(mix)
+    codec = codecs.resolve_codec(codec, error_feedback)
+    if schedule is None:
+        schedule = permutation_schedule(mix, gamma)
+    K = np.asarray(mix).shape[0]
+    M = len(schedule)
+    device = _device_of(stacked_params)
+    if sig_override is not None:
+        sig_stack = torch.as_tensor(sig_override, dtype=torch.float32,
+                                    device=device)
+        if tuple(sig_stack.shape) != (K, M):
+            raise ValueError(
+                f"sig_override is {tuple(sig_stack.shape)}, the schedule "
+                f"wants (K={K}, M={M})")
+    else:
+        sig_stack = torch.as_tensor(
+            np.stack([s for _, s in schedule], axis=1) if M
+            else np.zeros((K, 0), np.float32), device=device)
+    use_mesh = mesh_axis_size(mesh, axis_name) == K
+    rows = next(iter(stacked_params.values())).shape[0]
+    if rows != (1 if use_mesh else K):
+        raise ValueError(
+            f"the distributed plan {'on a mesh ' if use_mesh else ''}takes "
+            f"{1 if use_mesh else K} rows per process (K={K}), got {rows}")
+    state = _check_state(codec, codec_state, stacked_params)
+    if use_mesh:
+        r = mesh.get_local_rank(axis_name)
+        idx = torch.arange(max(M, 1), dtype=torch.int32,
+                           device=device)[None, :]
+        sig = (sig_stack[r:r + 1] if M
+               else torch.zeros((1, 1), dtype=torch.float32, device=device))
+    elif M:
+        srcs = (schedule_sources(schedule, K) if sources is None
+                else sources)
+        idx = torch.as_tensor(srcs, device=device).T.contiguous().to(
+            torch.int32)
+        sig = sig_stack
+    else:                       # no edges: one σ = 0 lane, an exact no-op
+        idx = torch.arange(K, dtype=torch.int32, device=device)[:, None]
+        sig = torch.zeros((K, 1), dtype=torch.float32, device=device)
+
+    new_params, new_state = {}, {}
+    for name, x in stacked_params.items():
+        xf = x.to(torch.float32).reshape(rows, -1)
+        rf = None if state is None else state[name].reshape(rows, -1)
+        payload, xhat, r_new = _encode_rows(codec, xf, rf, generator)
+        wire = (_exchange_slots(mesh, axis_name, payload, schedule)
+                if use_mesh else payload)
+        y = _mix_rows(codec, xf, payload, xhat,
+                      _source(codec, wire, xf.shape[1]), idx, sig)
+        new_params[name] = y.reshape(x.shape).to(x.dtype)
+        if state is not None:
+            new_state[name] = r_new.reshape(x.shape)
+    return new_params, (new_state if state is not None else None)
+
+
+def _exchange_slots(mesh, axis_name, payload, schedule):
+    """This position's M received payloads, stacked slot by slot: in slot
+    m it sends its own payload to its target and receives its source's, by
+    ``batch_isend_irecv`` (a slot that pairs the position with itself is a
+    local copy). Without slots, the position's own payload (σ = 0)."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis_name)
+    r = mesh.get_local_rank(axis_name)
+    M = len(schedule)
+    if M == 0:
+        return payload
+    peer = dist.get_global_rank
+    wire = {key: torch.empty((M,) + tuple(t.shape[1:]), dtype=t.dtype,
+                             device=t.device)
+            for key, t in payload.items()}
+    ops = []
+    for m, (pairs, _sig) in enumerate(schedule):
+        dst = next(t for s, t in pairs if s == r)
+        src = next(s for s, t in pairs if t == r)
+        for key, t in payload.items():
+            if src == r:
+                wire[key][m:m + 1] = t
+                continue
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  peer(group, dst), group))
+            ops.append(dist.P2POp(dist.irecv, wire[key][m:m + 1],
+                                  peer(group, src), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return wire

@@ -12,10 +12,25 @@ Plans
   kernels (:mod:`repro_torch.kernels.ops`): each agent gathers its H
   neighbour rows from the (K, N) stack, O(K·H·N) instead of O(K²·N).
   Int wires stay int8 lanes into the fused dequantizing kernel.
+* ``sharded`` — the population in ``num_blocks`` blocks of agents: each
+  block encodes its own rows, the (K, ·) codec wire is gathered, and each
+  block mixes its rows from it (one B1/B2 launch per block per leaf;
+  :func:`repro_torch.core.consensus.sharded_consensus_step`).
+* ``distributed`` — one agent per position: wires travel in the slots of
+  :func:`repro_torch.core.consensus.permutation_schedule`
+  (:func:`repro_torch.core.consensus.distributed_consensus_step`).
 
 The JAX package's plan names ``dense-xla`` and ``sparse-pallas`` are
-accepted as aliases. ``plan="auto"`` uses the payload-aware density
-heuristic :func:`repro_torch.core.consensus.auto_path`.
+accepted as aliases. ``plan="auto"`` without a mesh uses the
+payload-aware density heuristic
+:func:`repro_torch.core.consensus.auto_path`; with a ``mesh`` (a
+``torch.distributed.device_mesh.DeviceMesh``, see
+:mod:`repro_torch.launch.mesh`) whose ``axis_name`` dimension carries
+agents, one agent per position gives ``distributed`` and anything else
+``sharded``. On a mesh each process passes ITS rows (its block, or its one
+agent) to :meth:`ConsensusEngine.step`; without one the sharded and
+distributed plans run the whole population in this process, through the
+same per-block and per-slot functions.
 
 Time-varying graphs (``graph=GraphProcess.dropout(p, seed)`` or
 ``.schedule(masks)``): each round's edge survival is drawn per edge by
@@ -46,8 +61,8 @@ whatever the codec.
 
 ``scan_rounds(telemetry=)`` records one row per round
 (:mod:`repro_torch.telemetry`) from the same survival or delivered tensor
-the round mixed with. A mesh (the sharded and distributed plans) comes in
-a later slice of the port and is refused.
+the round mixed with; on a mesh of more than one position it is refused
+(each process holds only its own rows).
 """
 from __future__ import annotations
 
@@ -61,9 +76,17 @@ import torch
 from repro_torch.core import consensus
 from repro_torch.core import topology as topo_lib
 
-PLAN_KINDS = ("dense", "sparse")
+PLAN_KINDS = ("dense", "sparse", "sharded", "distributed")
 PLAN_ALIASES = {"dense-xla": "dense", "sparse-pallas": "sparse"}
-_LATER = "a later slice of the port"
+#: plans whose survival and σ live on the (K, H) neighbour lanes
+LANE_PLANS = ("sparse", "sharded")
+
+#: largest permutation-schedule superset a time-varying or async
+#: ``distributed`` engine accepts (≈ the base graph's max degree, one slot
+#: per matching). Every masked round ships all M slots whether or not
+#: their edges survived, so a graph needing more slots is refused at
+#: construction (the sharded plan masks per lane and has no schedule).
+DISTRIBUTED_SCHEDULE_BOUND = 64
 
 
 @dataclass(frozen=True)
@@ -72,6 +95,8 @@ class ExecutionPlan:
 
     kind: str
     reason: str
+    num_blocks: int = 1
+    axis_name: str = "agents"
 
     def __post_init__(self):
         if self.kind not in PLAN_KINDS:
@@ -85,7 +110,8 @@ class ExecutionPlan:
 class AsyncState(NamedTuple):
     """Carry of an async engine: ``clock`` (K,) int32 rounds each agent
     has participated in; ``age`` plan-shaped int32 rounds since each lane
-    last delivered a fresh wire ((K, K) dense, (K, H) sparse)."""
+    last delivered a fresh wire ((K, K) dense, (K, H) sparse and sharded,
+    (M, K) schedule slots distributed)."""
 
     clock: torch.Tensor
     age: torch.Tensor
@@ -132,7 +158,12 @@ class ConsensusEngine:
                 enables :meth:`round_comm_joules`) or a concrete (K, K) σ.
     codec:      exchange codec spec/Codec; lossy codecs get error
                 feedback unless ``error_feedback=False``.
+    mesh:       a ``torch.distributed.device_mesh.DeviceMesh`` whose
+                ``axis_name`` dimension carries agents (one per position ⇒
+                distributed; blocks ⇒ sharded), or None (one process).
     plan:       "auto", one of :data:`PLAN_KINDS`, or a JAX plan alias.
+    num_blocks: block count of the sharded plan (default: the mesh axis
+                size, else 1).
     data_sizes / mix_kind / include_self: forwarded to ``mixing`` and
                 reused to renormalise σ on each round's surviving lanes.
     gamma:      CHOCO consensus step size (damps off-diagonal σ).
@@ -145,7 +176,8 @@ class ConsensusEngine:
     """
 
     def __init__(self, topology, *, codec=None, mesh=None,
-                 plan: str = "auto", data_sizes=None,
+                 plan: str = "auto", axis_name: str = "agents",
+                 num_blocks: Optional[int] = None, data_sizes=None,
                  mix_kind: str = "paper", include_self: bool = True,
                  gamma: float = 1.0, error_feedback: bool = True,
                  graph=None, agents=None, tau=None,
@@ -157,9 +189,14 @@ class ConsensusEngine:
                 f"(plan={topology.plan.kind!r}); pass a Topology or mix "
                 "matrix, or coerce with ConsensusEngine.wrap(engine)")
         if mesh is not None:
-            raise ValueError(
-                f"mesh={mesh!r}: the sharded and distributed plans come in "
-                f"{_LATER}; drop mesh= to run the population on one device")
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(
+                    f"mesh={mesh!r} is not a torch.distributed.device_mesh."
+                    "DeviceMesh: build one with repro_torch.launch.mesh."
+                    "make_agent_mesh() over an initialised process group, "
+                    "or drop mesh= to run the population in one process")
+        self.mesh = mesh
         if mix_kind not in consensus.MIX_KINDS:
             raise ValueError(consensus._unknown_kind_msg(mix_kind))
         self.topology = topology if hasattr(topology, "mixing") else None
@@ -224,11 +261,14 @@ class ConsensusEngine:
                 "(0, 1]: a stale lane mixes at weight λ^age — use "
                 "λ=1.0 (no decay, the lockstep-exact default) or a "
                 "positive fraction like 0.9")
-        self.plan = self._resolve_plan(plan)
+        self.plan = self._resolve_plan(plan, axis_name, num_blocks)
         self._structure_np = None
         self._masked_struct = None     # (idx, lane-valid) of the base graph
+        self._schedule = None          # distributed permutation slots
+        self._sched_struct = None      # (srcs, real) of the schedule
         self._sched_keep = None        # schedule masks gathered to lanes
         self._on_device = {}           # (name, device) -> tensor
+        self.local_rows = self._local_rows()
         if self.graph.kind != "static":
             if self.topology is None:
                 raise ValueError(
@@ -240,23 +280,82 @@ class ConsensusEngine:
                     "renormalize an arbitrary raw mix — construct from "
                     "a Topology or use GraphProcess.static()")
             self._adjacency = np.asarray(self.topology.adjacency, bool)
-            self._symmetric = bool(
-                (self._adjacency == self._adjacency.T).all())
+            self._symmetric = self.topology.is_symmetric
             if (self.graph.kind == "schedule"
                     and self.graph.masks.shape[1:] != (self.K, self.K)):
                 raise ValueError(
                     f"schedule masks are {self.graph.masks.shape[1:]}, "
                     f"population is K={self.K}")
+        if (self.plan.kind == "distributed"
+                and (self.graph.kind != "static" or self.agents is not None)):
+            # every surviving (or delivered) graph is a subgraph of the
+            # base graph, so the base graph's schedule covers every round:
+            # masked slots ride with σ = 0
+            M = len(self.schedule())
+            if M > DISTRIBUTED_SCHEDULE_BOUND:
+                raise ValueError(
+                    f"time-varying/async engines on the distributed plan "
+                    f"mask a fixed permutation-schedule superset, and this "
+                    f"graph needs {M} schedule slots (≈ max degree "
+                    f"{self.topology.max_degree}) — over the "
+                    f"{DISTRIBUTED_SCHEDULE_BOUND}-slot bound "
+                    "(DISTRIBUTED_SCHEDULE_BOUND). Use a sparser base "
+                    "graph, or the sharded plan (per-lane masks, no "
+                    "schedule)")
 
     # -- plan selection ---------------------------------------------------------
-    def _resolve_plan(self, plan: str) -> ExecutionPlan:
+    def _resolve_plan(self, plan: str, axis_name: str,
+                      num_blocks: Optional[int]) -> ExecutionPlan:
+        mesh_axis = consensus.mesh_axis_size(self.mesh, axis_name)
         if plan == "auto":
+            if mesh_axis is not None:
+                if mesh_axis == self.K:
+                    return ExecutionPlan(
+                        "distributed", "mesh holds one agent per "
+                        f"'{axis_name}' position", 1, axis_name)
+                nb = num_blocks or mesh_axis
+                if self.K % nb:
+                    # honour the mesh: the largest block count that
+                    # divides K, never a single-program fallback
+                    nb = next(d for d in range(min(nb, self.K), 0, -1)
+                              if self.K % d == 0)
+                return ExecutionPlan(
+                    "sharded", f"K={self.K} agents in {nb} blocks over "
+                    f"the {mesh_axis}-wide '{axis_name}' mesh axis",
+                    nb, axis_name)
             base = getattr(self.codec, "inner", self.codec)
             kind = consensus.auto_path(self.mix, codec=base)
             return ExecutionPlan(
                 kind, f"payload-aware density heuristic (max degree vs "
-                f"K={self.K})")
-        return ExecutionPlan(PLAN_ALIASES.get(plan, plan), "explicit")
+                f"K={self.K})", 1, axis_name)
+        kind = PLAN_ALIASES.get(plan, plan)
+        if kind == "sharded":
+            return ExecutionPlan("sharded", "explicit",
+                                 num_blocks or mesh_axis or 1, axis_name)
+        return ExecutionPlan(kind, "explicit", num_blocks or 1, axis_name)
+
+    def _local_rows(self) -> Optional[slice]:
+        """The population rows this process holds when the plan runs on
+        the mesh (its block, or its one agent); None when it holds all K
+        (no mesh, or a plan that does not run on it)."""
+        size = consensus.mesh_axis_size(self.mesh, self.plan.axis_name)
+        kind = self.plan.kind
+        if kind == "sharded" and size == self.plan.num_blocks:
+            B = self.K // self.plan.num_blocks
+            r = self.mesh.get_local_rank(self.plan.axis_name)
+            return slice(r * B, (r + 1) * B)
+        if kind == "distributed" and size == self.K:
+            r = self.mesh.get_local_rank(self.plan.axis_name)
+            return slice(r, r + 1)
+        return None
+
+    @property
+    def mesh_positions(self) -> int:
+        """Positions the plan spreads over (1 in one process)."""
+        if self.local_rows is None:
+            return 1
+        return (self.plan.num_blocks if self.plan.kind == "sharded"
+                else self.K)
 
     # -- state ------------------------------------------------------------------
     def init_state(self, stacked_params):
@@ -274,8 +373,8 @@ class ConsensusEngine:
         return self._on_device[key]
 
     def sparse_structure(self, device):
-        """(idx, sig) neighbour-lane tables of the sparse plan on
-        ``device``, built once from the mix (indices checked in range)."""
+        """(idx, sig) neighbour-lane tables of the sparse and sharded plans
+        on ``device``, built once from the mix (indices checked in range)."""
         if self._structure_np is None:
             idx, sig = consensus.sparse_structure(self.mix)
             if idx.size and (idx.min() < 0 or idx.max() >= self.K):
@@ -318,58 +417,99 @@ class ConsensusEngine:
 
     def lane_structure(self):
         """(idx, valid) neighbour-lane table of the BASE graph for the
-        sparse plan, numpy: idx (K, H) int32 ascending neighbour indices
-        (padding lanes index the agent itself), valid (K, H) bool marking
-        real lanes."""
+        sparse and sharded plans, numpy: idx (K, H) int32 ascending
+        neighbour indices (padding lanes index the agent itself), valid
+        (K, H) bool marking real lanes."""
         if self._masked_struct is None:
             A = (np.asarray(self.topology.adjacency, bool).copy()
                  if self.topology is not None else self.mix != 0)
             np.fill_diagonal(A, False)
-            deg = A.sum(axis=1)
-            H = max(int(deg.max()), 1) if self.K else 1
-            idx = np.tile(np.arange(self.K, dtype=np.int32)[:, None],
-                          (1, H))
-            for k in range(self.K):
-                nbr = np.flatnonzero(A[k])
-                idx[k, :len(nbr)] = nbr
-            valid = np.arange(H)[None, :] < deg[:, None]
+            idx, rows, _pos, _cols = consensus.neighbour_lanes(A)
+            deg = np.bincount(rows, minlength=self.K)
+            valid = np.arange(idx.shape[1])[None, :] < deg[:, None]
             self._masked_struct = (idx, valid)
         return self._masked_struct
+
+    def schedule(self):
+        """The distributed plan's permutation slots
+        (:func:`repro_torch.core.consensus.permutation_schedule` of the
+        engine's mix and γ), built once."""
+        if self._schedule is None:
+            self._schedule = consensus.permutation_schedule(self.mix,
+                                                            self.gamma)
+        return self._schedule
+
+    def schedule_structure(self):
+        """(srcs, real) of the distributed plan's schedule superset, numpy:
+        srcs (M, K) int32, the position each target receives from in slot
+        m; real (M, K) bool marking slots that carry a base-graph edge
+        (the rest are completion padding, σ = 0 forever)."""
+        if self._sched_struct is None:
+            sched = self.schedule()
+            srcs = consensus.schedule_sources(sched, self.K)
+            real = np.zeros((len(sched), self.K), bool)
+            for m, (_pairs, sig) in enumerate(sched):
+                real[m] = np.asarray(sig) != 0.0
+            self._sched_struct = (srcs, real)
+        return self._sched_struct
+
+    def _plan_lanes(self):
+        """(receivers, senders, real) of this plan's survival shape, numpy:
+        (K, 1) rows against the (K, H) lane table on the lane plans, (1, K)
+        targets against the (M, K) schedule sources on distributed."""
+        if self.plan.kind == "distributed":
+            srcs, real = self.schedule_structure()
+            return np.arange(self.K)[None, :], srcs, real
+        idx, valid = self.lane_structure()
+        return np.arange(self.K)[:, None], idx, valid
+
+    def _senders(self, device) -> torch.Tensor:
+        """The senders of this plan's survival shape as an int64 tensor
+        on ``device``: lane neighbours (K, H) or slot sources (M, K)."""
+        tag = "slot" if self.plan.kind == "distributed" else "lane"
+        return self._on(f"{tag}_senders",
+                        lambda: self._plan_lanes()[1].astype(np.int64),
+                        device)
 
     def round_survival(self, t=None, mask=None, *, device=None):
         """Round ``t``'s edge survival in this plan's own shape: a (K, K)
         bool mask on the dense plan, surviving-lane (K, H) bools on the
-        sparse plan (never a (K, K) buffer there). ``t`` may be a 1-D
-        tensor of rounds (a leading rounds axis is added: one vectorised
-        draw for a whole chunk); ``mask`` instead converts an explicit
-        (K, K) survival mask to the plan shape. None for a static graph
-        with no explicit mask."""
+        sparse and sharded plans, surviving-slot (M, K) bools on the
+        distributed plan (never a (K, K) buffer on those). ``t`` may be a
+        1-D tensor of rounds (a leading rounds axis is added: one
+        vectorised draw for a whole chunk); ``mask`` instead converts an
+        explicit (K, K) survival mask to the plan shape. None for a static
+        graph with no explicit mask."""
         dev = (mask.device if isinstance(mask, torch.Tensor)
                else _device(t, device))
-        if self.plan.kind == "dense":
+        kind = self.plan.kind
+        if kind == "dense":
             return (torch.as_tensor(mask, device=dev) if mask is not None
                     else self.round_mask(t, device=dev))
         if mask is None and self.graph.kind == "static":
             return None
-        idx_np, valid_np = self.lane_structure()
-        idx = self._on("lane_idx", lambda: idx_np.astype(np.int64), dev)
-        rows = torch.arange(self.K, device=dev)[:, None]
+        rows_np, snd_np, real_np = self._plan_lanes()
+        tag = "slot" if kind == "distributed" else "lane"
+        snd = self._senders(dev)
+        rows = self._on(f"{tag}_receivers", lambda: rows_np.astype(np.int64),
+                        dev)
         if mask is not None:
-            keep = torch.as_tensor(mask, device=dev)[..., rows, idx]
+            keep = torch.as_tensor(mask, device=dev)[..., rows, snd]
         elif self.graph.kind == "dropout":
             keep = topo_lib.survival_mask(
                 self.K, self.graph.p,
                 self._on("graph_key",
                          lambda: topo_lib.survival_key(self.graph.seed), dev),
-                t, symmetric=self._symmetric, receivers=rows, senders=idx)
+                t, symmetric=self._symmetric, receivers=rows, senders=snd)
         else:                                        # schedule masks
             if self._sched_keep is None:
                 self._sched_keep = np.asarray(
-                    self.graph.masks[:, np.arange(self.K)[:, None], idx_np])
-            stack = self._on("sched_keep", lambda: self._sched_keep, dev)
+                    self.graph.masks[:, rows_np, snd_np])
+            stack = self._on(f"{tag}_sched_keep", lambda: self._sched_keep,
+                             dev)
             tt = torch.as_tensor(t, dtype=torch.int64, device=dev)
             keep = stack[tt % stack.shape[0]]
-        return keep & self._on("lane_valid", lambda: valid_np, dev)
+        return keep & self._on(f"{tag}_real", lambda: real_np, dev)
 
     # -- per-agent availability (the async protocol) ----------------------------
     def availability(self, t, *, device=None):
@@ -381,20 +521,24 @@ class ConsensusEngine:
 
     def _real_edges(self):
         """Plan-shaped bool mask of the real base-graph lanes (numpy):
-        the adjacency on the dense plan, lane validity on the sparse."""
+        the adjacency on the dense plan, lane validity on the sparse and
+        sharded plans, real schedule slots on the distributed plan."""
         if self.plan.kind == "dense":
             return np.asarray(self.topology.adjacency, bool)
-        return self.lane_structure()[1]
+        return self._plan_lanes()[2]
 
     def _act_shapes(self, act):
         """(act_recv, act_sender) of the (K,) activity in this plan's
-        survival shape."""
-        if self.plan.kind == "dense":
+        survival shape: receiver rows and sender columns on (K, K),
+        receiver rows and lane senders on (K, H), receiver columns and
+        schedule sources on (M, K)."""
+        kind = self.plan.kind
+        if kind == "dense":
             return act[:, None], act[None, :]
-        idx = self._on("lane_idx",
-                       lambda: self.lane_structure()[0].astype(np.int64),
-                       act.device)
-        return act[:, None], act[idx]
+        snd = self._senders(act.device)
+        if kind == "distributed":
+            return act[None, :], act[snd]
+        return act[:, None], act[snd]
 
     def init_async_state(self, *, device=None) -> AsyncState:
         """Zeroed :class:`AsyncState` (clocks 0, every wire age 0: "all
@@ -472,17 +616,19 @@ class ConsensusEngine:
               else self.async_round(t, state.age))
         p, st = self.step(stacked_params, codec_state, generator,
                           survival=ar.weights)
-        p = where_active(ar.act, p, stacked_params)
+        act = ar.act if self.local_rows is None else ar.act[self.local_rows]
+        p = where_active(act, p, stacked_params)
         if st is not None:
             old = (codec_state if codec_state is not None
                    else self.init_state(stacked_params))
-            st = where_active(ar.act, st, old)
+            st = where_active(act, st, old)
         new_state = AsyncState(state.clock + ar.act.to(state.clock.dtype),
                                ar.age)
         return p, st, new_state, ar
 
     def _lane_sigma(self, survival):
-        """(idx, sig) for the sparse plan: σ renormalised directly on the
+        """(idx, sig) for the sparse and sharded plans: σ renormalised
+        directly on the
         surviving (K, H) lanes, the same formulas as ``mixing_weights``
         per entry, O(K·H). ``survival`` is bool lane keeps (lockstep) or
         float lane weights in [0, 1] (async: each lane's mass scales by
@@ -490,8 +636,7 @@ class ConsensusEngine:
         sleeping and padding lanes land at σ = 0."""
         keep = survival
         dev = keep.device
-        idx = self._on("lane_idx",
-                       lambda: self.lane_structure()[0].astype(np.int64), dev)
+        idx = self._senders(dev)
         sizes = self._on("sizes", self._sizes, dev)
         weighted = keep.is_floating_point()
         if weighted:
@@ -512,6 +657,44 @@ class ConsensusEngine:
             raise ValueError(consensus._unknown_kind_msg(self.mix_kind))
         return self._on("lane_idx32",
                         lambda: self.lane_structure()[0], dev), sig
+
+    def _schedule_sigma(self, survival):
+        """γ-scaled (K, M) slot σ for the distributed plan, renormalised on
+        the surviving (M, K) slots: every real directed edge rides exactly
+        one slot, so a target's sum over slots is its sum over neighbours.
+        ``survival`` is bool slot keeps or float staleness weights ({0, 1}
+        floats give the bool path's bits)."""
+        keep = survival
+        dev = keep.device
+        srcs = self._senders(dev)
+        sizes = self._on("sizes", self._sizes, dev)
+        weighted = keep.is_floating_point()
+        if weighted:
+            keep = keep.to(torch.float32)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if self.mix_kind == "paper":
+            w = (keep * sizes[srcs] if weighted
+                 else torch.where(keep, sizes[srcs], zero))
+            denom = w.sum(dim=0)
+            if self.include_self:
+                denom = denom + sizes
+            sig = w / torch.clamp_min(denom, 1e-12)[None, :]
+        elif self.mix_kind == "metropolis":
+            deg = keep.sum(dim=0, dtype=torch.float32)
+            inv = 1.0 / (1.0 + torch.maximum(deg[None, :], deg[srcs]))
+            sig = keep * inv if weighted else torch.where(keep, inv, zero)
+        else:
+            raise ValueError(consensus._unknown_kind_msg(self.mix_kind))
+        return (self.gamma * sig).T
+
+    def _schedule_sig_static(self, device):
+        """The schedule's own (K, M) γ·σ stack on ``device``, built once."""
+        def make():
+            sched = self.schedule()
+            if not sched:
+                return np.zeros((self.K, 0), np.float32)
+            return np.stack([sig for _, sig in sched], axis=1)
+        return self._on("slot_sig", make, device)
 
     # -- the round --------------------------------------------------------------
     def step(self, stacked_params, codec_state=None, generator=None, *,
@@ -546,14 +729,32 @@ class ConsensusEngine:
                 "step() needs the round index (t=) or an explicit "
                 "survival mask (mask=); use scan_rounds for whole "
                 "round loops")
-        mix, structure = self.mix, None
+        mix, structure, slot_sig = self.mix, None, None
         if survival is not None:
             if kind == "dense":
                 mix = self.masked_mixing(survival)
+            elif kind == "distributed":
+                slot_sig = self._schedule_sigma(survival)
             else:
                 structure = self._lane_sigma(survival)
-        elif kind == "sparse":
+        elif kind in LANE_PLANS:
             structure = self.sparse_structure(device)
+        elif kind == "distributed":
+            slot_sig = self._schedule_sig_static(device)
+        if kind == "sharded":
+            return consensus.sharded_consensus_step(
+                stacked_params, mix, num_blocks=self.plan.num_blocks,
+                axis_name=self.plan.axis_name, mesh=self.mesh,
+                codec=self.codec, codec_state=codec_state,
+                generator=generator, gamma=self.gamma, error_feedback=False,
+                structure=structure)
+        if kind == "distributed":
+            return consensus.distributed_consensus_step(
+                stacked_params, mix, axis_name=self.plan.axis_name,
+                mesh=self.mesh, codec=self.codec, codec_state=codec_state,
+                generator=generator, gamma=self.gamma, error_feedback=False,
+                schedule=self.schedule(), sig_override=slot_sig,
+                sources=self._senders(device))
         if self.codec is None:
             return consensus.consensus_step(
                 stacked_params, mix, impl=kind, structure=structure), None
@@ -584,6 +785,14 @@ class ConsensusEngine:
                 f"scan_rounds got rounds={rounds!r} — pass rounds= (a "
                 "round count); stochastic rounding takes one generator= "
                 "for all of them")
+        if telemetry is not None and self.mesh_positions > 1:
+            raise ValueError(
+                f"telemetry= on the {self.plan.kind!r} plan over a "
+                f"{self.mesh_positions}-position mesh: each process holds "
+                "only its own rows, so a row's disagreement and per-agent "
+                "counts would be partial; record telemetry on the same "
+                "engine built without mesh= (the one-process path), or "
+                "drop telemetry=")
         if codec_state is None:
             codec_state = self.init_state(stacked_params)
         device = next(iter(stacked_params.values())).device
@@ -653,4 +862,5 @@ class ConsensusEngine:
             f", agents={self.agents!r}, tau="
             f"{'inf' if self.tau is None else self.tau}")
         return (f"ConsensusEngine(K={self.K}, plan={self.plan.kind!r}, "
-                f"codec={codec!r}{graph}{agents})")
+                f"codec={codec!r}, blocks={self.plan.num_blocks}"
+                f"{graph}{agents})")

@@ -108,7 +108,7 @@ class Topology:
 
     @property
     def is_symmetric(self) -> bool:
-        return bool((self.adjacency == self.adjacency.T).all())
+        return consensus.is_symmetric(self.adjacency)
 
     def neighbors_of(self, k: int) -> List[int]:
         return list(np.flatnonzero(self.adjacency[k]))

@@ -1,12 +1,15 @@
 // Shared plumbing of the two population-level Eq.-(6) consensus kernels.
 //
-// Both kernels run one launch per parameter leaf over the whole
-// agent-stacked population: grid (ceil(N / tile), K), one block per
-// (tile of the flat leaf, agent). Each block first copies its own agent's
-// H neighbour indices and sigma weights into shared memory, then every
-// thread gathers its VEC-wide slice of each neighbour row straight from
-// the (K, N) stack in device memory. The (K, H, N) gathered tensor of the
-// JAX path never exists.
+// Both kernels run one launch per parameter leaf over K owned agent rows:
+// grid (ceil(N / tile), K), one block per (tile of the flat leaf, owned
+// agent). Each block first copies its own agent's H neighbour indices and
+// sigma weights into shared memory, then every thread gathers its VEC-wide
+// slice of each neighbour row straight from a (Ks, N) source stack in
+// device memory. The source is the population itself (the sparse plan:
+// Ks = K, the same pointer), a gathered wire of which the K rows are one
+// block (the sharded plan), or the payloads one agent received (the
+// distributed plan on a mesh). The (K, H, N) gathered tensor of the JAX
+// path never exists.
 //
 // Arithmetic uses the round-to-nearest intrinsics (__fsub_rn, __fmul_rn,
 // __fadd_rn) so nvcc does not contract it into FMAs: the kernels then
@@ -24,17 +27,17 @@ constexpr int kThreads = 256;
 // to more than 48 KB of dynamic shared memory (8 bytes per lane).
 constexpr int kMaxNeighbors = 6144;
 
-// Copy agent k's (index, sigma) lanes into shared memory. The grid has one
-// row of blocks per agent, so K = gridDim.y: an index outside [0, K) traps
-// the launch before any thread of the block gathers with it (the trapping
-// thread never reaches the barrier).
+// Copy agent k's (index, sigma) lanes into shared memory. An index outside
+// [0, Ks), the source's row count, traps the launch before any thread of
+// the block gathers with it (the trapping thread never reaches the
+// barrier).
 __device__ __forceinline__ void load_lanes(const int* __restrict__ idx,
                                            const float* __restrict__ sig,
-                                           int64_t k, int H, int* s_idx,
-                                           float* s_sig) {
+                                           int64_t k, int H, int64_t Ks,
+                                           int* s_idx, float* s_sig) {
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
     const int j = idx[k * H + h];
-    if (j < 0 || j >= static_cast<int>(gridDim.y)) __trap();
+    if (j < 0 || j >= Ks) __trap();
     s_idx[h] = j;
     s_sig[h] = sig[k * H + h];
   }

@@ -42,7 +42,10 @@ def _lib(name: str, fns):
     return lib
 
 
-def _check_lanes(x, idx, sig):
+def _check_lanes(x, idx, sig, src):
+    """Shapes, dtypes and devices of the owned rows ``x`` (K, N), the
+    lane tables (K, H) and the neighbour source ``src`` (Ks, ·), whose row
+    count bounds the indices."""
     if x.ndim != 2 or idx.ndim != 2 or idx.shape[0] != x.shape[0] \
             or tuple(sig.shape) != tuple(idx.shape) or idx.shape[1] < 1:
         raise ValueError(
@@ -50,14 +53,14 @@ def _check_lanes(x, idx, sig):
             f"{tuple(sig.shape)}: want x (K, N), idx and sig (K, H), H >= 1")
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"idx must be int32/int64, got {idx.dtype}")
-    for name, t in (("idx", idx), ("sig", sig)):
+    for name, t in (("idx", idx), ("sig", sig), ("src", src)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     # on the card the kernels check the same bound themselves (a bad index
     # traps the launch before its gather), so no host sync is needed there
-    K = x.shape[0]
-    if x.device.type == "cpu" and not bool(((idx >= 0) & (idx < K)).all()):
-        raise ValueError(f"neighbour indices must lie in [0, {K}), got "
+    Ks = src.shape[0]
+    if x.device.type == "cpu" and not bool(((idx >= 0) & (idx < Ks)).all()):
+        raise ValueError(f"neighbour indices must lie in [0, {Ks}), got "
                          f"[{int(idx.min())}, {int(idx.max())}]")
 
 
@@ -78,20 +81,26 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def consensus_update_pop(x, idx, sig):
-    """Fused Eq.-(6) update of a whole population, one leaf:
-    out[k] = x[k] + Σ_h sig[k, h] (x[idx[k, h]] − x[k]).
+def consensus_update_pop(x, idx, sig, src=None):
+    """Fused Eq.-(6) update of K owned rows, one leaf:
+    out[k] = x[k] + Σ_h sig[k, h] (src[idx[k, h]] − x[k]).
 
-    x (K, N) f32 or bf16; idx (K, H) neighbour indices in [0, K) (padding
-    lanes index the agent itself with sig = 0); sig (K, H) f32 → (K, N) in
-    x's dtype, f32 accumulation in fixed h order."""
+    x (K, N) f32 or bf16; ``src`` (Ks, N) of x's dtype, the rows the
+    neighbours are gathered from (None: the population itself, src = x);
+    idx (K, H) indices in [0, Ks) (padding lanes carry sig = 0); sig (K,
+    H) f32 → (K, N) in x's dtype, f32 accumulation in fixed h order."""
     if x.dtype not in _ALLOWED:
         raise TypeError(f"unsupported dtype {x.dtype}; use f32/bf16")
-    _check_lanes(x, idx, sig)
+    if src is not None and (src.ndim != 2 or src.shape[1:] != x.shape[1:]
+                            or src.dtype != x.dtype):
+        raise ValueError(f"src {tuple(src.shape)} {src.dtype} does not "
+                         f"match x {tuple(x.shape)} {x.dtype}: want (Ks, N)")
+    _check_lanes(x, idx, sig, x if src is None else src)
     if x.device.type == "cpu":
-        return ref.consensus_update_pop_reference(x, idx, sig)
+        return ref.consensus_update_pop_reference(x, idx, sig, src)
     idx32, sig32 = _cuda_args(x, idx, sig)
     x = x.contiguous()
+    src = x if src is None else src.contiguous()
     out = torch.empty_like(x)
     K, N = x.shape
     if K == 0 or N == 0:
@@ -99,14 +108,15 @@ def consensus_update_pop(x, idx, sig):
     bf16 = x.dtype == torch.bfloat16
     fn_name = "consensus_update_pop_bf16" if bf16 else "consensus_update_pop_f32"
     lib = _lib("consensus_update", [
-        (n, [_VP, _VP, _VP, _VP, _LL, _LL, _I, _I, _VP])
+        (n, [_VP, _VP, _VP, _VP, _VP, _LL, _LL, _I, _LL, _I, _VP])
         for n in ("consensus_update_pop_f32", "consensus_update_pop_bf16")])
-    vec_ok = int(N % (8 if bf16 else 4) == 0 and _aligned(x, out))
+    vec_ok = int(N % (8 if bf16 else 4) == 0 and _aligned(x, src, out))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, fn_name)(x.data_ptr(), idx32.data_ptr(),
-                                    sig32.data_ptr(), out.data_ptr(), K, N,
-                                    idx32.shape[1], vec_ok, stream)
+        err = getattr(lib, fn_name)(x.data_ptr(), src.data_ptr(),
+                                    idx32.data_ptr(), sig32.data_ptr(),
+                                    out.data_ptr(), K, N, idx32.shape[1],
+                                    src.shape[0], vec_ok, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     consensus_update_pop.launches += 1
@@ -116,34 +126,49 @@ def consensus_update_pop(x, idx, sig):
 consensus_update_pop.launches = 0
 
 
-def quant_consensus_pop(x, q, s, idx, sig, qblock: Optional[int] = None):
-    """Fused int-wire dequantize + Eq.-(6) update of a whole population,
+def quant_consensus_pop(x, q, s, idx, sig, qblock: Optional[int] = None,
+                        q_src=None, s_src=None):
+    """Fused int-wire dequantize + Eq.-(6) update of K owned rows,
     recentred on each agent's own decoded copy:
-    out[k] = x[k] + Σ_h sig[k, h] (x̂[idx[k, h]] − x̂[k]), x̂ = s·q.
+    out[k] = x[k] + Σ_h sig[k, h] (ŝ_j q_src[j] − s_k q[k]), j = idx[k, h].
 
     x (K, N) f32; q (K, N) int8 lanes (int8 or int4 values); s (K,) one
     scale per model, or (K, ⌈N/qblock⌉) block scales with ``qblock``
-    (the ``"int8:b64"`` wire); idx, sig (K, H) → (K, N) f32."""
+    (the ``"int8:b64"`` wire); ``q_src`` (Ks, N) and ``s_src`` the wire
+    the neighbours are gathered from (None: the owned rows' own wire);
+    idx, sig (K, H), idx in [0, Ks) → (K, N) f32."""
     if x.dtype != torch.float32:
         raise TypeError(f"x must be float32, got {x.dtype}")
-    if q.dtype != torch.int8:
-        raise TypeError(f"wire lanes must be int8, got {q.dtype}")
-    _check_lanes(x, idx, sig)
+    if (q_src is None) != (s_src is None):
+        raise ValueError("pass q_src and s_src together (the source wire's "
+                         "lanes and scales), or neither")
+    if q_src is None:
+        q_src, s_src = q, s
+    for name, t in (("q", q), ("q_src", q_src)):
+        if t.dtype != torch.int8:
+            raise TypeError(f"wire lanes {name} must be int8, got {t.dtype}")
+    _check_lanes(x, idx, sig, q_src)
     K, N = x.shape
-    if tuple(q.shape) != (K, N):
-        raise ValueError(f"q {tuple(q.shape)} does not match x {(K, N)}")
-    want = (K,) if qblock is None else (K, -(-N // int(qblock)))
-    if tuple(s.shape) != want:
-        raise ValueError(f"qblock={qblock} wants scales of shape {want}, "
-                         f"got {tuple(s.shape)}")
-    for name, t in (("q", q), ("s", s)):
+    Ks = q_src.shape[0]
+    if tuple(q.shape) != (K, N) or tuple(q_src.shape) != (Ks, N):
+        raise ValueError(f"q {tuple(q.shape)} / q_src {tuple(q_src.shape)} "
+                         f"do not match x {(K, N)}: want (K, N) / (Ks, N)")
+    nb = None if qblock is None else -(-N // int(qblock))
+    for name, t, rows in (("s", s, K), ("s_src", s_src, Ks)):
+        want = (rows,) if nb is None else (rows, nb)
+        if tuple(t.shape) != want:
+            raise ValueError(f"qblock={qblock} wants {name} of shape {want}, "
+                             f"got {tuple(t.shape)}")
+    for name, t in (("q", q), ("s", s), ("s_src", s_src)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if x.device.type == "cpu":
-        return ref.quant_consensus_pop_reference(x, q, s, idx, sig, qblock)
+        return ref.quant_consensus_pop_reference(x, q, s, idx, sig, qblock,
+                                                 q_src, s_src)
     idx32, sig32 = _cuda_args(x, idx, sig)
-    x, q = x.contiguous(), q.contiguous()
+    x, q, q_src = x.contiguous(), q.contiguous(), q_src.contiguous()
     s = s.to(torch.float32).contiguous()
+    s_src = s_src.to(torch.float32).contiguous()
     out = torch.empty_like(x)
     if K == 0 or N == 0:
         return out
@@ -151,14 +176,17 @@ def quant_consensus_pop(x, q, s, idx, sig, qblock: Optional[int] = None):
     s_stride = 1 if qblock is None else s.shape[1]
     lib = _lib("quant_consensus", [
         ("quant_consensus_pop",
-         [_VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _I, _LL, _LL, _I, _VP])])
-    vec_ok = int(N % 16 == 0 and qb % 16 == 0 and _aligned(x, q, out))
+         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _LL, _LL, _I, _LL, _LL,
+          _LL, _I, _VP])])
+    vec_ok = int(N % 16 == 0 and qb % 16 == 0
+                 and _aligned(x, q, q_src, out))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.quant_consensus_pop(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), idx32.data_ptr(),
-            sig32.data_ptr(), out.data_ptr(), K, N, idx32.shape[1], qb,
-            s_stride, vec_ok, stream)
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), q_src.data_ptr(),
+            s_src.data_ptr(), idx32.data_ptr(), sig32.data_ptr(),
+            out.data_ptr(), K, N, idx32.shape[1], Ks, qb, s_stride, vec_ok,
+            stream)
     if err != 0:
         raise RuntimeError(f"quant_consensus_pop launch failed: CUDA error {err}")
     quant_consensus_pop.launches += 1

@@ -19,14 +19,16 @@ from typing import Optional
 import torch
 
 
-def consensus_update_pop_reference(x, idx, sig):
-    """x + Σ_h σ_h (x[idx_h] − x) per agent: x (K, N) f32/bf16, idx (K, H)
-    int, sig (K, H) f32 → (K, N) in x's dtype, f32 accumulation."""
+def consensus_update_pop_reference(x, idx, sig, src=None):
+    """x + Σ_h σ_h (src[idx_h] − x) per agent: x (K, N) f32/bf16, src
+    (Ks, N) of x's dtype (None: x itself), idx (K, H) int in [0, Ks), sig
+    (K, H) f32 → (K, N) in x's dtype, f32 accumulation."""
     xf = x.to(torch.float32)
+    sf = xf if src is None else src.to(torch.float32)
     acc = torch.zeros_like(xf)
     idx = idx.long()
     for h in range(idx.shape[1]):
-        acc = acc + sig[:, h:h + 1].to(torch.float32) * (xf[idx[:, h]] - xf)
+        acc = acc + sig[:, h:h + 1].to(torch.float32) * (sf[idx[:, h]] - xf)
     return (xf + acc).to(x.dtype)
 
 
@@ -41,15 +43,18 @@ def dequantize_rows(q, s, qblock: Optional[int] = None):
 
 
 def quant_consensus_pop_reference(x, q, s, idx, sig,
-                                  qblock: Optional[int] = None):
+                                  qblock: Optional[int] = None,
+                                  q_src=None, s_src=None):
     """x + Σ_h σ_h (ŝ_h q_h − ŝ_k q_k) per agent, recentred on the agent's
     own decoded copy: x (K, N) f32, q (K, N) int8, scales as in
-    :func:`dequantize_rows` → (K, N) f32."""
+    :func:`dequantize_rows`; neighbours from the wire ``q_src`` (Ks, N),
+    ``s_src`` (None: q, s) → (K, N) f32."""
     xhat = dequantize_rows(q, s, qblock)
+    nbr = xhat if q_src is None else dequantize_rows(q_src, s_src, qblock)
     acc = torch.zeros_like(xhat)
     idx = idx.long()
     for h in range(idx.shape[1]):
-        acc = acc + sig[:, h:h + 1].to(torch.float32) * (xhat[idx[:, h]] - xhat)
+        acc = acc + sig[:, h:h + 1].to(torch.float32) * (nbr[idx[:, h]] - xhat)
     return x.to(torch.float32) + acc
 
 

@@ -87,8 +87,9 @@ class RoundRecorder:
     post-hoc replay computes them: ``bits`` = ``codec.price_bits(
     p.model_bits)`` (raw ``model_bits`` uncoded) and the class link masks
     from ``topology.link_class``, in the plan's own survival shape:
-    (K, K) on the dense plan, (K, H) neighbour lanes on the sparse plan
-    (padding lanes → NONE). Every real directed edge appears exactly once
+    (K, K) on the dense plan, (K, H) neighbour lanes on the sparse and
+    sharded plans (padding lanes → NONE), (M, K) schedule slots on the
+    distributed plan (completion slots → NONE). Every real directed edge appears exactly once
     in each shape, so the per-class counts are identical integers.
     Per-edge heterogeneous pricing (``edge_efficiency``) is refused —
     rows carry per-CLASS counts only.
@@ -110,15 +111,17 @@ class RoundRecorder:
         self.energy_params = (energy_params
                               or energy.paper_calibrated("fig3"))
         link_class = np.asarray(topo.link_class)
-        if engine.plan.kind == "sparse":
-            idx, valid = engine.lane_structure()
-            rows = np.arange(idx.shape[0])[:, None]
-            table = np.where(valid, link_class[rows, idx], topo_lib.NONE)
-            # per-SENDER attribution: lane (k, h) bills its sender idx[k, h]
-            self._sender_index = np.asarray(idx, np.int64)
-        else:
+        if engine.plan.kind == "dense":
             table = link_class
             self._sender_index = None   # dense: sum over receivers
+        else:
+            # (K, H) lanes on the sparse and sharded plans (padding lanes
+            # → NONE), (M, K) schedule slots on the distributed plan
+            # (completion slots → NONE); per-SENDER attribution: each
+            # position bills the sender it reads from
+            rows, senders, real = engine._plan_lanes()
+            table = np.where(real, link_class[rows, senders], topo_lib.NONE)
+            self._sender_index = np.asarray(senders, np.int64)
         self._class_masks = {name: table == cls for name, cls in _CLASSES}
         # real lanes in the plan shape: max_age reads only these (padding
         # lanes never deliver, so their ages grow without meaning)
@@ -158,7 +161,7 @@ class RoundRecorder:
     def _per_agent(self, hit):
         """(K,) int32 per-SENDER count of the True positions of ``hit``
         (plan-shaped bool): a sum over receivers on the dense plan, an
-        ``index_add_`` over the lane table's senders on the sparse plan."""
+        ``index_add_`` over the lane or slot senders on the others."""
         if self._sender_index is None:
             return hit.sum(dim=0, dtype=torch.int32)
         idx = self._const("senders", self._sender_index, hit.device)

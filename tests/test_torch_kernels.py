@@ -164,6 +164,63 @@ def test_wrapper_guards_and_no_fallback():
                                  sig.to("meta"))
 
 
+def _source_case(rng, N, qblock=None, B=3):
+    """A population of K rows and one block of its B rows: the block's
+    own rows, the lane tables of its agents (indexing the population) and
+    the population's int wire."""
+    x = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    idx, sig = (torch.from_numpy(a) for a in _lanes(rng, 3))
+    q = torch.from_numpy(rng.integers(-127, 128, (K, N)).astype(np.int8))
+    ns = (K,) if qblock is None else (K, -(-N // qblock))
+    s = torch.from_numpy(rng.uniform(0.001, 0.02, ns).astype(np.float32))
+    return x, idx, sig, q, s, slice(K - B, K)
+
+
+@pytest.mark.parametrize("qblock", [None, 64])
+def test_source_form_equals_population_rows(qblock):
+    """A block of owned rows mixed from the whole population as the
+    source gives exactly those rows of the population form: the sharded
+    plan's per-block launch is the sparse plan's arithmetic."""
+    rng = np.random.default_rng(11)
+    x, idx, sig, q, s, blk = _source_case(rng, 1000, qblock)
+    for xd in (x, x.to(torch.bfloat16)):
+        full = ops.consensus_update_pop(xd, idx, sig)
+        part = ops.consensus_update_pop(xd[blk], idx[blk], sig[blk], src=xd)
+        assert torch.equal(part, full[blk])
+    full = ops.quant_consensus_pop(x, q, s, idx, sig, qblock=qblock)
+    part = ops.quant_consensus_pop(x[blk], q[blk], s[blk], idx[blk],
+                                   sig[blk], qblock=qblock, q_src=q, s_src=s)
+    assert torch.equal(part, full[blk])
+
+
+def test_source_form_guards():
+    x = torch.zeros(2, 8)
+    src = torch.zeros(5, 8)
+    sig = torch.ones(2, 1)
+    # indices are bounded by the SOURCE's rows, not the owned rows'
+    ok = ops.consensus_update_pop(x, torch.full((2, 1), 4), sig, src=src)
+    assert ok.shape == (2, 8)
+    with pytest.raises(ValueError, match=r"\[0, 5\)"):
+        ops.consensus_update_pop(x, torch.full((2, 1), 5), sig, src=src)
+    with pytest.raises(ValueError, match="src"):
+        ops.consensus_update_pop(x, torch.zeros(2, 1, dtype=torch.int32),
+                                 sig, src=torch.zeros(5, 9))
+    with pytest.raises(ValueError, match="src"):
+        ops.consensus_update_pop(x, torch.zeros(2, 1, dtype=torch.int32),
+                                 sig, src=src.to(torch.bfloat16))
+    q, qs = torch.zeros(2, 8, dtype=torch.int8), torch.zeros(5, 8,
+                                                            dtype=torch.int8)
+    with pytest.raises(ValueError, match="together"):
+        ops.quant_consensus_pop(x, q, torch.ones(2), torch.zeros(
+            2, 1, dtype=torch.int32), sig, q_src=qs)
+    with pytest.raises(ValueError, match="s_src"):
+        ops.quant_consensus_pop(x, q, torch.ones(2), torch.zeros(
+            2, 1, dtype=torch.int32), sig, q_src=qs, s_src=torch.ones(4))
+    with pytest.raises(ValueError, match=r"\[0, 5\)"):
+        ops.quant_consensus_pop(x, q, torch.ones(2), torch.full((2, 1), 5),
+                                sig, q_src=qs, s_src=torch.ones(5))
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -460,3 +517,41 @@ def test_cuda_telemetry_rows_equal_cpu_rows(cuda):
                   "agent_joules"):
             assert e[f] == g[f], f
         assert g["disagreement"] == pytest.approx(e["disagreement"], rel=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1000, 4099, 262144])
+def test_cuda_kernels_source_form_match_plain(cuda, N):
+    """Both consensus kernels in their source form (a block of owned rows
+    mixed from the population's rows or wire, and one agent from M
+    received rows) equal their plain versions bit for bit, and the block
+    equals those rows of the population form."""
+    rng = np.random.default_rng(N + 5)
+    for qblock in (None, 64):
+        x, idx, sig, q, s, blk = (t.to(cuda) if isinstance(t, torch.Tensor)
+                                  else t for t in _source_case(rng, N, qblock))
+        for xd in (x, x.to(torch.bfloat16)):
+            got = ops.consensus_update_pop(xd[blk], idx[blk], sig[blk],
+                                           src=xd)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref.consensus_update_pop_reference(
+                xd[blk], idx[blk], sig[blk], xd))
+            assert torch.equal(got, ops.consensus_update_pop(xd, idx,
+                                                             sig)[blk])
+        got = ops.quant_consensus_pop(x[blk], q[blk], s[blk], idx[blk],
+                                      sig[blk], qblock=qblock, q_src=q,
+                                      s_src=s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.quant_consensus_pop_reference(
+            x[blk], q[blk], s[blk], idx[blk], sig[blk], qblock, q, s))
+        assert torch.equal(got, ops.quant_consensus_pop(
+            x, q, s, idx, sig, qblock=qblock)[blk])
+        # one agent mixing M = K - 1 received rows (the distributed plan)
+        lanes = torch.arange(K - 1, device=cuda)[None, :]
+        w = sig[:1].repeat(1, K)[:, :K - 1].contiguous()
+        got = ops.quant_consensus_pop(x[:1], q[:1], s[:1], lanes, w,
+                                      qblock=qblock, q_src=q[1:],
+                                      s_src=s[1:])
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.quant_consensus_pop_reference(
+            x[:1], q[:1], s[:1], lanes, w, qblock, q[1:], s[1:]))
