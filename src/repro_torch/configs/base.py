@@ -1,13 +1,26 @@
 """Architecture config and registry: the port's own copy of the JAX
 package's ``configs/base.py``, holding the fields the ported models read
-(the DQN and the RecurrentGemma hybrid). The JAX config's MoE, xLSTM,
-encoder-decoder, remat and layer-type fields wait for the slices that
-port those families."""
+(the DQN, the RecurrentGemma hybrid and the decoder-only transformer
+family: dense, MoE and the VLM backbone). The JAX config's xLSTM,
+encoder-decoder, remat, ``unroll_layers`` and layer-type fields wait for
+the slices that port those families."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings for a block's MLP."""
+
+    num_experts: int = 8
+    top_k: int = 2
+    num_shared_experts: int = 0      # qwen2-moe style always-on experts
+    router_aux_loss_coef: float = 0.01
+    capacity_factor: float = 1.25    # used by capacity-based dispatch
+    shared_expert_d_ff: int = 0      # d_ff of the shared expert (0 -> same as experts)
 
 
 @dataclass(frozen=True)
@@ -24,7 +37,10 @@ class ArchConfig:
     """One architecture. Frozen, so it can key caches.
 
     ``family`` selects the model constructor (:func:`repro_torch.models.
-    api.get_model`): ``dqn`` and ``hybrid`` (rg-lru) are ported."""
+    api.get_model`): ``dense``, ``moe`` and ``vlm`` (a dense decoder over
+    an early-fusion token stream) are the transformer, ``hybrid`` is
+    rg-lru, ``dqn`` the case study's Q-network; ``ssm`` and ``encdec``
+    are not ported yet."""
 
     name: str
     family: str
@@ -40,11 +56,13 @@ class ArchConfig:
     sliding_window: int = 0          # 0 -> full attention; else SWA window
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     act: str = "silu"                # mlp activation: silu | gelu | relu
     mlp_kind: str = "gated"          # gated (llama) | plain (whisper/gpt)
     use_qk_norm: bool = False
     logit_softcap: float = 0.0
 
+    moe: Optional[MoEConfig] = None
     rglru: Optional[RGLRUConfig] = None
 
     dtype: str = "bfloat16"          # activation/compute dtype
@@ -53,6 +71,43 @@ class ArchConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks + norms), the JAX
+        package's formula on the families the port has. Like the JAX one,
+        it leaves out the shared expert's gate (d per MoE layer) and the
+        q/k norms (2·head_dim per layer)."""
+        d, L, V = self.d_model, self.num_layers, self.vocab_size
+        hd = self.head_dim_
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        att = d * (self.num_heads * hd) + 2 * d * (self.num_kv_heads * hd) \
+            + (self.num_heads * hd) * d
+        n_mlp_mats = 3 if self.mlp_kind == "gated" else 2
+        if self.family == "moe":
+            assert self.moe is not None
+            mlp = self.moe.num_experts * n_mlp_mats * d * self.d_ff
+            if self.moe.num_shared_experts:
+                sdff = self.moe.shared_expert_d_ff or self.d_ff
+                mlp += n_mlp_mats * d * sdff
+            mlp += d * self.moe.num_experts  # router
+        else:
+            mlp = n_mlp_mats * d * self.d_ff
+        return emb + L * (att + mlp + 2 * d) + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top-k + shared experts)."""
+        if self.family != "moe" or self.moe is None:
+            return self.param_count()
+        d, L = self.d_model, self.num_layers
+        n_mlp_mats = 3 if self.mlp_kind == "gated" else 2
+        dense_like = self.param_count() - L * (
+            self.moe.num_experts * n_mlp_mats * d * self.d_ff)
+        active_mlp = L * self.moe.top_k * n_mlp_mats * d * self.d_ff
+        return dense_like + active_mlp
 
 
 _REGISTRY: dict = {}
@@ -69,8 +124,14 @@ def get_arch(name: str) -> ArchConfig:
     return _REGISTRY[name]
 
 
+def list_archs() -> list:
+    """The names of every config the port holds (``repro_torch.configs``
+    registers them all when it is imported)."""
+    return sorted(_REGISTRY)
+
+
 def reduced(cfg: ArchConfig, *, num_layers: int = 2, d_model: int = 256,
-            vocab: int = 512) -> ArchConfig:
+            max_experts: int = 4, vocab: int = 512) -> ArchConfig:
     """A smoke-test-sized variant of the same family (CPU-runnable): the
     JAX package's ``reduced`` on the fields the port has."""
     heads = max(2, min(cfg.num_heads, 4))
@@ -88,6 +149,14 @@ def reduced(cfg: ArchConfig, *, num_layers: int = 2, d_model: int = 256,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
         dtype="float32",
     )
+    if cfg.moe is not None:
+        changes["moe"] = dataclasses.replace(
+            cfg.moe,
+            num_experts=min(cfg.moe.num_experts, max_experts),
+            top_k=min(cfg.moe.top_k, 2),
+            num_shared_experts=min(cfg.moe.num_shared_experts, 1),
+            shared_expert_d_ff=0,
+        )
     if cfg.rglru is not None:
         changes["rglru"] = dataclasses.replace(cfg.rglru, lru_width=0)
     return dataclasses.replace(cfg, **changes)

@@ -6,9 +6,10 @@ layouts. Both directions work for one model, for agent-stacked (K, ...)
 params, and for error-feedback residual trees (which share the params'
 structure). Leaves are anything ``numpy.asarray`` accepts.
 
-LM trees hold tuples too (``"periods.0.norm"``), and the JAX hybrid stacks
-its blocks by pattern period: :func:`lm_params_from_numpy` renames them to
-the port's ``blocks.<layer>.`` names in layer order.
+LM trees hold tuples too (``"periods.0.norm"``). The JAX hybrid stacks
+its blocks by pattern period and the JAX transformer every block on one
+leading layer axis: :func:`lm_params_from_numpy` unstacks both into the
+port's ``blocks.<layer>.`` names in layer order.
 """
 from __future__ import annotations
 
@@ -51,16 +52,23 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> dict:
 
 
 def lm_params_from_numpy(tree, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
-    """The JAX hybrid's params → the port's ``RecurrentGemma`` state dict.
+    """The JAX LM params → the port's state dict (``RecurrentGemma`` or
+    ``Transformer``). Layouts stay as JAX keeps them (MoE expert stacks
+    stay (E, d, f)).
 
-    ``periods[j]`` is stacked over the ``n_full`` whole pattern periods:
-    its row i is layer ``i·len(pattern) + j``; ``rem[j]`` is layer
-    ``n_full·len(pattern) + j``. Layouts stay as JAX keeps them."""
-    P = len(cfg.rglru.block_pattern)
+    Transformer: ``blocks`` is stacked over the layers, its row i is
+    layer i. Hybrid: ``periods[j]`` is stacked over the ``n_full`` whole
+    pattern periods, its row i is layer ``i·len(pattern) + j``; ``rem[j]``
+    is layer ``n_full·len(pattern) + j``."""
+    P = len(cfg.rglru.block_pattern) if cfg.rglru is not None else 1
     n_full = cfg.num_layers // P
     out = {}
     for name, t in params_from_numpy(tree, device=device).items():
         group, _, rest = name.partition(".")
+        if group == "blocks":
+            for i in range(cfg.num_layers):
+                out[f"blocks.{i}.{rest}"] = t[i].clone()
+            continue
         if group not in ("periods", "rem"):
             out[name] = t
             continue

@@ -1,9 +1,10 @@
-"""Serving launcher: batched prefill + greedy decode with KV caches and
-recurrent states, on random weights drawn from ``--seed``.
+"""Serving launcher: batched prefill + greedy decode with KV caches (and
+recurrent states for the hybrid), on random weights drawn from
+``--seed``. Serves every ``dense``, ``moe``, ``vlm`` and ``hybrid`` arch.
 
 Usage (on the card; ``--device cpu --reduced`` for a CPU-sized run):
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch recurrentgemma-9b --batch 4 --prompt-len 4096 --gen 32
+        --arch qwen2-moe-a2.7b --batch 4 --prompt-len 4096 --gen 32
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import repro_torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
-from repro_torch.models.api import get_model
+from repro_torch.models.api import count_params, get_model
 
 #: the kernel wrappers the serving path launches
 KERNELS = {"rglru_scan": ops.rglru_scan,
@@ -32,6 +33,7 @@ class ServeResult:
     prefill_ms: float
     decode_ms_per_token: float      # per decode step (the whole batch)
     launches: Dict[str, Dict[str, int]]   # phase -> kernel -> launches
+    n_params: int                   # parameters of the served model
 
 
 def _sync(device):
@@ -81,8 +83,9 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     res = ServeResult(tokens=torch.cat(out, dim=1), last_logits=last_logits,
                       prefill_ms=t_prefill * 1e3,
                       decode_ms_per_token=t_decode / max(gen - 1, 1) * 1e3,
-                      launches=launches)
+                      launches=launches, n_params=count_params(params))
     if verbose:
+        print(f"{cfg.name}: {res.n_params:,} params")
         print(f"prefill {batch}x{prompt_len}: {res.prefill_ms:.1f} ms")
         print(f"decode {gen - 1} steps: {t_decode * 1e3:.1f} ms "
               f"({res.decode_ms_per_token:.2f} ms/tok/batch)")
@@ -93,7 +96,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-9b")
+    ap.add_argument("--arch", default="h2o-danube-3-4b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)

@@ -1,26 +1,53 @@
-"""Family dispatch: the port's counterpart of the JAX package's
-``models/api.py::get_model``.
+"""Family dispatch and the loss: the port's counterpart of the JAX
+package's ``models/api.py``.
 
 Every family exposes ``init(cfg, *, generator, device)`` and
-``forward(params, cfg, ...)``; decoder families also ``init_cache(cfg,
-batch, seq_len, *, device)`` and ``cast_for_serving(params, cfg)``.
+``forward(params, cfg, tokens, ...) -> (logits, caches, aux)``; decoder
+families also ``init_cache(cfg, batch, seq_len, *, device)`` and
+``cast_for_serving(params, cfg)``. ``dense``, ``moe`` and ``vlm`` are the
+transformer, ``hybrid`` RecurrentGemma, ``dqn`` the case study's
+Q-network; ``ssm`` (xLSTM) and ``encdec`` (whisper) are not ported yet.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
 
+import torch
+
 
 def get_model(cfg) -> SimpleNamespace:
-    if cfg.family == "hybrid":
+    fam = cfg.family
+    if fam in ("dense", "moe", "vlm"):
+        from repro_torch.models import transformer as m
+    elif fam == "hybrid":
         from repro_torch.models import rglru as m
-        return SimpleNamespace(init=m.init, forward=m.forward,
-                               init_cache=m.init_cache,
-                               cast_for_serving=m.cast_for_serving)
-    if cfg.family == "dqn":
+    elif fam == "dqn":
         from repro_torch.models import dqn as m
         return SimpleNamespace(init=m.init, forward=m.forward,
                                init_cache=None)
-    raise ValueError(
-        f"family {cfg.family!r} ({cfg.name}) is not ported yet: of the LM "
-        "families the port runs only 'hybrid' (recurrentgemma-9b) so far, "
-        "besides the case study's 'dqn'")
+    else:
+        raise ValueError(
+            f"family {fam!r} ({cfg.name}) is not ported yet: the port runs "
+            "the LM families 'dense', 'moe', 'vlm' and 'hybrid', and the "
+            "case study's 'dqn'")
+    return SimpleNamespace(init=m.init, forward=m.forward,
+                           init_cache=m.init_cache,
+                           cast_for_serving=m.cast_for_serving)
+
+
+def lm_loss(params, cfg, tokens, labels, *, embeddings=None, model=None):
+    """Next-token cross-entropy in f32, the mean over valid labels (>= 0),
+    plus the MoE aux loss."""
+    model = model or get_model(cfg)
+    kw = {} if embeddings is None else {"embeddings": embeddings}
+    logits, _, aux = model.forward(params, cfg, tokens, **kw)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    valid = labels >= 0
+    nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    loss = torch.sum(nll * valid) / valid.sum().clamp(min=1)
+    return loss + aux
+
+
+def count_params(params) -> int:
+    """Elements in every parameter of a model (an ``nn.Module``)."""
+    return sum(t.numel() for t in params.parameters())

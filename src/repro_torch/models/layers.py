@@ -70,12 +70,11 @@ def rope_freqs(head_dim: int, theta: float):
                             / head_dim))
 
 
-def apply_rope(x, positions, theta: float):
+def apply_rope(x, positions, inv_freq):
     """Half-split rotary embedding. x (..., seq, heads, head_dim);
-    positions (..., seq)."""
-    hd = x.shape[-1]
-    inv = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)   # (hd/2,)
-    ang = positions[..., :, None].to(torch.float32) * inv        # (..., S, hd/2)
+    positions (..., seq); ``inv_freq`` (head_dim/2,) f32 on x's device,
+    ``rope_freqs(head_dim, theta)``."""
+    ang = positions[..., :, None].to(torch.float32) * inv_freq   # (..., S, hd/2)
     ang = ang[..., None, :]                                      # (..., S, 1, hd/2)
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -88,25 +87,29 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 class Attention(nn.Module):
-    """q/k/v/o projections in the JAX layouts: the JAX package's
-    ``init_attention``. The q/k norms (``use_qk_norm``) wait for a family
-    that sets them."""
+    """q/k/v/o projections in the JAX layouts, and the q/k RMS norms over
+    head_dim when ``use_qk_norm``: the JAX package's ``init_attention``.
+    RoPE's inverse frequencies are a buffer outside the state dict."""
 
     def __init__(self, cfg, *, generator=None, device="cuda"):
         super().__init__()
-        if cfg.use_qk_norm:
-            raise NotImplementedError(
-                "use_qk_norm=True is not ported yet (recurrentgemma-9b, the "
-                "one LM ported so far, does not use it)")
         d = cfg.d_model
         hd = cfg.head_dim_
-        kw = dict(generator=generator, dtype=dtype_of(cfg.param_dtype),
-                  device=device)
+        pd = dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, dtype=pd, device=device)
         self.wq = param(dense_init((d, cfg.num_heads, hd), **kw))
         self.wk = param(dense_init((d, cfg.num_kv_heads, hd), **kw))
         self.wv = param(dense_init((d, cfg.num_kv_heads, hd), **kw))
         self.wo = param(dense_init((cfg.num_heads, hd, d), **kw,
                                    scale=1.0 / math.sqrt(cfg.num_heads * hd)))
+        if cfg.use_qk_norm:
+            self.q_norm = param(torch.zeros(hd, dtype=pd, device=device))
+            self.k_norm = param(torch.zeros(hd, dtype=pd, device=device))
+        if cfg.rope_theta > 0:
+            # on the device once: a host-to-device copy at each use would
+            # synchronise the stream twice a layer
+            self.register_buffer("rope_inv", torch.from_numpy(
+                rope_freqs(hd, cfg.rope_theta)).to(device), persistent=False)
 
 
 def _heads_in(x, w):
@@ -131,9 +134,12 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
     q = _heads_in(x, p.wq.to(dt))
     k = _heads_in(x, p.wk.to(dt))
     v = _heads_in(x, p.wv.to(dt))
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = apply_rope(q, positions, p.rope_inv)
+        k = apply_rope(k, positions, p.rope_inv)
 
     def project_out(out):
         wo = p.wo.to(dt)
@@ -199,28 +205,42 @@ def init_kv_cache(cfg, batch: int, seq_len: int, *, window: int = 0,
 
 
 class Mlp(nn.Module):
-    """Gated MLP (``w_gate``, ``w_up``, ``w_down``) with the tanh GELU: the
-    JAX package's ``init_mlp`` for ``mlp_kind="gated"``, ``act="gelu"``.
-    The plain MLP with biases and the other activations wait for a family
-    that sets them."""
+    """The JAX package's ``init_mlp``: gated (``w_gate``, ``w_up``,
+    ``w_down``) or plain (``w_up``, ``b_up``, ``w_down``, ``b_down``) by
+    ``cfg.mlp_kind``; ``d_ff`` overrides ``cfg.d_ff`` (the MoE's shared
+    expert)."""
 
-    def __init__(self, cfg, *, generator=None, device="cuda"):
+    def __init__(self, cfg, *, d_ff: Optional[int] = None, generator=None,
+                 device="cuda"):
         super().__init__()
-        if cfg.mlp_kind != "gated" or cfg.act != "gelu":
-            raise NotImplementedError(
-                f"mlp_kind={cfg.mlp_kind!r}, act={cfg.act!r} is not ported "
-                "yet: only the gated GELU MLP of recurrentgemma-9b is")
-        d, f = cfg.d_model, cfg.d_ff
-        kw = dict(generator=generator, dtype=dtype_of(cfg.param_dtype),
-                  device=device)
-        self.w_gate = param(dense_init((d, f), **kw))
-        self.w_up = param(dense_init((d, f), **kw))
-        self.w_down = param(dense_init((f, d), **kw))
+        d, f = cfg.d_model, d_ff or cfg.d_ff
+        pd = dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, dtype=pd, device=device)
+        if cfg.mlp_kind == "gated":
+            self.w_gate = param(dense_init((d, f), **kw))
+            self.w_up = param(dense_init((d, f), **kw))
+            self.w_down = param(dense_init((f, d), **kw))
+        else:
+            self.w_up = param(dense_init((d, f), **kw))
+            self.b_up = param(torch.zeros(f, dtype=pd, device=device))
+            self.w_down = param(dense_init((f, d), **kw))
+            self.b_down = param(torch.zeros(d, dtype=pd, device=device))
+
+
+def act_fn(name: str):
+    """The MLP activations by config name; GELU is the tanh approximation,
+    ``jax.nn.gelu``'s default."""
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
 
 
 def mlp_block(p, cfg, x):
     dt = dtype_of(cfg.dtype)
     x = x.to(dt)
-    # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(x @ p.w_gate.to(dt), approximate="tanh") * (x @ p.w_up.to(dt))
-    return h @ p.w_down.to(dt)
+    act = act_fn(cfg.act)
+    if hasattr(p, "w_gate"):
+        h = act(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
+        return h @ p.w_down.to(dt)
+    h = act(x @ p.w_up.to(dt) + p.b_up.to(dt))
+    return h @ p.w_down.to(dt) + p.b_down.to(dt)

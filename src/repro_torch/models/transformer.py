@@ -1,0 +1,143 @@
+"""Decoder-only transformer (llama / granite / stablelm / deepseek / danube,
+mixtral and qwen2-moe with a MoE MLP, and the chameleon VLM backbone,
+whose early-fusion VQ tokens are ordinary ids): the port of the JAX
+package's ``models/transformer.py``.
+
+The JAX package stacks every block on a leading layer axis and scans it;
+here ``blocks`` is a ``ModuleList`` in layer order
+(``convert.lm_params_from_numpy`` unstacks the JAX params), and the
+caches are a list of per-layer ``{"k", "v"}`` dicts: linear, or the
+circular SWA window when ``sliding_window`` is shorter than the sequence.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import moe
+
+
+class Block(nn.Module):
+    """``attn_norm``, ``attn``, ``mlp_norm`` and ``mlp`` (a gated or plain
+    MLP, or the MoE MLP when ``cfg.moe`` is set)."""
+
+    def __init__(self, cfg, *, generator=None, device="cuda"):
+        super().__init__()
+        pd = L.dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
+        self.attn_norm = L.param(torch.zeros(cfg.d_model, dtype=pd,
+                                             device=device))
+        self.attn = L.Attention(cfg, **kw)
+        self.mlp_norm = L.param(torch.zeros(cfg.d_model, dtype=pd,
+                                            device=device))
+        self.mlp = moe.MoeMlp(cfg, **kw) if cfg.moe is not None \
+            else L.Mlp(cfg, **kw)
+
+
+class Transformer(nn.Module):
+    """``embed`` (V, d), ``blocks`` in layer order, ``final_norm`` and,
+    unless ``tie_embeddings``, ``unembed`` (d, V)."""
+
+    def __init__(self, cfg, *, generator=None, device="cuda"):
+        super().__init__()
+        pd = L.dtype_of(cfg.param_dtype)
+        kw = dict(generator=generator, device=device)
+        self.embed = L.param(L.dense_init((cfg.vocab_size, cfg.d_model),
+                                          dtype=pd, scale=1.0, **kw))
+        self.blocks = nn.ModuleList(Block(cfg, **kw)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = L.param(torch.zeros(cfg.d_model, dtype=pd,
+                                              device=device))
+        if not cfg.tie_embeddings:
+            self.unembed = L.param(L.dense_init(
+                (cfg.d_model, cfg.vocab_size), dtype=pd, **kw))
+
+
+def init(cfg, *, generator=None, device="cuda") -> Transformer:
+    """Random params drawn from ``generator`` on ``device``."""
+    return Transformer(cfg, generator=generator, device=device)
+
+
+def _block_apply(bp, cfg, x, positions, cache, cache_index):
+    h = L.rms_norm(x, bp.attn_norm, cfg.norm_eps)
+    a, new_cache = L.attention_block(
+        bp.attn, cfg, h, positions, window=cfg.sliding_window, cache=cache,
+        cache_index=cache_index)
+    x = x + a
+    h = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
+    if cfg.moe is not None:
+        y, aux = moe.moe_block(bp.mlp, cfg, h)
+    else:
+        y, aux = L.mlp_block(bp.mlp, cfg, h), None
+    return x + y, new_cache, aux
+
+
+def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
+            cache_index: Optional[int] = None,
+            embeddings: Optional[torch.Tensor] = None,
+            last_only: bool = False):
+    """tokens (B, S) -> (logits (B, S or 1, V) in cfg.dtype, new caches or
+    None, aux () f32: the summed MoE aux loss, 0 for a dense model).
+
+    ``embeddings`` (B, S, d) bypasses the embed table (modality
+    frontends). ``last_only`` unembeds only the last position (the same
+    numbers as slicing ``logits[:, -1:]``)."""
+    dt = L.dtype_of(cfg.dtype)
+    x = (model.embed[tokens] if embeddings is None else embeddings).to(dt)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device) + (
+            0 if cache_index is None else int(cache_index))
+        positions = positions[None, :].expand(B, S)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for i, bp in enumerate(model.blocks):
+        x, nc, aux = _block_apply(bp, cfg, x, positions,
+                                  None if caches is None else caches[i],
+                                  cache_index)
+        if aux is not None:
+            aux_total = aux_total + aux
+        new_caches.append(nc)
+
+    if last_only:
+        x = x[:, -1:]
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    w_out = model.embed.T if cfg.tie_embeddings else model.unembed
+    logits = x @ w_out.to(dt)
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(
+            logits.to(torch.float32) / cfg.logit_softcap).to(dt)
+    return logits, (None if caches is None else new_caches), aux_total
+
+
+def init_cache(cfg, batch: int, seq_len: int, *, device="cuda"):
+    """Per-layer KV caches in layer order: length ``seq_len``, or the SWA
+    window when it is shorter (circular)."""
+    return [L.init_kv_cache(cfg, batch, seq_len, window=cfg.sliding_window,
+                            device=device)
+            for _ in range(cfg.num_layers)]
+
+
+def _read_in_f32(name: str) -> bool:
+    """The forward reads the norm weights (``*norm``: the block and final
+    norms, ``q_norm``/``k_norm``), the MoE ``router`` and ``shared_gate``
+    in f32; every other parameter only through a cast to ``cfg.dtype``."""
+    leaf = name.rsplit(".", 1)[-1]
+    return leaf.endswith("norm") or leaf in ("router", "shared_gate")
+
+
+def cast_for_serving(model: Transformer, cfg) -> Transformer:
+    """Cast, once, every parameter the forward reads only through a cast
+    to ``cfg.dtype``, replacing each tensor in place, so the f32 and the
+    cast copy of a weight never both live beyond that one weight (peak
+    memory stays the f32 model plus its largest tensor). The per-use casts
+    then do nothing; the numbers are unchanged."""
+    dt = L.dtype_of(cfg.dtype)
+    for name, p in model.named_parameters():
+        if not _read_in_f32(name):
+            p.data = p.data.to(dt)
+    return model

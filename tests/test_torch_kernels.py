@@ -327,6 +327,10 @@ def test_cuda_rglru_scan_matches_plain(cuda, B, T, W, h0, dtype):
     (2, 200, 4, 2, 16, True, 100, 0.0),
     (1, 1000, 2, 1, 120, False, 300, 0.0),
     (1, 200, 2, 2, 20, True, 0, 0.0),
+    # h2o-danube-3-4b's heads (GQA 32/8, hd 120, window = S) and
+    # qwen2-moe-a2.7b's (MHA 16 x 128), S cut from 4096
+    (1, 520, 32, 8, 120, True, 520, 0.0),
+    (1, 520, 16, 16, 128, True, 0, 0.0),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, B, S, H, K, hd, causal,
                                             window, softcap, dtype):

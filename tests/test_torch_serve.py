@@ -7,9 +7,11 @@ the whole slice at ``reduced(recurrentgemma-9b, num_layers=5)`` (window 64,
 4 heads, 1 kv head) with prompts longer than the window, so the circular
 cache wraps: the prefill's last-position logits and 8 greedy decode steps,
 in f32 and in bf16. Within the port: decode equals the full forward, the
-load-time cast changes no bit, the config equals JAX's field by field,
-``get_model`` refuses the families not ported yet, and ``serve`` runs end
-to end on the CPU (where the kernels' plain versions run)."""
+load-time cast changes no bit, every config equals JAX's field by field,
+``get_model`` resolves the transformer families and refuses the families
+not ported yet, the layer options the transformer family sets match JAX,
+and ``serve`` runs end to end on the CPU (where the kernels' plain
+versions run)."""
 import ast
 import dataclasses
 from pathlib import Path
@@ -32,7 +34,7 @@ from repro_torch.convert import lm_params_from_numpy, params_from_numpy  # noqa:
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models import rglru  # noqa: E402
+from repro_torch.models import rglru, transformer  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -83,7 +85,8 @@ def test_rms_norm_and_rope_match_jax():
     wj, wt = _x(rng, 16)
     _close(L.rms_norm(xt, wt, 1e-6), jL.rms_norm(xj, wj, 1e-6))
     pos = rng.integers(0, 5000, (2, 7)).astype(np.int32)
-    _close(L.apply_rope(xt, torch.from_numpy(pos), 10000.0),
+    inv = torch.from_numpy(L.rope_freqs(16, 10000.0))
+    _close(L.apply_rope(xt, torch.from_numpy(pos), inv),
            jL.apply_rope(xj, jnp.asarray(pos), 10000.0))
 
 
@@ -283,9 +286,15 @@ def test_load_time_cast_is_bit_equal():
 
 @pytest.mark.parametrize("family", ["dense", "moe", "ssm", "encdec", "vlm"])
 def test_get_model_refuses_unported_families(family):
+    """``dense``, ``moe`` and ``vlm`` resolve to the transformer; ``ssm``
+    and ``encdec`` are still refused by name."""
     cfg = dataclasses.replace(CFG, family=family)
-    with pytest.raises(ValueError, match=f"{family}.*hybrid.*recurrentgemma"):
-        get_model(cfg)
+    if family in ("dense", "moe", "vlm"):
+        assert get_model(cfg).init is transformer.init
+        assert get_model(cfg).cast_for_serving is transformer.cast_for_serving
+    else:
+        with pytest.raises(ValueError, match=f"{family}.*not ported"):
+            get_model(cfg)
     assert get_model(CFG).init is rglru.init
     assert get_model(get_arch("paper-dqn")).init_cache is None
 
@@ -296,17 +305,47 @@ def test_get_model_refuses_unported_families(family):
     (dict(act="silu"), L.Mlp),
 ])
 def test_unported_layer_options_raise(change, module):
-    """Options that recurrentgemma-9b does not set are refused by name
-    until a family that sets them is ported."""
-    name = next(iter(change))
-    with pytest.raises(NotImplementedError, match=name):
-        module(dataclasses.replace(CFG, **change), device="cpu")
-    module(CFG, device="cpu")
+    """The options recurrentgemma-9b does not set, once refused, now build
+    and match the JAX layers on the same params and inputs: q/k norms
+    (nonzero weights) before RoPE, the plain MLP with biases, SiLU."""
+    jcfg, cfg = (dataclasses.replace(c, **change) for c in (JCFG, CFG))
+    rng = np.random.default_rng(12)
+    if module is L.Attention:
+        jp = dict(jL.init_attention(jax.random.PRNGKey(3), jcfg))
+        for n in ("q_norm", "k_norm"):
+            jp[n] = jnp.asarray(rng.standard_normal(jp[n].shape), jnp.float32)
+    else:
+        jp = dict(jL.init_mlp(jax.random.PRNGKey(3), jcfg))
+        for n in ("b_up", "b_down"):
+            if n in jp:
+                jp[n] = jnp.asarray(rng.standard_normal(jp[n].shape),
+                                    jnp.float32)
+    tp = module(cfg, device="cpu")
+    assert set(tp.state_dict()) == set(jp)
+    tp.load_state_dict(params_from_numpy(jp, device="cpu"))
+    S = 20
+    x = _x(rng, B, S, cfg.d_model)
+    if module is L.Attention:
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+        want, _ = jL.attention_block(jp, jcfg, x[0], jnp.asarray(pos),
+                                     window=cfg.sliding_window)
+        with torch.no_grad():
+            got, _ = L.attention_block(tp, cfg, x[1], torch.from_numpy(pos),
+                                       window=cfg.sliding_window)
+    else:
+        want = jL.mlp_block(jp, jcfg, x[0])
+        with torch.no_grad():
+            got = L.mlp_block(tp, cfg, x[1])
+    _close(got, want)
 
 
-@pytest.mark.parametrize("name,cut", [("recurrentgemma-9b", None),
-                                      ("recurrentgemma-9b", 5),
-                                      ("paper-dqn", None)])
+CONFIG_CASES = [(name, cut) for name in (
+    "recurrentgemma-9b", "h2o-danube-3-4b", "stablelm-3b", "granite-8b",
+    "deepseek-7b", "mixtral-8x7b", "qwen2-moe-a2.7b", "chameleon-34b")
+    for cut in (None, 5)] + [("paper-dqn", None)]
+
+
+@pytest.mark.parametrize("name,cut", CONFIG_CASES)
 def test_config_equals_jax_field_by_field(name, cut):
     ours, theirs = get_arch(name), jget_arch(name)
     if cut is not None:
@@ -318,6 +357,7 @@ def test_config_equals_jax_field_by_field(name, cut):
             a, b = dataclasses.asdict(a), dataclasses.asdict(b)
         assert a == b, f.name
     assert ours.head_dim_ == theirs.head_dim_
+    assert ours.q_per_kv == theirs.q_per_kv
 
 
 @pytest.mark.parametrize("num_layers", [5, 7])
@@ -362,7 +402,12 @@ def test_serve_runs_on_cpu():
 NEW_MODULES = ["configs/recurrentgemma_9b.py", "models/rglru.py",
                "models/api.py", "launch/steps.py", "launch/serve.py",
                "kernels/ops.py", "kernels/ref.py", "models/layers.py",
-               "convert.py"]
+               "convert.py", "configs/base.py", "configs/__init__.py",
+               "configs/h2o_danube_3_4b.py", "configs/stablelm_3b.py",
+               "configs/granite_8b.py", "configs/deepseek_7b.py",
+               "configs/mixtral_8x7b.py", "configs/qwen2_moe_a2_7b.py",
+               "configs/chameleon_34b.py", "models/moe.py",
+               "models/transformer.py", "launch/serve_lm.py"]
 
 
 @pytest.mark.parametrize("rel", NEW_MODULES)
