@@ -122,6 +122,32 @@ Phases (any failure exits non-zero; nothing is caught):
                 at capacity factor 8.0); (c) stablelm-3b, granite-8b,
                 deepseek-7b, mixtral-8x7b and chameleon-34b at full width
                 and 2 layers, a 1 x 4096 prefill each (B4 twice).
+14. train_lm  — LM training through the kernels: (a) B4 with its gradient
+                at granite-8b's training shape (q (4, 512, 32, 128), kv 8
+                heads, causal) in f32 and bf16: the forward against the
+                plain version under its gate, dq/dk/dv against autograd
+                through the plain version on the card (f32 within 1e-4 of
+                each gradient's max, bf16 within 2^-7 of it), one launch
+                under ``torch.func.vmap(grad)`` over 3 batches, B3 at (2,
+                256, 512) with its gradient; forward and forward+backward
+                times (kernel, plain version, SDPA); (b) ``train_standard``
+                on granite-8b at full width and 2 layers (batch 4 x 512, 5
+                Adam steps): finite losses, B4 2·L launches a step (remat),
+                step 1's loss and gradient norm against the same step
+                with the attention's plain version, ms per step, peak
+                memory, a profiled step; (c) ``train_federated`` at the
+                same width (4 agents, 2 tasks, 2 local steps, batch 2 x
+                256, 3 rounds, sparse plan): B2 12 launches a round with
+                codec None, bf16 consensus and ``auto`` (bf16+ef), B1 12
+                with int8+ef; chunk 3 == chunk 1 (params, losses, error
+                feedback); links fading (p 0.3) and agents awake with p
+                0.7 (τ 2): buffered telemetry == off bit for bit, every
+                row's joules == the host replay; the Eq.-(11) estimate ==
+                the host formula; sleeping agents held bit for bit; ms,
+                kernels and busy share per round and peak memory; (d) a
+                ``CheckpointManager`` round trip of the population, bit
+                for bit; (e) ``python -m repro_torch.launch.train
+                --reduced`` federated and standard, exit 0.
 
 The line before the last is the kernels JSON; the last is the ``ok`` line.
 
@@ -130,12 +156,14 @@ Run:  python3 chip_smoke.py
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
@@ -168,6 +196,18 @@ B4_F32_TOL = 2e-3               # abs + rel (the JAX package's own gate)
 # gated with that and 1e-5 for f32 summation order
 B4_BF16_REL, B4_BF16_PV, B4_BF16_ABS = 2.0 ** -7, 2.0 ** -8, 1e-5
 DECODE_TOL = 6e-2               # decode vs full forward (test_arch_smoke)
+#: training (``train_lm``): granite-8b at full width, depth cut to 2 layers
+#: (8.25 B params with Adam's 16 B/param does not fit 80 GB)
+TRAIN_ARCH, TRAIN_LAYERS = "granite-8b", 2
+TRAIN_STD = dict(steps=5, batch=4, seq=512, lr=1e-3)
+TRAIN_FED = dict(rounds=3, agents=4, tasks=2, local_steps=2, batch=2,
+                 seq=256, lr=1e-3)
+#: B4 / B3 gradient vs autograd through the plain version, of each
+#: gradient's largest entry: f32, and bf16 (one rounding)
+GRAD_F32_REL, GRAD_BF16_REL = 1e-4, 2.0 ** -7
+#: step 1 with the kernels vs with the attention's plain version: the bf16
+#: attention outputs differ by their rounding, averaged over 2048 tokens
+TRAIN_LOSS_REL, TRAIN_GNORM_REL = 1e-2, 2e-2
 
 
 T_START = time.perf_counter()
@@ -2163,6 +2203,571 @@ def serve_lm_phase(by_path):
     return numbers
 
 
+def _rel_err(got, want):
+    """max |got - want| over max |want| (want's largest entry)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def _fwd_gate(got, want, q, k, v, kw):
+    """B4's forward against its plain version: the fraction of its gate
+    (bf16: the rounding gate; f32: abs + rel) the worst element uses."""
+    from repro_torch.kernels import ref
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        pv = ref.attention_reference(q.float(), k.float(), v.float().abs(),
+                                     **kw)
+        gate = (B4_BF16_REL * want.float().abs() + B4_BF16_PV * pv
+                + B4_BF16_ABS)
+    else:
+        gate = B4_F32_TOL + B4_F32_TOL * want.float().abs()
+    return float((diff / gate).max()), float(diff.max())
+
+
+def check_lm_gradients(generator):
+    """(a) B4 and B3 with their gradients on the card at the training
+    shapes, against the plain versions; forward and forward+backward
+    times. Returns the rows' training-shape numbers and max errors."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    B, S, H, K, hd = 4, 512, 32, 8, 128
+    kw = dict(causal=True, window=0)
+    b4, b4_err = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(B, S, n, hd, generator=generator,
+                               device=DEVICE).to(dtype).requires_grad_()
+                   for n in (H, K, K))
+        w = torch.randn(B, S, H, hd, generator=generator, device=DEVICE)
+        before = ops.flash_attention.launches
+        out = ops.flash_attention(q, k, v, **kw)
+        got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+        launched = ops.flash_attention.launches - before
+        plain = ref.attention_reference(q, k, v, **kw)
+        want = torch.autograd.grad((plain.float() * w).sum(), (q, k, v))
+        with torch.no_grad():
+            worst, err = _fwd_gate(out, plain, q, k, v, kw)
+        rel = GRAD_F32_REL if dtype == torch.float32 else GRAD_BF16_REL
+        gerr = [_rel_err(a, b) for a, b in zip(got, want)]
+        b4_err = max(b4_err, err)
+        print(f"flash_attention grad {tuple(q.shape)} kv {tuple(k.shape)} "
+              f"{dtype}: forward {worst:.4g} of its gate (max |d| {err}); "
+              f"dq, dk, dv max |d| / max |plain| = {gerr} (gate {rel}); "
+              f"launches {launched}", flush=True)
+        if worst > 1.0 or max(gerr) > rel or launched != 1 or not all(
+                torch.isfinite(x).all() for x in got):
+            fail(f"flash_attention gradient {dtype}: {gerr}, forward "
+                 f"{worst}, launches {launched}")
+        del out, plain, got, want
+        g = w.to(dtype)
+        grads = (q, k, v)
+        t = dict(
+            fwd_ms=median_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+            fwd_bwd_ms=median_ms(lambda: torch.autograd.grad(
+                ops.flash_attention(q, k, v, **kw), grads, g)),
+            plain_fwd_ms=median_ms(lambda: ref.attention_reference(
+                q, k, v, **kw)),
+            plain_fwd_bwd_ms=median_ms(lambda: torch.autograd.grad(
+                ref.attention_reference(q, k, v, **kw), grads, g)))
+        # library yardstick: SDPA's causal attention with the kv heads
+        # repeated outside the timed calls; never called by the port
+        qt = q.detach().transpose(1, 2).requires_grad_()
+        kt, vt = (x.detach().repeat_interleave(H // K, 2).transpose(1, 2)
+                  .requires_grad_() for x in (k, v))
+        gt = g.transpose(1, 2)
+        t["sdpa_fwd_ms"] = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        t["sdpa_fwd_bwd_ms"] = median_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            (qt, kt, vt), gt))
+        t["bwd_ms"] = t["fwd_bwd_ms"] - t["fwd_ms"]
+        pairs = visible_pairs(S, S, True, 0)
+        t["bound_ms"], t["bound_by"] = bound(
+            q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+            4 * hd * pairs * B * H,
+            BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+        t["grad_rel_err"] = max(gerr)
+        print(f"flash_attention {dtype} at the training shape: {t}",
+              flush=True)
+        b4[str(dtype).replace("torch.", "")] = t
+        del q, k, v, w, g, qt, kt, vt, gt
+
+    # vmap(grad) over 3 batches of q: ONE launch, the loop's gradients
+    qs = torch.randn(3, B, S, H, hd, generator=generator, device=DEVICE)
+    k, v = (torch.randn(B, S, K, hd, generator=generator, device=DEVICE)
+            for _ in range(2))
+
+    def loss(attn):
+        return lambda q, k, v: attn(q, k, v, **kw).square().sum()
+
+    before = ops.flash_attention.launches
+    got = torch.func.vmap(torch.func.grad(loss(ops.flash_attention),
+                                          argnums=(0, 1, 2)),
+                          in_dims=(0, None, None))(qs, k, v)
+    launched = ops.flash_attention.launches - before
+    verr = 0.0
+    for i in range(3):
+        want = torch.func.grad(loss(ref.attention_reference),
+                               argnums=(0, 1, 2))(qs[i], k, v)
+        verr = max([verr] + [_rel_err(got[j][i], want[j]) for j in range(3)])
+    print(f"flash_attention vmap(grad) over 3 x {tuple(qs.shape[1:])} f32: "
+          f"launches {launched}, max |d| / max |loop| = {verr} (gate "
+          f"{GRAD_F32_REL})", flush=True)
+    if launched != 1 or verr > GRAD_F32_REL:
+        fail(f"flash_attention vmap(grad): launches {launched}, err {verr}")
+    del qs, k, v, got
+
+    # B3 at (2, 256, 512) f32 with h0
+    log_a = (-torch.rand(2, 256, 512, generator=generator, device=DEVICE)
+             * 0.5).requires_grad_()
+    b = torch.randn(2, 256, 512, generator=generator, device=DEVICE
+                    ).requires_grad_()
+    h0 = torch.randn(2, 512, generator=generator, device=DEVICE
+                     ).requires_grad_()
+    before = ops.rglru_scan.launches
+    h, last = ops.rglru_scan(log_a, b, h0)
+    got = torch.autograd.grad(h.square().sum() + last.sum(), (log_a, b, h0))
+    launched = ops.rglru_scan.launches - before
+    wh, wl = ref.rglru_scan_reference(log_a, b, h0)
+    want = torch.autograd.grad(wh.square().sum() + wl.sum(), (log_a, b, h0))
+    b3_err = [_rel_err(x, y) for x, y in zip(got, want)]
+    print(f"rglru_scan grad (2, 256, 512) f32: max |d| / max |plain| = "
+          f"{b3_err} (gate {GRAD_F32_REL}); forward == plain "
+          f"{torch.equal(h, wh) and torch.equal(last, wl)}; launches "
+          f"{launched}", flush=True)
+    if max(b3_err) > GRAD_F32_REL or launched != 1:
+        fail(f"rglru_scan gradient: {b3_err}, launches {launched}")
+    gh, gl = torch.ones_like(h), torch.ones_like(last)
+    ins = (log_a, b, h0)
+    b3 = dict(
+        fwd_ms=median_ms(lambda: ops.rglru_scan(log_a, b, h0)),
+        fwd_bwd_ms=median_ms(lambda: torch.autograd.grad(
+            ops.rglru_scan(log_a, b, h0), ins, (gh, gl))),
+        plain_fwd_ms=median_ms(lambda: ref.rglru_scan_reference(
+            log_a, b, h0)),
+        plain_fwd_bwd_ms=median_ms(lambda: torch.autograd.grad(
+            ref.rglru_scan_reference(log_a, b, h0), ins, (gh, gl))),
+        grad_rel_err=max(b3_err))
+    b3["bwd_ms"] = b3["fwd_bwd_ms"] - b3["fwd_ms"]
+    print(f"rglru_scan (2, 256, 512) f32 at the training shape: {b3}",
+          flush=True)
+    return {"flash_attention": b4, "rglru_scan": b3}, b4_err
+
+
+def train_cfg():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+
+
+class plain_attention:
+    """Within the block, the models call B4's plain version (autograd
+    through it) instead of the kernel: the reference run of (b)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, ref
+        self.ops, self.real = ops, ops.flash_attention
+
+        def plain(q, k, v, *, causal=True, window=0, softcap=0.0):
+            return ref.attention_reference(q, k, v, causal=causal,
+                                           window=window, softcap=softcap)
+        plain.launches = 0
+        ops.flash_attention = plain
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.real
+
+
+def profile_step(fn, name, n=1):
+    """Device kernels and busy share of ``n`` calls of ``fn`` (warm),
+    from a ``torch.profiler`` trace; host wall of the same calls."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) / n * 1e3
+    out, kernels = trace_kernels(prof, name)
+    busy_ms = sum(e.get("dur", 0) for e in kernels) / n / 1e3
+    names = {"B1": lambda s: "quant_consensus_pop_kernel" in s,
+             "B2": lambda s: ("consensus_pop_kernel" in s
+                              and "quant" not in s),
+             "B4": lambda s: "flash_attention_kernel" in s}
+    by = {label: sum(e.get("dur", 0) for e in kernels
+                     if hit(e.get("name", ""))) / n / 1e3
+          for label, hit in names.items()}
+    print(f"{name}: wall_ms(profiled)={wall_ms} kernels={len(kernels) / n} "
+          f"device_busy_ms={busy_ms} busy_share={busy_ms / wall_ms} "
+          f"device_ms_by_kernel={by} (trace {out})", flush=True)
+    if kernels:
+        top_kernels(kernels, n)
+    return dict(kernels=len(kernels) / n, busy_ms=busy_ms,
+                busy_share=busy_ms / wall_ms, device_ms=by)
+
+
+def run_train_standard():
+    """(b) ``train_standard`` at full width, 2 layers, counted from 0."""
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+
+    cfg = train_cfg()
+    L = cfg.num_layers
+    per_step = 2 * L if cfg.remat else L
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks, metrics, counts = [], [], []
+
+    def on_step(t, params, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        counts.append(launch_counts()["flash_attention"])
+
+    zero_counts()
+    t0 = time.perf_counter()
+    params, hist = train.train_standard(cfg, device=DEVICE, callback=on_step,
+                                        **TRAIN_STD)
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps_b4 = [b - a for a, b in zip([0] + counts, counts)]
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    print(f"train_standard {cfg.name} width {cfg.d_model} layers {L} "
+          f"batch {TRAIN_STD['batch']} x {TRAIN_STD['seq']}: losses {hist}, "
+          f"grad norms {[g for _, g in metrics]}; ms per step (steps 2-5) "
+          f"{step_ms}, median {statistics.median(step_ms)}; peak_memory_GB="
+          f"{peak_gb}; B4 launches per step {steps_b4} (remat={cfg.remat}: "
+          f"{per_step} = {'2' if cfg.remat else '1'} x {L} layers); wall_s "
+          f"(init included) {wall}; launches {got}", flush=True)
+    if not all(np.isfinite(hist)) or steps_b4 != [per_step] * len(hist) \
+            or got != dict({n: 0 for n in KERNELS},
+                           flash_attention=per_step * len(hist)):
+        fail(f"train_standard: losses {hist}, launches {steps_b4} / {got}")
+
+    step, opt = make_train_step(cfg, lr=TRAIN_STD["lr"], clip_norm=1.0)
+    state = {"p": params, "o": opt.init(params)}
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_STD["batch"],
+                                             TRAIN_STD["seq"] + 1),
+                         generator=gen, device=DEVICE)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def one_step():
+        state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+
+    one_step()
+    prof = profile_step(one_step, "train_standard_step")
+    del params, state
+    torch.cuda.empty_cache()
+
+    ref_metrics = []
+    with plain_attention():
+        train.train_standard(
+            cfg, device=DEVICE, **dict(TRAIN_STD, steps=1),
+            callback=lambda t, p, m: ref_metrics.append(
+                (float(m["loss"]), float(m["grad_norm"]))))
+    (l0, g0), (l1, g1) = metrics[0], ref_metrics[0]
+    dl, dg = abs(l0 - l1) / abs(l1), abs(g0 - g1) / abs(g1)
+    print(f"step 1 with the kernels vs the attention's plain version: loss "
+          f"{l0} vs {l1} (rel {dl}, gate {TRAIN_LOSS_REL}), grad norm {g0} "
+          f"vs {g1} (rel {dg}, gate {TRAIN_GNORM_REL})", flush=True)
+    if dl > TRAIN_LOSS_REL or dg > TRAIN_GNORM_REL:
+        fail(f"train_standard step 1: loss rel {dl}, grad norm rel {dg}")
+    torch.cuda.empty_cache()
+    return got, dict(ms_per_step=statistics.median(step_ms),
+                     step_ms=step_ms, peak_memory_GB=peak_gb, losses=hist,
+                     b4_per_step=per_step, profile=prof)
+
+
+def fed_run(cfg, **kw):
+    """One ``train_federated`` run at the phase's shape on the sparse
+    plan, counted from 0: (params, losses, E, codec state), launches,
+    wall seconds (init included) and peak memory."""
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    out = train.train_federated(cfg, consensus_plan="sparse", device=DEVICE,
+                                return_state=True, **dict(TRAIN_FED, **kw))
+    torch.cuda.synchronize()
+    return (out, launch_counts(), time.perf_counter() - t,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def fed_expected(cfg, kernel):
+    """B4 once per layer of every local step's forward and its remat
+    recompute, and of the logged loss; ``kernel`` (B1 or B2) once per
+    leaf per round."""
+    R, A, S, L = (TRAIN_FED["rounds"], TRAIN_FED["agents"],
+                  TRAIN_FED["local_steps"], cfg.num_layers)
+    want = {n: 0 for n in KERNELS}
+    want["flash_attention"] = R * (A * S * (2 if cfg.remat else 1) * L + L)
+    want[kernel] = R * 12                   # the JAX tree's 12 leaves
+    return want
+
+
+def fl_estimate(cfg, codec, consensus_dtype=None):
+    """The Eq.-(11) estimate from the host formula: tasks × Eq. (10) of
+    one 2-agent cluster, b(W) = 32 bits a param under a codec, else the
+    storage (or consensus) bytes."""
+    from repro_torch.core import energy, topology
+    n = cfg.param_count()
+    per = TRAIN_FED["agents"] // TRAIN_FED["tasks"]
+    bits = (32.0 * n if codec is not None else
+            8.0 * n * (2 if consensus_dtype is not None else 4))
+    ep = dataclasses.replace(energy.paper_calibrated("fig3"), model_bits=bits,
+                             devices_per_cluster=per,
+                             B_i=TRAIN_FED["local_steps"])
+    return TRAIN_FED["tasks"] * energy.fl_energy(
+        ep, TRAIN_FED["rounds"], topology=topology.clusters(1, per),
+        codec=codec)
+
+
+def to_host(tree):
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def same_bits(tree, host):
+    return all(torch.equal(v.detach().cpu(), host[k]) for k, v in tree.items())
+
+
+def run_train_federated(by_path):
+    """(c) ``train_federated`` at full width: launches, chunk and
+    telemetry bit parity, the host replay, the Eq.-(11) estimate; then
+    (d) the checkpoint round trip of the population. Returns numbers."""
+    from repro_torch import comms, telemetry
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import energy, topology
+    from repro_torch.kernels import build
+    from repro_torch.rl.casestudy import delivered_comm_joules
+
+    cfg = train_cfg()
+    per = TRAIN_FED["agents"] // TRAIN_FED["tasks"]
+    auto = comms.select_codec(topology.clusters(TRAIN_FED["tasks"], per),
+                              energy.paper_calibrated("fig3"))
+    print(f"codec='auto' at clusters({TRAIN_FED['tasks']}, {per}), "
+          f"paper_calibrated('fig3'): {auto.name}", flush=True)
+    numbers = {"auto_codec": auto.name}
+    b2, b1 = "consensus_update_pop", "quant_consensus_pop"
+    host = {}
+    for label, kw, kernel in (
+            ("none", {}, b2),
+            ("bf16_consensus", {"consensus_dtype": torch.bfloat16}, b2),
+            ("int8", {"codec": "int8"}, b1),
+            ("int8_chunk3", {"codec": "int8", "chunk": 3}, b1),
+            ("auto", {"codec": "auto"}, b2)):
+        (p, hist, E, st), got, wall, peak = fed_run(cfg, **kw)
+        want = fed_expected(cfg, kernel)
+        codec = (None if "codec" not in kw else auto if kw["codec"] == "auto"
+                 else comms.resolve_codec(kw["codec"]))
+        E_host = fl_estimate(cfg, codec, kw.get("consensus_dtype"))
+        print(f"train_federated {label}: losses {hist}, E {E} J (host "
+              f"formula {E_host}: {E == E_host}), launches {got} (expected "
+              f"{want}), wall_s {wall}, peak_memory_GB {peak}", flush=True)
+        if got != want or E != E_host or not all(np.isfinite(hist)):
+            fail(f"train_federated {label}: launches {got}, E {E} vs "
+                 f"{E_host}, losses {hist}")
+        by_path[f"train_federated_{label}"] = got
+        numbers[label] = dict(losses=hist, E=E, wall_s=wall,
+                              peak_memory_GB=peak)
+        if label == "int8":
+            host = dict(p=to_host(p), st=to_host(st), hist=hist)
+        elif label == "int8_chunk3":
+            ok = (hist == host["hist"] and same_bits(p, host["p"])
+                  and same_bits(st, host["st"]))
+            print(f"chunk 3 == chunk 1 (params, losses, error feedback): "
+                  f"{ok}", flush=True)
+            if not ok:
+                fail("train_federated: chunk 3 differs from chunk 1")
+            del host
+            # (d) the population through a checkpoint, bit for bit
+            ckpt = build.BUILD_ROOT.parent / "checkpoint"
+            t = time.perf_counter()
+            cm = CheckpointManager(str(ckpt), max_to_keep=1)
+            cm.save(TRAIN_FED["rounds"], {"params": p},
+                    metadata={"arch": cfg.name, "losses": hist})
+            t_save = time.perf_counter() - t
+            restored, step = cm.restore({"params": p})
+            ok = step == TRAIN_FED["rounds"] and all(
+                torch.equal(restored["params"][k], p[k]) for k in p)
+            nbytes = sum(v.numel() * v.element_size() for v in p.values())
+            print(f"(d) checkpoint of the population ({len(p)} leaves, "
+                  f"{nbytes / 1e9} GB) saved in {t_save} s, restored in "
+                  f"{time.perf_counter() - t - t_save} s: bit for bit "
+                  f"{ok}", flush=True)
+            shutil.rmtree(ckpt, ignore_errors=True)
+            if not ok:
+                fail("checkpoint round trip of the population differs")
+            del restored
+        del p, st
+        torch.cuda.empty_cache()
+
+    # links fading and agents sleeping: telemetry off vs buffered
+    dyn = dict(codec="int8", dropout_p=0.3, dropout_seed=1, tau=2,
+               availability=topology.AgentProcess.bernoulli(0.7, seed=2))
+    (p, hist, E, st), got, wall, peak = fed_run(cfg, **dyn)
+    by_path["train_federated_async_int8"] = got
+    off = dict(p=to_host(p), st=to_host(st), hist=hist)
+    del p, st
+    tel = telemetry.Telemetry()
+    (p, hist_t, _, st), got_t, wall_t, _ = fed_run(cfg, telemetry=tel, **dyn)
+    ok = (hist_t == off["hist"] and same_bits(p, off["p"])
+          and same_bits(st, off["st"]) and got_t == got)
+    del off, p, st
+    torch.cuda.empty_cache()
+    topo = topology.clusters(TRAIN_FED["tasks"], per)
+    R, A = TRAIN_FED["rounds"], TRAIN_FED["agents"]
+    keeps = topology.dropout(topo, 0.3, seed=1, rounds=R)
+    acts = topology.availability_stream(dyn["availability"], A, R)
+    ep = dataclasses.replace(energy.paper_calibrated("fig3"),
+                             model_bits=32.0 * cfg.param_count(),
+                             devices_per_cluster=per,
+                             B_i=TRAIN_FED["local_steps"])
+    codec = comms.resolve_codec("int8")
+    replay = [delivered_comm_joules(
+        topo, [np.asarray(k.adjacency) & a[:, None] & a[None, :]], ep, codec)
+        for k, a in zip(keeps, acts)]
+    rows = [e["joules"] for e in tel.events(driver="fl")]
+    print(f"async int8 (links p 0.3, awake p 0.7, tau 2): losses {hist}; "
+          f"buffered telemetry == off (params, losses, error feedback, "
+          f"launches): {ok}; row joules {rows} == host replay {replay}: "
+          f"{rows == replay}; awake per round {acts.sum(axis=1).tolist()}; "
+          f"launches {got}; wall_s off / buffered {wall} / {wall_t}",
+          flush=True)
+    if not ok or rows != replay:
+        fail("train_federated async: telemetry changed the run or a row's "
+             "joules differ from the host replay")
+    numbers["async_int8"] = dict(losses=hist, wall_s=wall, peak_memory_GB=peak,
+                                 row_joules=rows)
+    return numbers
+
+
+def measure_fl_round(codec):
+    """ms per federated round without the profiler (median of 3, warm),
+    then one profiled round: the trainer's own ``fl_round`` at the phase's
+    shape on the sparse plan, with the logged loss. With a codec, one more
+    round with agents 1 and 3 asleep holds their params and residuals bit
+    for bit."""
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+    from repro_torch.data import TaskTokenDistribution
+    from repro_torch.launch import train
+    from repro_torch.models.api import lm_loss
+
+    cfg = train_cfg()
+    A, T, S = (TRAIN_FED["agents"], TRAIN_FED["tasks"],
+               TRAIN_FED["local_steps"])
+    topo = topology.clusters(T, A // T)
+    engine = ConsensusEngine(topo, codec=codec, plan="sparse")
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    params = train.init_params(cfg, gen, DEVICE)
+    st = {"p": {k: v.expand((A,) + v.shape) for k, v in params.items()}}
+    del params
+    st["s"] = engine.init_state(st["p"])
+    dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=T)
+    grid = (torch.arange(A, device=DEVICE) // (A // T))[:, None].expand(A, S)
+
+    def loss_fn(p, tokens, labels):
+        return lm_loss(p, cfg, tokens, labels)
+
+    def one(eng=engine, **kw):
+        toks, labels = dist.sample_traced(gen, grid, TRAIN_FED["batch"],
+                                          TRAIN_FED["seq"])
+        st["p"], st["s"] = train.fl_round(eng, loss_fn, st["p"], st["s"],
+                                          gen, toks, labels,
+                                          lr=TRAIN_FED["lr"], **kw)
+        with torch.no_grad():
+            loss_fn({k: v[0] for k, v in st["p"].items()}, toks[0, 0],
+                    labels[0, 0])
+
+    one()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    name = "none" if codec is None else codec
+    prof = profile_step(one, f"train_federated_round_{name}")
+    print(f"federated round ({name}, sparse, {A} agents x {S} local steps, "
+          f"batch {TRAIN_FED['batch']} x {TRAIN_FED['seq']}): wall_ms "
+          f"{walls}, median {statistics.median(walls)}", flush=True)
+    out = dict(ms_per_round=statistics.median(walls), walls_ms=walls,
+               profile=prof)
+    if codec is not None:
+        eng = ConsensusEngine(topo, codec=codec, plan="sparse",
+                              agents=topology.AgentProcess.bernoulli(0.5))
+        act = torch.tensor([True, False, True, False], device=DEVICE)
+        ar = eng.async_round(0, eng.init_async_state(device=DEVICE).age,
+                             act=act)
+        asleep = {k: v[1::2].cpu() for k, v in st["p"].items()}
+        asleep_s = {k: v[1::2].cpu() for k, v in st["s"].items()}
+        before = {k: v[0].cpu() for k, v in st["p"].items()}
+        one(eng, survival=ar.weights, act=ar.act)
+        held = all(torch.equal(v[1::2].cpu(), asleep[k])
+                   for k, v in st["p"].items()) and all(
+            torch.equal(v[1::2].cpu(), asleep_s[k])
+            for k, v in st["s"].items())
+        moved = not all(torch.equal(v[0].cpu(), before[k])
+                        for k, v in st["p"].items())
+        print(f"agents 1 and 3 asleep for a round: params and residuals "
+              f"held bit for bit {held}; agent 0 moved {moved}", flush=True)
+        if not held or not moved:
+            fail("train_federated: a sleeping agent's state changed")
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_cli():
+    """(e) the training CLI on the card as a subprocess, reduced granite:
+    federated (2 rounds) and standard (2 steps)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    for args in (("--reduced", "--mode", "federated", "--rounds", "2"),
+                 ("--reduced", "--steps", "2")):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            *args], capture_output=True, text=True,
+                           timeout=600, env=env, cwd=root)
+        tail = (r.stdout + r.stderr).strip().splitlines()[-3:]
+        print(f"(e) python -m repro_torch.launch.train {' '.join(args)}: "
+              f"exit {r.returncode} in {time.perf_counter() - t:.1f} s; "
+              f"{tail}", flush=True)
+        if r.returncode != 0:
+            fail(f"train CLI {args} exited {r.returncode}: "
+                 f"{(r.stdout + r.stderr)[-2000:]}")
+
+
+def train_lm_phase(by_path, rows, generator):
+    """Phase ``train_lm``: (a)–(e) of the module docstring."""
+    t = time.perf_counter()
+    grads, b4_err = check_lm_gradients(generator)
+    for name, numbers in grads.items():
+        rows[name]["at_training_shape"] = numbers
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], b4_err)
+    torch.cuda.empty_cache()
+    print(f"(a) gradients: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    by_path["train_standard"], std = run_train_standard()
+    print(f"(b) train_standard: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    fed = run_train_federated(by_path)
+    for codec in (None, "int8"):
+        fed[f"round_{codec}"] = measure_fl_round(codec)
+    print(f"(c, d) train_federated and checkpoint: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    run_train_cli()
+    print(f"(e) CLI: {time.perf_counter() - t:.2f} s", flush=True)
+    return {"standard": std, "federated": fed}
+
+
 def main():
     phase("env")
     if not torch.cuda.is_available():
@@ -2288,6 +2893,13 @@ def main():
     serving = serve_lm_phase(by_path)
     print(f"serve_lm: {time.perf_counter() - t:.2f} s; serving numbers "
           f"{json.dumps(serving)}", flush=True)
+    torch.cuda.empty_cache()
+
+    phase("train_lm")
+    t = time.perf_counter()
+    training = train_lm_phase(by_path, rows, gen)
+    print(f"train_lm: {time.perf_counter() - t:.2f} s; training numbers "
+          f"{json.dumps(training)}", flush=True)
 
     # launches: the sum over the main paths (the case study's runs, the
     # drivers' runs, the paper's runs, the serving run), each counted from

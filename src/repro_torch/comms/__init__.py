@@ -1,5 +1,7 @@
 """Compressed model exchange: codecs that encode, decode and price the
-wire of every consensus round (see :mod:`repro_torch.comms.codecs`)."""
+wire of every consensus round (see :mod:`repro_torch.comms.codecs`), and
+the "auto" wire format picked from link quality
+(:mod:`repro_torch.comms.select`)."""
 from repro_torch.comms.codecs import (  # noqa: F401
     CODECS,
     Bf16Codec,
@@ -10,4 +12,10 @@ from repro_torch.comms.codecs import (  # noqa: F401
     TopKCodec,
     get_codec,
     resolve_codec,
+)
+from repro_torch.comms.select import (  # noqa: F401
+    BF16_MIN_BIT_PER_JOULE,
+    INT8_MIN_BIT_PER_JOULE,
+    link_efficiencies,
+    select_codec,
 )

@@ -2,8 +2,9 @@
 package's ``configs/base.py``, holding the fields the ported models read
 (the DQN, the RecurrentGemma hybrid and the decoder-only transformer
 family: dense, MoE and the VLM backbone). The JAX config's xLSTM,
-encoder-decoder, remat, ``unroll_layers`` and layer-type fields wait for
-the slices that port those families."""
+encoder-decoder, ``remat_policy`` (its ``"dots"`` policy saves matmul
+outputs; the port recomputes whole blocks), ``unroll_layers`` and
+layer-type fields wait for the slices that port those families."""
 from __future__ import annotations
 
 import dataclasses
@@ -67,6 +68,7 @@ class ArchConfig:
 
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"
+    remat: bool = True               # recompute each block in the backward
 
     @property
     def head_dim_(self) -> int:
@@ -147,6 +149,7 @@ def reduced(cfg: ArchConfig, *, num_layers: int = 2, d_model: int = 256,
         d_ff=max(2 * d_model, 64) if cfg.d_ff else 0,
         vocab_size=vocab,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else 0,
+        remat=False,
         dtype="float32",
     )
     if cfg.moe is not None:

@@ -16,4 +16,5 @@ PAPER_DQN = register(ArchConfig(
     citation="DOI:10.1109/PIMRC54779.2022.9977688 + Mnih et al. 2015",
     dtype="float32",
     param_dtype="float32",
+    remat=False,
 ))

@@ -9,7 +9,8 @@ structure). Leaves are anything ``numpy.asarray`` accepts.
 LM trees hold tuples too (``"periods.0.norm"``). The JAX hybrid stacks
 its blocks by pattern period and the JAX transformer every block on one
 leading layer axis: :func:`lm_params_from_numpy` unstacks both into the
-port's ``blocks.<layer>.`` names in layer order.
+port's ``blocks.<layer>.`` names in layer order, and
+:func:`lm_params_to_numpy` stacks them back.
 """
 from __future__ import annotations
 
@@ -78,4 +79,44 @@ def lm_params_from_numpy(tree, cfg, *, device="cuda") -> Dict[str, torch.Tensor]
         else:
             for i in range(n_full):
                 out[f"blocks.{i * P + int(j)}.{leaf}"] = t[i].clone()
+    return out
+
+
+def lm_params_to_numpy(params, cfg) -> dict:
+    """The port's LM state dict (``{"blocks.<i>.<leaf>": tensor}``, or
+    the module itself) → the JAX LM params as nested numpy: the inverse
+    of :func:`lm_params_from_numpy`. Transformer: ``blocks.<leaf>``
+    stacked over the layers. Hybrid: ``periods`` a tuple (one entry per
+    pattern position j) stacked over the ``n_full`` whole periods, ``rem``
+    a tuple of the remainder layers, ``periods`` None without a whole
+    period, as the JAX init makes them."""
+    if not isinstance(params, dict):
+        params = params.state_dict()
+    layers: Dict[int, dict] = {}
+    flat = {}
+    for name, t in params.items():
+        group, _, rest = name.partition(".")
+        if group == "blocks":
+            i, _, leaf = rest.partition(".")
+            layers.setdefault(int(i), {})[leaf] = t.detach()
+        else:
+            flat[name] = t
+    L = cfg.num_layers
+
+    def stack(rows):
+        return {leaf: torch.stack([r[leaf] for r in rows])
+                for leaf in rows[0]}
+
+    out = params_to_numpy(flat)
+    if cfg.rglru is None:
+        out["blocks"] = params_to_numpy(
+            stack([layers[i] for i in range(L)]))
+        return out
+    P = len(cfg.rglru.block_pattern)
+    n_full = L // P
+    out["periods"] = (tuple(
+        params_to_numpy(stack([layers[i * P + j] for i in range(n_full)]))
+        for j in range(P)) if n_full else None)
+    out["rem"] = tuple(params_to_numpy(layers[n_full * P + j])
+                       for j in range(L - n_full * P))
     return out

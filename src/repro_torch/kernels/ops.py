@@ -10,6 +10,17 @@ Each wrapper counts its launches in a plain integer attribute
 (``consensus_update_pop.launches``), raised by one exactly where the
 kernel is launched, so a run can show that its main path went through
 the kernel.
+
+The two LM kernels are differentiable: each wrapper applies a
+``torch.autograd.Function`` whose forward is the dispatch above and
+whose backward is the vector-Jacobian product of the plain version at the
+saved inputs (:func:`torch.func.vjp`, so it runs inside ``torch.func``
+transforms too). That is the gradient of the attention and scan the JAX
+package trains through, which differentiates its XLA path and never a
+Pallas kernel; there is no backward kernel. The backward is itself made
+of differentiable operations, so a second derivative is that of the
+plain version. Under ``torch.func.vmap`` each Function folds the mapped
+axis into the batch and launches its kernel once.
 """
 from __future__ import annotations
 
@@ -196,6 +207,16 @@ def quant_consensus_pop(x, q, s, idx, sig, qblock: Optional[int] = None,
 quant_consensus_pop.launches = 0
 
 
+def _fold(t, dim, size):
+    """A ``torch.func.vmap`` operand with its mapped axis (``dim``; None:
+    not mapped, expanded) folded into the leading batch axis."""
+    if dim is None:
+        t = t.unsqueeze(0).expand(size, *t.shape)
+    else:
+        t = t.movedim(dim, 0)
+    return t.flatten(0, 1)
+
+
 def _check_dtype(*ts):
     for t in ts:
         if t.dtype not in _ALLOWED:
@@ -216,18 +237,10 @@ def _cuda_only(*ts):
                         f"{[t.dtype for t in ts]}")
 
 
-def rglru_scan(log_a, b, h0=None):
-    """Linear recurrence h_t = exp(log_a_t)·h_{t-1} + b_t over (B, T, W),
-    carry in f32. log_a, b (B, T, W) f32/bf16; h0 (B, W) or None (zeros)
-    → (h (B, T, W) in log_a's dtype, h_last (B, W) f32)."""
-    _check_dtype(log_a, b)
-    if log_a.shape != b.shape or log_a.ndim != 3:
-        raise ValueError(f"bad shapes {tuple(log_a.shape)} {tuple(b.shape)}")
+def _rglru_scan_forward(log_a, b, h0):
+    """The scan's dispatch by device: the plain version on the CPU, the
+    kernel on the card (shapes already checked)."""
     B, T, W = log_a.shape
-    if T < 1:
-        raise ValueError("rglru_scan needs T >= 1")
-    if h0 is not None and tuple(h0.shape) != (B, W):
-        raise ValueError(f"h0 {tuple(h0.shape)} does not match {(B, W)}")
     if log_a.device.type == "cpu" and b.device.type == "cpu" and (
             h0 is None or h0.device.type == "cpu"):
         return ref.rglru_scan_reference(log_a, b, h0)
@@ -259,6 +272,51 @@ def rglru_scan(log_a, b, h0=None):
     return out, h_last
 
 
+class _RglruScan(torch.autograd.Function):
+    """B3 with the plain version's gradient (see the module docstring)."""
+
+    @staticmethod
+    def forward(log_a, b, h0):
+        return _rglru_scan_forward(log_a, b, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g_h, g_last):
+        log_a, b, h0 = ctx.saved_tensors
+        if h0 is None:
+            _, pull = torch.func.vjp(ref.rglru_scan_reference, log_a, b)
+            return (*pull((g_h, g_last)), None)
+        _, pull = torch.func.vjp(ref.rglru_scan_reference, log_a, b, h0)
+        return pull((g_h, g_last))
+
+    @staticmethod
+    def vmap(info, in_dims, log_a, b, h0):
+        V = info.batch_size
+        log_a, b = (_fold(t, d, V) for t, d in zip((log_a, b), in_dims[:2]))
+        h0 = None if h0 is None else _fold(h0, in_dims[2], V)
+        h, last = _RglruScan.apply(log_a, b, h0)
+        return (h.unflatten(0, (V, -1)), last.unflatten(0, (V, -1))), (0, 0)
+
+
+def rglru_scan(log_a, b, h0=None):
+    """Linear recurrence h_t = exp(log_a_t)·h_{t-1} + b_t over (B, T, W),
+    carry in f32. log_a, b (B, T, W) f32/bf16; h0 (B, W) or None (zeros)
+    → (h (B, T, W) in log_a's dtype, h_last (B, W) f32). Differentiable
+    (the plain version's gradient)."""
+    _check_dtype(log_a, b)
+    if log_a.shape != b.shape or log_a.ndim != 3:
+        raise ValueError(f"bad shapes {tuple(log_a.shape)} {tuple(b.shape)}")
+    B, T, W = log_a.shape
+    if T < 1:
+        raise ValueError("rglru_scan needs T >= 1")
+    if h0 is not None and tuple(h0.shape) != (B, W):
+        raise ValueError(f"h0 {tuple(h0.shape)} does not match {(B, W)}")
+    return _RglruScan.apply(log_a, b, h0)
+
+
 rglru_scan.launches = 0
 
 
@@ -272,19 +330,9 @@ def _kernel_layout(t):
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """Exact GQA/MQA attention with positions from 0: q (B, S, H, hd);
-    k, v (B, T, K, hd), H % K == 0 (q head h reads kv head h // (H/K));
-    causal and sliding-window (``window`` > 0) masks, tanh soft-capping of
-    the scores (``softcap`` > 0) → (B, S, H, hd) in q's dtype."""
-    _check_dtype(q, k, v)
-    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
-            or q.shape[3] != k.shape[3] or q.shape[0] != k.shape[0]:
-        raise ValueError(f"bad shapes {tuple(q.shape)} {tuple(k.shape)} "
-                         f"{tuple(v.shape)}")
-    if q.shape[2] % k.shape[2]:
-        raise ValueError(f"H={q.shape[2]} not a multiple of K={k.shape[2]}")
+def _flash_attention_forward(q, k, v, causal, window, softcap):
+    """The attention's dispatch by device: the plain version on the CPU,
+    the kernel on the card (shapes already checked)."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention_reference(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
@@ -339,6 +387,53 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """B4 with the plain version's gradient (see the module docstring)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap):
+        return _flash_attention_forward(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:3])
+        ctx.mask = inputs[3:]
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, softcap = ctx.mask
+        _, pull = torch.func.vjp(
+            lambda q, k, v: ref.attention_reference(
+                q, k, v, causal=causal, window=window, softcap=softcap),
+            *ctx.saved_tensors)
+        return (*pull(g), None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+        V = info.batch_size
+        q, k, v = (_fold(t, d, V) for t, d in zip((q, k, v), in_dims[:3]))
+        out = _FlashAttention.apply(q, k, v, causal, window, softcap)
+        return out.unflatten(0, (V, -1)), 0
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """Exact GQA/MQA attention with positions from 0: q (B, S, H, hd);
+    k, v (B, T, K, hd), H % K == 0 (q head h reads kv head h // (H/K));
+    causal and sliding-window (``window`` > 0) masks, tanh soft-capping of
+    the scores (``softcap`` > 0) → (B, S, H, hd) in q's dtype.
+    Differentiable (the plain version's gradient)."""
+    _check_dtype(q, k, v)
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
+            or q.shape[3] != k.shape[3] or q.shape[0] != k.shape[0]:
+        raise ValueError(f"bad shapes {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"H={q.shape[2]} not a multiple of K={k.shape[2]}")
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(softcap))
 
 
 flash_attention.launches = 0

@@ -61,16 +61,17 @@ def quant_consensus_pop_reference(x, q, s, idx, sig,
 def rglru_scan_reference(log_a, b, h0=None):
     """h_t = exp(log_a_t)·h_{t-1} + b_t stepped in time order, carry in f32:
     log_a, b (B, T, W) f32/bf16, h0 (B, W) or None → (h (B, T, W) in
-    log_a's dtype, h_last (B, W) f32)."""
+    log_a's dtype, h_last (B, W) f32). f64 inputs carry in f64 (the
+    tests' gradient checks)."""
     B, T, W = log_a.shape
-    h = (torch.zeros(B, W, dtype=torch.float32, device=log_a.device)
-         if h0 is None else h0.to(torch.float32))
-    out = torch.empty(B, T, W, dtype=log_a.dtype, device=log_a.device)
+    acc = torch.promote_types(log_a.dtype, torch.float32)
+    h = (torch.zeros(B, W, dtype=acc, device=log_a.device)
+         if h0 is None else h0.to(acc))
+    out = []
     for t in range(T):
-        h = torch.exp(log_a[:, t].to(torch.float32)) * h \
-            + b[:, t].to(torch.float32)
-        out[:, t] = h
-    return out, h
+        h = torch.exp(log_a[:, t].to(acc)) * h + b[:, t].to(acc)
+        out.append(h.to(log_a.dtype))
+    return torch.stack(out, dim=1), h
 
 
 NEG_INF = -2.0 ** 30
@@ -97,14 +98,15 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
     q is scaled in f32 and cast back to its dtype; products of the storage
     dtypes accumulate in f32 (exact upcasts, as JAX's
     ``preferred_element_type``); probabilities are cast to v's dtype.
+    f64 inputs compute in f64 (the tests' gradient checks).
     """
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     g = H // K
-    qf = (q.to(torch.float32) / math.sqrt(hd)).to(q.dtype)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = (q.to(acc) / math.sqrt(hd)).to(q.dtype)
     qf = qf.reshape(B, S, K, g, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qf.to(torch.float32),
-                          k.to(torch.float32))
+    scores = torch.einsum("bskgh,btkh->bkgst", qf.to(acc), k.to(acc))
     if softcap > 0:
         scores = softcap * torch.tanh(scores / softcap)
     q_pos = q_offset + torch.arange(S, device=q.device)
@@ -114,7 +116,6 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
         valid = k_pos[None, :] < k_len[:, None]                  # (B, T)
         scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh",
-                       probs.to(v.dtype).to(torch.float32),
-                       v.to(torch.float32))
+    out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).to(acc),
+                       v.to(acc))
     return out.reshape(B, S, H, hd).to(q.dtype)

@@ -1,11 +1,45 @@
-"""Step builders of the serving path: the port's ``make_prefill_step`` and
-``make_decode_step`` (the JAX package's ``launch/steps.py``). Both run
-without autograd."""
+"""Step builders: the port's ``make_train_step``, ``make_prefill_step``
+and ``make_decode_step`` (the JAX package's ``launch/steps.py``). The
+serving steps run without autograd."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.api import get_model
+from repro_torch.models.api import get_model, lm_loss
+from repro_torch.optim import adam, apply_updates, clip_by_global_norm
+
+
+def value_and_grad(loss, params, *args):
+    """(loss, {name: gradient}) of ``loss(params, *args)`` at a
+    ``{name: tensor}`` dict, by ``torch.autograd`` (so a ``cfg.remat``
+    forward recomputes its blocks in the backward)."""
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    with torch.enable_grad():
+        val = loss(leaves, *args)
+        grads = torch.autograd.grad(val, list(leaves.values()))
+    return val.detach(), dict(zip(leaves, grads))
+
+
+def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0):
+    """(params, opt_state, batch{tokens, labels}) -> (params, opt_state,
+    {"loss", "grad_norm"}): Adam on the gradient clipped to a global norm
+    of ``clip_norm``. ``params`` is a ``transformer.stack_params`` dict.
+    Returns ``(train_step, opt)``."""
+    model = get_model(cfg)
+    opt = adam(lr)
+
+    def loss(params, batch):
+        return lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                       embeddings=batch.get("frames"), model=model)
+
+    def train_step(params, opt_state, batch):
+        l, g = value_and_grad(loss, params, batch)
+        g, gnorm = clip_by_global_norm(g, clip_norm)
+        updates, opt_state = opt.update(g, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, {"loss": l, "grad_norm": gnorm}
+
+    return train_step, opt
 
 
 def make_prefill_step(cfg):

@@ -1,0 +1,393 @@
+"""Training launcher: the port of the JAX package's ``launch/train.py``.
+
+Two modes:
+
+* ``standard`` — one Adam step per batch on one card
+  (:func:`repro_torch.launch.steps.make_train_step`).
+* ``federated`` — the paper's decentralized protocol at LM scale: a
+  population of AGENTS, each holding its own replica and a
+  task-conditioned data stream, takes ``local_steps`` clipped-SGD steps
+  per round and then one Eq.-(6) consensus step with its cluster
+  neighbours through :class:`repro_torch.core.engine.ConsensusEngine`
+  (B1/B2 on the sparse plan). No parameter server, no global all-reduce:
+  the communication Eqs. (10)–(11) price.
+
+The transformer families (``dense``, ``moe``, ``vlm``) train; params are
+:func:`repro_torch.models.transformer.stack_params` dicts in the JAX
+package's leaf structure, and the federated population holds one (K,
+...) tensor per leaf (``blocks.*`` leaves are (K, L, ...)), so each codec
+leaf, its scale and its B1/B2 launch are the JAX package's.
+
+Usage (on the card; ``--device cpu --reduced`` for a CPU-sized run):
+    PYTHONPATH=src python -m repro_torch.launch.train --mode federated \\
+        --agents 4 --tasks 2 --rounds 3 --consensus-plan sparse
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+import repro_torch
+from repro_torch import telemetry as telemetry_lib
+from repro_torch.comms import resolve_codec, select_codec
+from repro_torch.configs import get_arch, reduced
+from repro_torch.core import energy, scanloop
+from repro_torch.core import topology as topo_lib
+from repro_torch.core.engine import (PLAN_ALIASES, PLAN_KINDS, AsyncState,
+                                     ConsensusEngine, where_active)
+from repro_torch.core.protocol import stage_generators
+from repro_torch.data import TaskTokenDistribution
+from repro_torch.launch.steps import make_train_step, value_and_grad
+from repro_torch.models import transformer
+from repro_torch.models.api import get_model, lm_loss
+from repro_torch.optim import clip_by_global_norm
+
+#: the families this launcher trains
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def init_params(cfg, generator, device):
+    """Random params of ``cfg`` drawn from ``generator`` on ``device``, as
+    a ``transformer.stack_params`` dict."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(
+            f"{cfg.name} is a {cfg.family!r} model: the port trains the "
+            f"transformer families {FAMILIES}; serve the hybrid with "
+            "repro_torch.launch.serve, or pick a transformer arch")
+    return transformer.stack_params(
+        transformer.init(cfg, generator=generator, device=device))
+
+
+def train_standard(cfg, *, steps: int, batch: int, seq: int, lr: float,
+                   log_every: int = 5, seed: int = 0, device="cuda",
+                   callback=None):
+    """``steps`` Adam steps (gradient clipped to norm 1) on task 0's token
+    stream. ``callback(t, params, metrics)`` runs after each step.
+    Returns ``(params, loss history)``."""
+    repro_torch.set_f32_matmul()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device)
+    step, opt = make_train_step(cfg, lr=lr, clip_norm=1.0)
+    opt_state = opt.init(params)
+    dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=1)
+    hist = []
+    for t in range(steps):
+        toks, labels = dist.sample(gen, 0, batch, seq)
+        t0 = time.time()
+        params, opt_state, m = step(params, opt_state,
+                                    {"tokens": toks, "labels": labels})
+        hist.append(float(m["loss"]))
+        if callback is not None:
+            callback(t, params, m)
+        if t % log_every == 0:
+            print(f"step {t:4d}  loss {hist[-1]:.4f}  gnorm "
+                  f"{float(m['grad_norm']):.3f}  {time.time() - t0:.2f}s")
+    return params, hist
+
+
+def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
+                    local_steps: int, batch: int, seq: int, lr: float,
+                    consensus_every: int = 1, seed: int = 0,
+                    energy_params=None, consensus_dtype=None,
+                    consensus_plan: str = "auto", codec=None, mesh=None,
+                    chunk: int = 1, dropout_p: float = 0.0,
+                    dropout_seed: int = 0, availability=None,
+                    tau=None, staleness_decay: float = 1.0,
+                    telemetry=None, metrics_path=None, device="cuda",
+                    return_state: bool = False):
+    """Clustered federated LM training (the paper's stage 2 at LM scale).
+
+    ``agents`` agents form ``tasks`` clusters of ``agents // tasks``;
+    ``topology.clusters`` drives σ, the engine plan (``consensus_plan``:
+    "auto", one of ``PLAN_KINDS`` or a JAX alias) and the Eq.-(11)
+    pricing. Each round every agent takes ``local_steps`` SGD steps
+    (gradient clipped to norm 1, ``(w.f32 − lr·g.f32).to(w.dtype)``) on
+    its task's batches, then one ``engine.step``: through ``codec`` (a
+    spec or "auto" → :func:`repro_torch.comms.select_codec`; lossy codecs
+    carry error feedback), else in ``consensus_dtype`` (bf16 halves the
+    sidelink bytes), else as stored. ``consensus_every`` is accepted for
+    the JAX signature; there too every round mixes.
+
+    ``dropout_p > 0`` fades sidelinks per round
+    (``GraphProcess.dropout``); ``availability`` (an ``AgentProcess``)
+    makes the run asynchronous: sleeping agents hold their params and
+    error-feedback residuals bit for bit, awake receivers mix stale
+    neighbours at ``staleness_decay ** age`` until ``tau``. The Eq.-(11)
+    estimate prices the full graph.
+
+    Round t draws its batches and codec rounding from its own generator,
+    made up front from the run's, and the device is read once per
+    ``chunk`` rounds (losses and ``telemetry`` rows in one copy; streaming
+    telemetry also reads each row), so every chunk size gives the same
+    bits. ``metrics_path`` writes a buffered telemetry JSONL log. The
+    logged loss is agent 0's after mixing, on its first local batch.
+
+    Returns ``(stacked params {name: (K, ...)}, per-round losses, the
+    Eq.-(11) estimate in J)``, and the codec state (error-feedback
+    residuals, or None) last with ``return_state=True``."""
+    if agents % tasks:
+        raise ValueError(f"agents={agents} is not a multiple of tasks="
+                         f"{tasks}: each task's cluster needs agents // "
+                         "tasks agents; pick agents = tasks * per")
+    per = agents // tasks
+    repro_torch.set_f32_matmul()
+    topo = topo_lib.clusters(tasks, per)
+    ep = energy_params or energy.paper_calibrated("fig3")
+    if codec is not None:
+        codec = (select_codec(topo, ep) if codec == "auto"
+                 else resolve_codec(codec))
+        consensus_dtype = None        # the codec defines the wire format
+    graph = (topo_lib.GraphProcess.dropout(dropout_p, seed=dropout_seed)
+             if dropout_p > 0 else None)
+    engine = ConsensusEngine(topo, codec=codec, mesh=mesh,
+                             plan=consensus_plan, graph=graph,
+                             agents=availability, tau=tau,
+                             staleness_decay=staleness_decay)
+    codec = engine.codec
+    is_async = engine.agents is not None
+    fading = engine.graph.kind != "static"
+
+    model = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device)
+    round_gens = stage_generators(gen, rounds)
+    stacked = {n: x.expand((agents,) + x.shape) for n, x in params.items()}
+    dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=tasks)
+    task_grid = (torch.arange(agents, device=device) // per)[:, None].expand(
+        agents, local_steps)
+
+    def loss_fn(p, tokens, labels):
+        return lm_loss(p, cfg, tokens, labels, model=model)
+
+    n_params = sum(x.numel() for x in params.values())
+    n_bytes = sum(x.numel() * (2 if consensus_dtype is not None
+                               else x.element_size())
+                  for x in params.values())
+    del params
+    # with a codec, b(W) is the full-precision (32-bit) size price_bits
+    # discounts; without one the wire is the storage (or consensus) bytes
+    model_bits = (32.0 * n_params if codec is not None
+                  else float(n_bytes) * 8)
+    ep = dataclasses.replace(ep, model_bits=model_bits,
+                             devices_per_cluster=per, B_i=local_steps)
+    # one cluster's graph: per·(per−1) directed SL messages per round
+    cluster_topo = topo_lib.clusters(1, per)
+
+    tel = telemetry
+    own_tel = tel is None and metrics_path is not None
+    if own_tel:
+        tel = telemetry_lib.Telemetry(
+            sinks=(telemetry_lib.JsonlSink(metrics_path),))
+    rec = tel.recorder_for(engine, ep) if tel is not None else None
+    stream = (tel.stream_cb(rec, "fl")
+              if tel is not None and tel.streaming else None)
+
+    codec_state = engine.init_state(stacked)
+    ast = engine.init_async_state(device=device) if is_async else None
+    hist = []
+    chunk = max(int(chunk), 1)
+    for start in range(0, rounds, chunk):
+        n = min(chunk, rounds - start)
+        ts = torch.arange(start, start + n, device=device)
+        links = engine.round_survival(ts) if fading else None
+        acts = engine.availability(ts) if is_async else None
+        losses, rows = [], []
+        for i in range(n):
+            t = start + i
+            g = round_gens[t]
+            link = None if links is None else links[i]
+            if is_async:
+                # one availability draw per round, shared between the
+                # staleness weights, the per-agent hold and the row
+                ar = engine.async_round(t, ast.age, act=acts[i], link=link)
+                sv, act, deliv = ar.weights, ar.act, ar.delivered
+            else:
+                sv, act, deliv = link, None, link
+            toks, labels = dist.sample_traced(g, task_grid, batch, seq)
+            stacked, codec_state = fl_round(
+                engine, loss_fn, stacked, codec_state, g, toks, labels,
+                lr=lr, survival=sv, act=act, consensus_dtype=consensus_dtype)
+            with torch.no_grad():
+                loss = loss_fn({name: x[0] for name, x in stacked.items()},
+                               toks[0, 0], labels[0, 0])
+            if is_async:
+                ast = AsyncState(ast.clock + act.to(ast.clock.dtype), ar.age)
+            losses.append(loss)
+            if rec is not None:
+                row = rec.row(stacked, deliv, metric=loss, reached=False,
+                              live=True, active=act,
+                              age=ar.age if is_async else None)
+                if stream is not None:
+                    stream(t, row)
+                rows.append(row)
+        cols = [torch.stack(losses).to(torch.float64)[:, None]]
+        if rec is not None:
+            cols.append(rec.pack(rows))
+        host = scanloop.to_host(torch.cat(cols, 1))         # one read
+        if rec is not None:
+            tel.record_rounds(rec, rec.unpack(host[:, 1:]), start,
+                              driver="fl")
+        for r, loss in enumerate(host[:, 0], start):
+            hist.append(float(loss))
+            print(f"round {r:3d}  loss {float(loss):.4f}")
+    # Eq.-(11) priced at the codec's wire size (b(W) · bits ratio)
+    E = tasks * energy.fl_energy(ep, rounds, topology=cluster_topo,
+                                 codec=codec)
+    wire_mb = (codec.price_bits(model_bits) / 8e6 if codec is not None
+               else n_bytes / 1e6)
+    print(f"estimated FL energy for {rounds} rounds x {tasks} clusters: "
+          f"{E / 1e3:.2f} kJ ({wire_mb:.2f} MB per exchange"
+          f"{', codec ' + codec.name if codec is not None else ''})")
+    if tel is not None:
+        n_ev = len(tel.events(driver="fl"))
+        print(f"telemetry: {n_ev} round events, measured comm energy "
+              f"{tel.joules() / 1e3:.2f} kJ (per-round Eq.-11 ledger)")
+        if own_tel:
+            tel.close()
+    if return_state:
+        return stacked, hist, E, codec_state
+    return stacked, hist, E
+
+
+def local_round(loss_fn, stacked, tokens, labels, *, lr: float,
+                act=None):
+    """Every agent's local steps, agent by agent: agent k takes one
+    clipped-SGD step (gradient clipped to norm 1, then ``(w.f32 −
+    lr·g.f32).to(w.dtype)``) per batch ``tokens[k, s]`` (``tokens`` (K,
+    steps, B, S)). Returns the new population; an agent asleep in the
+    (K,) bool ``act`` keeps its params bit for bit."""
+    new = {name: torch.empty(x.shape, dtype=x.dtype, device=x.device)
+           for name, x in stacked.items()}
+    for k in range(tokens.shape[0]):
+        p = {name: x[k] for name, x in stacked.items()}
+        for s in range(tokens.shape[1]):
+            _, grads = value_and_grad(loss_fn, p, tokens[k, s], labels[k, s])
+            grads, _ = clip_by_global_norm(grads, 1.0)
+            p = {name: (w.to(torch.float32) - lr
+                        * grads[name].to(torch.float32)).to(w.dtype)
+                 for name, w in p.items()}
+        for name, w in p.items():
+            new[name][k] = (w if act is None else
+                            torch.where(act[k], w, stacked[name][k]))
+    return new
+
+
+def fl_round(engine, loss_fn, stacked, codec_state, generator, tokens,
+             labels, *, lr: float, survival=None, act=None,
+             consensus_dtype=None):
+    """One federated round: :func:`local_round`, then one
+    ``engine.step`` through the engine's codec (``generator`` drives its
+    stochastic rounding), else in ``consensus_dtype``, else as stored.
+    ``survival`` is the round's plan-shaped link survival or staleness
+    weights, ``act`` the (K,) activity of an async round: a sleeping
+    agent's params and codec residuals hold bit for bit.
+
+    ``stacked`` is consumed: the dict is emptied once the local steps are
+    done, so the old population is freed before the consensus step.
+    Returns ``(new population, codec state)``."""
+    new = local_round(loss_fn, stacked, tokens, labels, lr=lr, act=act)
+    stacked.clear()
+    pre = new
+    if engine.codec is not None:
+        old_state = codec_state
+        new, codec_state = engine.step(new, codec_state, generator,
+                                       survival=survival)
+        if act is not None and codec_state is not None:
+            codec_state = _hold(act, codec_state, old_state)
+        del old_state
+    elif consensus_dtype is not None:
+        mixed, _ = engine.step(
+            {name: x.to(consensus_dtype) for name, x in new.items()},
+            survival=survival)
+        new = {name: m.to(pre[name].dtype) for name, m in mixed.items()}
+        del mixed
+    else:
+        new, _ = engine.step(new, survival=survival)
+    if act is not None:
+        new = _hold(act, new, pre)                  # sleeping receivers
+    return new, codec_state
+
+
+def _hold(act, new, old):
+    """:func:`where_active` one leaf at a time, dropping each ``new`` leaf
+    as its replacement is made (one leaf's transient, not a population's)."""
+    out = {}
+    for name in list(new):
+        out[name] = where_active(act, {name: new.pop(name)},
+                                 {name: old[name]})[name]
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--mode", choices=["standard", "federated"],
+                    default="standard")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--agents", type=int, default=4)
+    ap.add_argument("--tasks", type=int, default=2)
+    ap.add_argument("--local-steps", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--bf16-consensus", action="store_true")
+    ap.add_argument("--consensus-plan",
+                    choices=["auto"] + list(PLAN_KINDS) + list(PLAN_ALIASES),
+                    default="auto",
+                    help="consensus execution plan (repro_torch.core.engine)")
+    ap.add_argument("--codec", default=None,
+                    help="model-exchange codec spec (bf16, int8, int4, "
+                         "int8:b64 block scales, topk:0.05, +ef suffix; "
+                         "'auto' picks from link quality; see "
+                         "repro_torch.comms)")
+    ap.add_argument("--chunk", type=int, default=1,
+                    help="FL rounds between two device reads (the same "
+                         "bits at every chunk size)")
+    ap.add_argument("--dropout-p", type=float, default=0.0,
+                    help="per-round sidelink failure probability "
+                         "(repro_torch.core.topology.GraphProcess)")
+    ap.add_argument("--dropout-seed", type=int, default=0)
+    ap.add_argument("--availability-p", type=float, default=None,
+                    help="per-round agent wake probability: a Bernoulli "
+                         "AgentProcess; sleeping agents skip local SGD "
+                         "and mixing")
+    ap.add_argument("--availability-seed", type=int, default=0)
+    ap.add_argument("--tau", type=float, default=None,
+                    help="hard staleness bound in rounds (default: none)")
+    ap.add_argument("--staleness-decay", type=float, default=1.0,
+                    help="per-round age decay of a stale wire's weight")
+    ap.add_argument("--metrics", default=None, metavar="OUT.JSONL",
+                    help="write a per-round telemetry event log (JSONL; "
+                         "see repro_torch.telemetry.schema)")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    if args.mode == "standard":
+        train_standard(cfg, steps=args.steps, batch=args.batch,
+                       seq=args.seq, lr=args.lr, device=args.device)
+    else:
+        train_federated(
+            cfg, rounds=args.rounds, agents=args.agents, tasks=args.tasks,
+            local_steps=args.local_steps, batch=args.batch, seq=args.seq,
+            lr=args.lr,
+            consensus_dtype=torch.bfloat16 if args.bf16_consensus else None,
+            consensus_plan=args.consensus_plan, codec=args.codec,
+            chunk=args.chunk, dropout_p=args.dropout_p,
+            dropout_seed=args.dropout_seed,
+            availability=(topo_lib.AgentProcess.bernoulli(
+                args.availability_p, seed=args.availability_seed)
+                if args.availability_p is not None else None),
+            tau=args.tau, staleness_decay=args.staleness_decay,
+            metrics_path=args.metrics, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -37,7 +37,10 @@ def get_model(cfg) -> SimpleNamespace:
 
 def lm_loss(params, cfg, tokens, labels, *, embeddings=None, model=None):
     """Next-token cross-entropy in f32, the mean over valid labels (>= 0),
-    plus the MoE aux loss."""
+    plus the MoE aux loss. ``params``: the model's module, or (the
+    transformer families) its ``transformer.stack_params`` dict.
+    Differentiable in both; the attention kernel's gradient is its plain
+    version's (:mod:`repro_torch.kernels.ops`)."""
     model = model or get_model(cfg)
     kw = {} if embeddings is None else {"embeddings": embeddings}
     logits, _, aux = model.forward(params, cfg, tokens, **kw)

@@ -4,8 +4,10 @@ Conventions follow the JAX package's ``models/layers.py``: activations run
 in ``cfg.dtype``, parameters are stored in ``cfg.param_dtype`` and cast at
 each use, norms and softmax run in f32, and weights keep the JAX layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, MLP ``(in, out)``). Parameters live
-in ``nn.Module``s with ``requires_grad=False``: the LM path is inference
-only until its training slice is ported.
+in ``nn.Module``s and are trainable; the serving steps run under
+``torch.no_grad()``. The training path reads the same blocks from a flat
+``{name: tensor}`` dict in the JAX package's leaf structure
+(:func:`repro_torch.models.transformer.stack_params`).
 
 Attention over a fresh sequence from position 0 (prefill, or a forward
 without cache) goes to the hand-written flash-attention kernel through
@@ -43,8 +45,8 @@ def dense_init(shape, *, generator: Optional[torch.Generator] = None,
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """An inference-only parameter."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable parameter."""
+    return nn.Parameter(t)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -68,6 +70,20 @@ def rms_norm(x, weight, eps: float = 1e-6):
 def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32)
                             / head_dim))
+
+
+_ROPE_INV: dict = {}
+
+
+def rope_inv(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` on ``device``, copied there once per (head_dim,
+    theta, device): a host-to-device copy at each use would synchronise
+    the stream twice a layer."""
+    key = (head_dim, theta, str(torch.device(device)))
+    if key not in _ROPE_INV:
+        _ROPE_INV[key] = torch.from_numpy(rope_freqs(head_dim, theta)).to(
+            device)
+    return _ROPE_INV[key]
 
 
 def apply_rope(x, positions, inv_freq):
@@ -106,10 +122,9 @@ class Attention(nn.Module):
             self.q_norm = param(torch.zeros(hd, dtype=pd, device=device))
             self.k_norm = param(torch.zeros(hd, dtype=pd, device=device))
         if cfg.rope_theta > 0:
-            # on the device once: a host-to-device copy at each use would
-            # synchronise the stream twice a layer
-            self.register_buffer("rope_inv", torch.from_numpy(
-                rope_freqs(hd, cfg.rope_theta)).to(device), persistent=False)
+            self.register_buffer("rope_inv", rope_inv(hd, cfg.rope_theta,
+                                                      device),
+                                 persistent=False)
 
 
 def _heads_in(x, w):

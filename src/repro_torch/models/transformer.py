@@ -8,13 +8,24 @@ here ``blocks`` is a ``ModuleList`` in layer order
 (``convert.lm_params_from_numpy`` unstacks the JAX params), and the
 caches are a list of per-layer ``{"k", "v"}`` dicts: linear, or the
 circular SWA window when ``sliding_window`` is shorter than the sequence.
+
+Training reads the params as a flat dict in the JAX package's leaf
+structure (:func:`stack_params`): ``embed``, ``final_norm``, ``unembed``
+and one tensor per block leaf stacked on a leading layer axis
+(``blocks.attn.wq`` (L, d, H, hd)); :func:`forward` takes such a dict
+too and reads layer i as views ``stacked[name][i]``. With ``cfg.remat``
+a forward that records gradients recomputes each block in the backward
+(``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``), so
+a training step runs the attention kernel 2·L times.
 """
 from __future__ import annotations
 
-from typing import Optional
+from types import SimpleNamespace
+from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe
@@ -61,6 +72,54 @@ def init(cfg, *, generator=None, device="cuda") -> Transformer:
     return Transformer(cfg, generator=generator, device=device)
 
 
+def stack_params(model: Transformer) -> Dict[str, torch.Tensor]:
+    """The module's params as a flat dict in the JAX package's leaf
+    structure: ``blocks.<i>.<leaf>`` stacked into ``blocks.<leaf>`` (L,
+    ...) in layer order, the other params as they are (detached)."""
+    named = dict(model.named_parameters())
+    out = {}
+    for name, t in named.items():
+        if name.startswith("blocks.0."):
+            leaf = name[len("blocks.0."):]
+            out[f"blocks.{leaf}"] = torch.stack(
+                [named[f"blocks.{i}.{leaf}"].detach()
+                 for i in range(len(model.blocks))])
+        elif not name.startswith("blocks."):
+            out[name] = t.detach()
+    return out
+
+
+def _namespace(flat: dict) -> SimpleNamespace:
+    """``{"attn.wq": t}`` → a namespace tree read as ``ns.attn.wq``."""
+    groups: dict = {}
+    for name, t in flat.items():
+        head, _, rest = name.partition(".")
+        if rest:
+            groups.setdefault(head, {})[rest] = t
+        else:
+            groups[head] = t
+    return SimpleNamespace(**{k: _namespace(v) if isinstance(v, dict) else v
+                              for k, v in groups.items()})
+
+
+def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
+    """A :func:`stack_params` dict → the tree :func:`forward` reads, with
+    ``blocks`` a list of per-layer namespaces of views ``t[i]``."""
+    top = {k: v for k, v in params.items() if not k.startswith("blocks.")}
+    stacked = {k[len("blocks."):]: v for k, v in params.items()
+               if k.startswith("blocks.")}
+    tree = _namespace(top)
+    blocks = []
+    for i in range(cfg.num_layers):
+        bp = _namespace({k: v[i] for k, v in stacked.items()})
+        if cfg.rope_theta > 0:
+            bp.attn.rope_inv = L.rope_inv(cfg.head_dim_, cfg.rope_theta,
+                                          bp.attn.wq.device)
+        blocks.append(bp)
+    tree.blocks = blocks
+    return tree
+
+
 def _block_apply(bp, cfg, x, positions, cache, cache_index):
     h = L.rms_norm(x, bp.attn_norm, cfg.norm_eps)
     a, new_cache = L.attention_block(
@@ -82,9 +141,12 @@ def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
     """tokens (B, S) -> (logits (B, S or 1, V) in cfg.dtype, new caches or
     None, aux () f32: the summed MoE aux loss, 0 for a dense model).
 
+    ``model`` is a :class:`Transformer` or a :func:`stack_params` dict.
     ``embeddings`` (B, S, d) bypasses the embed table (modality
     frontends). ``last_only`` unembeds only the last position (the same
     numbers as slicing ``logits[:, -1:]``)."""
+    if isinstance(model, dict):
+        model = param_tree(model, cfg)
     dt = L.dtype_of(cfg.dtype)
     x = (model.embed[tokens] if embeddings is None else embeddings).to(dt)
     B, S, _ = x.shape
@@ -95,10 +157,15 @@ def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
+    remat = cfg.remat and caches is None and torch.is_grad_enabled()
     for i, bp in enumerate(model.blocks):
-        x, nc, aux = _block_apply(bp, cfg, x, positions,
-                                  None if caches is None else caches[i],
-                                  cache_index)
+        if remat:
+            x, nc, aux = checkpoint(_block_apply, bp, cfg, x, positions, None,
+                                    None, use_reentrant=False)
+        else:
+            x, nc, aux = _block_apply(bp, cfg, x, positions,
+                                      None if caches is None else caches[i],
+                                      cache_index)
         if aux is not None:
             aux_total = aux_total + aux
         new_caches.append(nc)

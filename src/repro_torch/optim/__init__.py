@@ -1,0 +1,4 @@
+from repro_torch.optim.optimizers import (
+    sgd, adam, adamw, clip_by_global_norm, apply_updates, global_norm,
+)
+from repro_torch.optim.schedules import constant, cosine_decay, warmup_cosine

@@ -5,8 +5,9 @@ against ``repro.kernels.ops.*(impl="interpret")`` and the JAX oracles in
 block, at small shapes made with numpy from a seed. The CUDA kernels
 themselves are held to the plain versions on the card, by the tests
 marked ``gpu`` below (which also cover the RG-LRU scan and flash-attention
-kernels; their CPU parity tests are in ``test_torch_lm_kernels.py``) and
-by ``chip_smoke.py``."""
+kernels, and their gradients through the plain versions; their CPU parity
+tests are in ``test_torch_lm_kernels.py`` and ``test_torch_autograd.py``)
+and by ``chip_smoke.py``."""
 import os
 import subprocess
 import sys
@@ -559,3 +560,87 @@ def test_cuda_kernels_source_form_match_plain(cuda, N):
         torch.cuda.synchronize()
         assert torch.equal(got, ref.quant_consensus_pop_reference(
             x[:1], q[:1], s[:1], lanes, w, qblock, q[1:], s[1:]))
+
+
+def _grad_gate(got, want, dtype):
+    """f32: within 1e-4 of each gradient's largest entry; bf16: within one
+    bf16 rounding (2^-7) of it. The backward is the plain version's VJP
+    at the saved inputs, so both gates are expected to hold with room."""
+    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for a, b in zip(got, want):
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= rel * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (2, 256, 32, 8, 128, 0),          # granite-8b's heads, S cut
+    (1, 300, 16, 1, 256, 128),        # recurrentgemma's, ragged S
+])
+def test_cuda_flash_attention_gradient_matches_plain(cuda, B, S, H, K, hd,
+                                                     window, dtype):
+    """B4 on the card with a gradient: the forward launches the kernel once
+    and agrees with the plain version; dq, dk, dv agree with autograd
+    through the plain version on the card."""
+    rng = np.random.default_rng(S + H)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype).requires_grad_()
+               for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    w = torch.from_numpy(rng.standard_normal((B, S, H, hd))
+                         .astype(np.float32)).to(cuda)
+    kw = dict(causal=True, window=window)
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    assert ops.flash_attention.launches == before + 1
+    plain = ref.attention_reference(q, k, v, **kw)
+    want = torch.autograd.grad((plain.float() * w).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    tol = 2e-3 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
+    _grad_gate(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_vmap_grad_launches_once(cuda):
+    """``torch.func.vmap(grad)`` over 3 q batches: one kernel launch, and
+    the gradients of a loop of ``grad`` through the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qs = torch.randn(3, 2, 128, 8, 64, generator=g, device=cuda)
+    k, v = (torch.randn(2, 128, 2, 64, generator=g, device=cuda)
+            for _ in range(2))
+
+    def loss(attn):
+        return lambda q, k, v: attn(q, k, v, causal=True,
+                                    window=0).square().sum()
+
+    before = ops.flash_attention.launches
+    got = torch.func.vmap(torch.func.grad(loss(ops.flash_attention),
+                                          argnums=(0, 1, 2)),
+                          in_dims=(0, None, None))(qs, k, v)
+    assert ops.flash_attention.launches == before + 1
+    want = [torch.func.grad(loss(ref.attention_reference),
+                            argnums=(0, 1, 2))(qs[i], k, v)
+            for i in range(3)]
+    for j in range(3):
+        _grad_gate([got[j]], [torch.stack([w_[j] for w_ in want])],
+                   torch.float32)
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_scan_gradient_matches_plain(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    log_a = (-torch.rand(2, 256, 512, generator=g, device=cuda)
+             * 0.5).requires_grad_()
+    b = torch.randn(2, 256, 512, generator=g, device=cuda).requires_grad_()
+    h0 = torch.randn(2, 512, generator=g, device=cuda).requires_grad_()
+    before = ops.rglru_scan.launches
+    h, last = ops.rglru_scan(log_a, b, h0)
+    got = torch.autograd.grad(h.square().sum() + last.sum(), (log_a, b, h0))
+    assert ops.rglru_scan.launches == before + 1
+    wh, wl = ref.rglru_scan_reference(log_a, b, h0)
+    want = torch.autograd.grad(wh.square().sum() + wl.sum(), (log_a, b, h0))
+    torch.cuda.synchronize()
+    assert torch.equal(h, wh) and torch.equal(last, wl)
+    _grad_gate(got, want, torch.float32)
