@@ -1,10 +1,11 @@
 """Architecture config and registry: the port's own copy of the JAX
 package's ``configs/base.py``, holding the fields the ported models read
-(the DQN, the RecurrentGemma hybrid and the decoder-only transformer
-family: dense, MoE and the VLM backbone). The JAX config's xLSTM,
-encoder-decoder, ``remat_policy`` (its ``"dots"`` policy saves matmul
-outputs; the port recomputes whole blocks), ``unroll_layers`` and
-layer-type fields wait for the slices that port those families."""
+(the DQN, the RecurrentGemma hybrid, xLSTM, the whisper encoder-decoder
+and the decoder-only transformer family: dense, MoE and the VLM
+backbone). The JAX config's ``remat_policy`` (its ``"dots"`` policy
+saves matmul outputs; the port recomputes whole blocks),
+``unroll_layers`` (a cost-analysis probe of XLA's scans) and
+``attention_types`` (read by no model) are left out."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,14 +35,34 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block-stack settings (arXiv:2405.04517)."""
+
+    slstm_at: Tuple[int, ...] = ()   # layer indices using sLSTM; rest mLSTM
+    mlstm_proj_factor: float = 2.0   # up-projection factor for mLSTM blocks
+    slstm_proj_factor: float = 4.0 / 3.0
+    conv1d_width: int = 4
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder (whisper) settings. The frontend is a stub
+    (:mod:`repro_torch.models.frontend`)."""
+
+    num_encoder_layers: int = 32
+    encoder_seq_len: int = 1500      # 30 s audio -> 1500 frames after conv stub
+    max_decoder_ctx: int = 448
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     """One architecture. Frozen, so it can key caches.
 
     ``family`` selects the model constructor (:func:`repro_torch.models.
     api.get_model`): ``dense``, ``moe`` and ``vlm`` (a dense decoder over
     an early-fusion token stream) are the transformer, ``hybrid`` is
-    rg-lru, ``dqn`` the case study's Q-network; ``ssm`` and ``encdec``
-    are not ported yet."""
+    rg-lru, ``ssm`` xLSTM, ``encdec`` whisper, ``dqn`` the case study's
+    Q-network."""
 
     name: str
     family: str
@@ -65,6 +86,8 @@ class ArchConfig:
 
     moe: Optional[MoEConfig] = None
     rglru: Optional[RGLRUConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+    encdec: Optional[EncDecConfig] = None
 
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"
@@ -80,9 +103,11 @@ class ArchConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks + norms), the JAX
-        package's formula on the families the port has. Like the JAX one,
-        it leaves out the shared expert's gate (d per MoE layer) and the
-        q/k norms (2·head_dim per layer)."""
+        package's formula. Like the JAX one, it leaves out the shared
+        expert's gate (d per MoE layer) and the q/k norms (2·head_dim per
+        layer); its xLSTM term is a rough one, and for the
+        encoder-decoder it counts an unembedding the model ties to
+        ``embed``, so neither matches the model's count."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         hd = self.head_dim_
         emb = V * d * (1 if self.tie_embeddings else 2)
@@ -96,9 +121,18 @@ class ArchConfig:
                 sdff = self.moe.shared_expert_d_ff or self.d_ff
                 mlp += n_mlp_mats * d * sdff
             mlp += d * self.moe.num_experts  # router
+        elif self.family == "ssm":
+            # xLSTM: rough (projections + gates), as the JAX formula
+            mlp = 0
+            pf = self.xlstm.mlstm_proj_factor if self.xlstm else 2.0
+            att = int(4 * d * d * pf)
         else:
             mlp = n_mlp_mats * d * self.d_ff
-        return emb + L * (att + mlp + 2 * d) + d
+        blocks = L * (att + mlp + 2 * d)
+        if self.family == "encdec" and self.encdec is not None:
+            blocks += self.encdec.num_encoder_layers * (att + mlp + 2 * d)
+            blocks += L * att            # decoder cross-attention
+        return emb + blocks + d
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: only top-k + shared experts)."""
@@ -162,4 +196,11 @@ def reduced(cfg: ArchConfig, *, num_layers: int = 2, d_model: int = 256,
         )
     if cfg.rglru is not None:
         changes["rglru"] = dataclasses.replace(cfg.rglru, lru_width=0)
+    if cfg.xlstm is not None:
+        changes["xlstm"] = dataclasses.replace(
+            cfg.xlstm, slstm_at=tuple(i for i in cfg.xlstm.slstm_at
+                                      if i < num_layers) or (0,))
+    if cfg.encdec is not None:
+        changes["encdec"] = dataclasses.replace(
+            cfg.encdec, num_encoder_layers=num_layers, encoder_seq_len=32)
     return dataclasses.replace(cfg, **changes)

@@ -6,11 +6,14 @@ layouts. Both directions work for one model, for agent-stacked (K, ...)
 params, and for error-feedback residual trees (which share the params'
 structure). Leaves are anything ``numpy.asarray`` accepts.
 
-LM trees hold tuples too (``"periods.0.norm"``). The JAX hybrid stacks
-its blocks by pattern period and the JAX transformer every block on one
-leading layer axis: :func:`lm_params_from_numpy` unstacks both into the
-port's ``blocks.<layer>.`` names in layer order, and
-:func:`lm_params_to_numpy` stacks them back.
+LM trees hold tuples too (``"periods.0.norm"``), and stack layers on a
+leading axis: the JAX transformer every block, the encoder-decoder each
+of its two stacks, the hybrid each position of its pattern period over
+the whole periods; xLSTM keeps a tuple of per-layer dicts. Which leaf
+and row a port param is, is each family's ``jax_name`` rule
+(:mod:`repro_torch.models.api`), which its ``stack_params`` reads too:
+:func:`lm_params_from_numpy` follows it from the JAX tree to the port's
+per-layer names, :func:`lm_params_to_numpy` back.
 """
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from repro_torch.models.api import get_model
+from repro_torch.models.layers import stack_layers
 
 
 def params_from_numpy(tree, *, device="cuda") -> Dict[str, torch.Tensor]:
@@ -52,71 +58,68 @@ def params_to_numpy(params: Dict[str, torch.Tensor]) -> dict:
     return out
 
 
-def lm_params_from_numpy(tree, cfg, *, device="cuda") -> Dict[str, torch.Tensor]:
-    """The JAX LM params → the port's state dict (``RecurrentGemma`` or
-    ``Transformer``). Layouts stay as JAX keeps them (MoE expert stacks
-    stay (E, d, f)).
+def _layout(cfg):
+    """(the family's namespace, a module of ``cfg`` on ``meta``): the
+    port's names and shapes, with no storage."""
+    model = get_model(cfg)
+    return model, model.init(cfg, device="meta")
 
-    Transformer: ``blocks`` is stacked over the layers, its row i is
-    layer i. Hybrid: ``periods[j]`` is stacked over the ``n_full`` whole
-    pattern periods, its row i is layer ``i·len(pattern) + j``; ``rem[j]``
-    is layer ``n_full·len(pattern) + j``."""
-    P = len(cfg.rglru.block_pattern) if cfg.rglru is not None else 1
-    n_full = cfg.num_layers // P
+
+def lm_params_from_numpy(tree, cfg, *,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """The JAX LM params → the port's state dict (``Transformer``,
+    ``RecurrentGemma``, ``EncDec`` or ``XLSTM``), each param the row of
+    its JAX leaf that the family's ``jax_name`` names (a copy) or the leaf
+    itself. Layouts stay as JAX keeps them (MoE expert stacks stay (E, d,
+    f)). A leaf whose shape is not the module's (a layer axis of another
+    depth included) or a leaf the module lacks raises ``ValueError``."""
+    model, module = _layout(cfg)
+    flat = params_from_numpy(tree, device=device)
+    rows: Dict[str, list] = {}
+    for name, p in module.named_parameters():
+        key, row = model.jax_name(module, name)
+        rows.setdefault(key, []).append((name, row, tuple(p.shape)))
+    if set(rows) != set(flat):
+        raise ValueError(f"{cfg.name}: JAX leaves without a param "
+                         f"{sorted(set(flat) - set(rows))}, params without "
+                         f"a JAX leaf {sorted(set(rows) - set(flat))}")
     out = {}
-    for name, t in params_from_numpy(tree, device=device).items():
-        group, _, rest = name.partition(".")
-        if group == "blocks":
-            for i in range(cfg.num_layers):
-                out[f"blocks.{i}.{rest}"] = t[i].clone()
-            continue
-        if group not in ("periods", "rem"):
-            out[name] = t
-            continue
-        j, _, leaf = rest.partition(".")
-        if group == "rem":
-            out[f"blocks.{n_full * P + int(j)}.{leaf}"] = t
-        else:
-            for i in range(n_full):
-                out[f"blocks.{i * P + int(j)}.{leaf}"] = t[i].clone()
+    for key, entries in rows.items():
+        t, (_, row, shape) = flat[key], entries[0]
+        want = shape if row is None else (len(entries),) + shape
+        if tuple(t.shape) != want:
+            raise ValueError(f"{key} {tuple(t.shape)}: want {want}")
+        for name, row, _ in entries:
+            out[name] = t if row is None else t[row].clone()
     return out
+
+
+def _tuples(node):
+    """Nested dicts whose keys are all ``"0", "1", ...`` → tuples."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _tuples(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return tuple(node[str(i)] for i in range(len(node)))
+    return node
 
 
 def lm_params_to_numpy(params, cfg) -> dict:
     """The port's LM state dict (``{"blocks.<i>.<leaf>": tensor}``, or
-    the module itself) → the JAX LM params as nested numpy: the inverse
-    of :func:`lm_params_from_numpy`. Transformer: ``blocks.<leaf>``
-    stacked over the layers. Hybrid: ``periods`` a tuple (one entry per
-    pattern position j) stacked over the ``n_full`` whole periods, ``rem``
-    a tuple of the remainder layers, ``periods`` None without a whole
-    period, as the JAX init makes them."""
-    if not isinstance(params, dict):
-        params = params.state_dict()
-    layers: Dict[int, dict] = {}
-    flat = {}
-    for name, t in params.items():
-        group, _, rest = name.partition(".")
-        if group == "blocks":
-            i, _, leaf = rest.partition(".")
-            layers.setdefault(int(i), {})[leaf] = t.detach()
-        else:
-            flat[name] = t
-    L = cfg.num_layers
-
-    def stack(rows):
-        return {leaf: torch.stack([r[leaf] for r in rows])
-                for leaf in rows[0]}
-
-    out = params_to_numpy(flat)
-    if cfg.rglru is None:
-        out["blocks"] = params_to_numpy(
-            stack([layers[i] for i in range(L)]))
-        return out
-    P = len(cfg.rglru.block_pattern)
-    n_full = L // P
-    out["periods"] = (tuple(
-        params_to_numpy(stack([layers[i * P + j] for i in range(n_full)]))
-        for j in range(P)) if n_full else None)
-    out["rem"] = tuple(params_to_numpy(layers[n_full * P + j])
-                       for j in range(L - n_full * P))
+    the module itself) → the JAX LM params as nested numpy, the inverse of
+    :func:`lm_params_from_numpy`: the family's ``stack_params`` structure
+    with its numbered groups as tuples (the hybrid's ``periods`` and
+    ``rem``, xLSTM's ``blocks``). The hybrid's ``periods`` is None without
+    a whole period and ``rem`` empty without a remainder, as the JAX init
+    makes them."""
+    if isinstance(params, dict):
+        (model, module), named = _layout(cfg), params
+    else:
+        model, module = get_model(cfg), params
+        named = dict(params.named_parameters())
+    out = _tuples(params_to_numpy(stack_layers(
+        named, lambda name: model.jax_name(module, name))))
+    if cfg.rglru is not None:
+        out.setdefault("periods", None)
+        out.setdefault("rem", ())
     return out

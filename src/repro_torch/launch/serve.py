@@ -1,6 +1,9 @@
 """Serving launcher: batched prefill + greedy decode with KV caches (and
-recurrent states for the hybrid), on random weights drawn from
-``--seed``. Serves every ``dense``, ``moe``, ``vlm`` and ``hybrid`` arch.
+recurrent states for the hybrid and xLSTM), on random weights drawn from
+``--seed``. Serves every decoder LM: ``dense``, ``moe``, ``vlm``,
+``hybrid``, ``ssm`` (xLSTM) and ``encdec`` (whisper, whose encoder reads
+stub audio frames drawn by :mod:`repro_torch.models.frontend` from the
+run's generator; the prompt is its decoder's).
 
 Usage (on the card; ``--device cpu --reduced`` for a CPU-sized run):
     PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -19,6 +22,7 @@ import repro_torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import frontend
 from repro_torch.models.api import count_params, get_model
 
 #: the kernel wrappers the serving path launches
@@ -59,11 +63,15 @@ def serve(cfg, *, batch: int, prompt_len: int, gen: int, seed: int = 0,
     decode = make_decode_step(cfg)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=rng, device=device)
+    bd = {"tokens": prompts}
+    if cfg.family == "encdec":
+        bd["frames"] = frontend.audio_frame_embeddings(rng, cfg, batch,
+                                                       device=device)
 
     counts = [_launches()]
     _sync(device)
     t0 = time.perf_counter()
-    last_logits, caches = prefill(params, caches, {"tokens": prompts})
+    last_logits, caches = prefill(params, caches, bd)
     nxt = torch.argmax(last_logits[:, -1], dim=-1).to(torch.int32)[:, None]
     _sync(device)
     t_prefill = time.perf_counter() - t0

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.api import get_model, lm_loss
-from repro_torch.optim import adam, apply_updates, clip_by_global_norm
+from repro_torch.optim import adam, clip_scale
 
 
 def value_and_grad(loss, params, *args):
@@ -21,10 +21,16 @@ def value_and_grad(loss, params, *args):
 
 
 def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0):
-    """(params, opt_state, batch{tokens, labels}) -> (params, opt_state,
-    {"loss", "grad_norm"}): Adam on the gradient clipped to a global norm
-    of ``clip_norm``. ``params`` is a ``transformer.stack_params`` dict.
-    Returns ``(train_step, opt)``."""
+    """(params, opt_state, batch{tokens, labels, frames (encdec)}) ->
+    (params, opt_state, {"loss", "grad_norm"}): Adam on the gradient
+    clipped to a global norm of ``clip_norm``. ``params`` is the model's
+    ``stack_params`` dict. Returns ``(train_step, opt)``.
+
+    The step consumes ``params`` and ``opt_state`` through the
+    optimizer's ``apply`` (:mod:`repro_torch.optim.optimizers`), so its
+    peak is about the f32 params, Adam's two moments and the gradient (4×
+    the params), not old and new of each (8×). The numbers are those of
+    clipping the whole gradient and updating every leaf at once."""
     model = get_model(cfg)
     opt = adam(lr)
 
@@ -34,25 +40,28 @@ def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0):
 
     def train_step(params, opt_state, batch):
         l, g = value_and_grad(loss, params, batch)
-        g, gnorm = clip_by_global_norm(g, clip_norm)
-        updates, opt_state = opt.update(g, opt_state, params)
-        params = apply_updates(params, updates)
+        scale, gnorm = clip_scale(g, clip_norm)
+        params, opt_state = opt.apply(g, opt_state, params, scale)
         return params, opt_state, {"loss": l, "grad_norm": gnorm}
 
     return train_step, opt
 
 
 def make_prefill_step(cfg):
-    """(params, caches, batch{tokens}) -> (last-position logits (B, 1, V),
-    caches). Only the last position is unembedded, which gives the numbers
-    of slicing the full logits without the (B, S, V) tensor."""
+    """(params, caches, batch{tokens, frames (encdec)}) -> (last-position
+    logits (B, 1, V), caches). Only the last position is unembedded, which
+    gives the numbers of slicing the full logits without the (B, S, V)
+    tensor. The encoder-decoder's ``frames`` run its encoder and fill the
+    cross caches."""
     model = get_model(cfg)
 
     @torch.no_grad()
     def prefill_step(params, caches, batch):
+        frames = batch.get("frames")
+        kw = {} if frames is None else {"embeddings": frames}
         logits, caches, _ = model.forward(params, cfg, batch["tokens"],
                                           caches=caches, cache_index=0,
-                                          last_only=True)
+                                          last_only=True, **kw)
         return logits, caches
 
     return prefill_step

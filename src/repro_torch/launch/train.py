@@ -12,11 +12,15 @@ Two modes:
   (B1/B2 on the sparse plan). No parameter server, no global all-reduce:
   the communication Eqs. (10)–(11) price.
 
-The transformer families (``dense``, ``moe``, ``vlm``) train; params are
-:func:`repro_torch.models.transformer.stack_params` dicts in the JAX
-package's leaf structure, and the federated population holds one (K,
-...) tensor per leaf (``blocks.*`` leaves are (K, L, ...)), so each codec
-leaf, its scale and its B1/B2 launch are the JAX package's.
+Every LM family the JAX package trains trains here: the transformer
+families (``dense``, ``moe``, ``vlm``), the hybrid, xLSTM (``ssm``) and,
+in standard mode only, the encoder-decoder (``encdec``; its frames are
+stub audio from :mod:`repro_torch.models.frontend`, drawn each step). Params
+are each family's ``stack_params`` dict in the JAX package's leaf
+structure, and the federated population holds one (K, ...) tensor per
+leaf (the transformer's ``blocks.*`` leaves are (K, L, ...), the hybrid's
+``periods.*`` (K, n_periods, ...), xLSTM's per-layer leaves (K, ...)), so
+each codec leaf, its scale and its B1/B2 launch are the JAX package's.
 
 Usage (on the card; ``--device cpu --reduced`` for a CPU-sized run):
     PYTHONPATH=src python -m repro_torch.launch.train --mode federated \\
@@ -41,31 +45,35 @@ from repro_torch.core.engine import (PLAN_ALIASES, PLAN_KINDS, AsyncState,
 from repro_torch.core.protocol import stage_generators
 from repro_torch.data import TaskTokenDistribution
 from repro_torch.launch.steps import make_train_step, value_and_grad
-from repro_torch.models import transformer
+from repro_torch.models import frontend
 from repro_torch.models.api import get_model, lm_loss
-from repro_torch.optim import clip_by_global_norm
+from repro_torch.optim import clip_scale, sgd
 
-#: the families this launcher trains
-FAMILIES = ("dense", "moe", "vlm")
+#: the families this launcher trains (standard mode)
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "encdec")
+#: the families ``train_federated`` trains: as the JAX package's, whose
+#: federated loss passes no frames, so its encoder-decoder cannot run
+FEDERATED_FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm")
 
 
 def init_params(cfg, generator, device):
     """Random params of ``cfg`` drawn from ``generator`` on ``device``, as
-    a ``transformer.stack_params`` dict."""
+    the family's ``stack_params`` dict (the JAX leaf structure)."""
     if cfg.family not in FAMILIES:
         raise ValueError(
-            f"{cfg.name} is a {cfg.family!r} model: the port trains the "
-            f"transformer families {FAMILIES}; serve the hybrid with "
-            "repro_torch.launch.serve, or pick a transformer arch")
-    return transformer.stack_params(
-        transformer.init(cfg, generator=generator, device=device))
+            f"{cfg.name} is a {cfg.family!r} model: the trainer trains the "
+            f"LM families {FAMILIES}")
+    model = get_model(cfg)
+    return model.stack_params(model.init(cfg, generator=generator,
+                                         device=device))
 
 
 def train_standard(cfg, *, steps: int, batch: int, seq: int, lr: float,
                    log_every: int = 5, seed: int = 0, device="cuda",
                    callback=None):
     """``steps`` Adam steps (gradient clipped to norm 1) on task 0's token
-    stream. ``callback(t, params, metrics)`` runs after each step.
+    stream; an encoder-decoder also gets a batch of stub audio frames
+    each step. ``callback(t, params, metrics)`` runs after each step.
     Returns ``(params, loss history)``."""
     repro_torch.set_f32_matmul()
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -76,9 +84,12 @@ def train_standard(cfg, *, steps: int, batch: int, seq: int, lr: float,
     hist = []
     for t in range(steps):
         toks, labels = dist.sample(gen, 0, batch, seq)
+        bd = {"tokens": toks, "labels": labels}
+        if cfg.family == "encdec":
+            bd["frames"] = frontend.audio_frame_embeddings(gen, cfg, batch,
+                                                           device=device)
         t0 = time.time()
-        params, opt_state, m = step(params, opt_state,
-                                    {"tokens": toks, "labels": labels})
+        params, opt_state, m = step(params, opt_state, bd)
         hist.append(float(m["loss"]))
         if callback is not None:
             callback(t, params, m)
@@ -128,6 +139,13 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
     Returns ``(stacked params {name: (K, ...)}, per-round losses, the
     Eq.-(11) estimate in J)``, and the codec state (error-feedback
     residuals, or None) last with ``return_state=True``."""
+    if cfg.family not in FEDERATED_FAMILIES:
+        raise ValueError(
+            f"{cfg.name} is a {cfg.family!r} model: train_federated trains "
+            f"{FEDERATED_FAMILIES}. The JAX package's federated loss passes "
+            "no frames, so its encoder-decoder finds no cross cache and "
+            "fails (ROADMAP.md, C8); the port adds no feature the "
+            "reference lacks. Train it with mode 'standard'")
     if agents % tasks:
         raise ValueError(f"agents={agents} is not a multiple of tasks="
                          f"{tasks}: each task's cluster needs agents // "
@@ -256,19 +274,22 @@ def local_round(loss_fn, stacked, tokens, labels, *, lr: float,
                 act=None):
     """Every agent's local steps, agent by agent: agent k takes one
     clipped-SGD step (gradient clipped to norm 1, then ``(w.f32 −
-    lr·g.f32).to(w.dtype)``) per batch ``tokens[k, s]`` (``tokens`` (K,
-    steps, B, S)). Returns the new population; an agent asleep in the
-    (K,) bool ``act`` keeps its params bit for bit."""
+    lr·g.f32).to(w.dtype)``: ``optim.sgd``'s ``apply``) per batch
+    ``tokens[k, s]`` (``tokens`` (K, steps, B, S)). Returns the new
+    population; an agent asleep in the (K,) bool ``act`` keeps its params
+    bit for bit. ``apply`` scales and frees the gradient leaf by leaf, so
+    one agent's step holds its gradient once, not clipped and unclipped
+    together."""
+    opt = sgd(lr)
     new = {name: torch.empty(x.shape, dtype=x.dtype, device=x.device)
            for name, x in stacked.items()}
     for k in range(tokens.shape[0]):
         p = {name: x[k] for name, x in stacked.items()}
+        state = opt.init(p)
         for s in range(tokens.shape[1]):
             _, grads = value_and_grad(loss_fn, p, tokens[k, s], labels[k, s])
-            grads, _ = clip_by_global_norm(grads, 1.0)
-            p = {name: (w.to(torch.float32) - lr
-                        * grads[name].to(torch.float32)).to(w.dtype)
-                 for name, w in p.items()}
+            scale, _ = clip_scale(grads, 1.0)
+            p, state = opt.apply(grads, state, p, scale)
         for name, w in p.items():
             new[name][k] = (w if act is None else
                             torch.where(act[k], w, stacked[name][k]))

@@ -4,9 +4,14 @@ package's ``models/api.py``.
 Every family exposes ``init(cfg, *, generator, device)`` and
 ``forward(params, cfg, tokens, ...) -> (logits, caches, aux)``; decoder
 families also ``init_cache(cfg, batch, seq_len, *, device)`` and
-``cast_for_serving(params, cfg)``. ``dense``, ``moe`` and ``vlm`` are the
-transformer, ``hybrid`` RecurrentGemma, ``dqn`` the case study's
-Q-network; ``ssm`` (xLSTM) and ``encdec`` (whisper) are not ported yet.
+``cast_for_serving(params, cfg)``, ``stack_params(module)`` (the JAX
+leaf structure training reads) and ``jax_name(module, name)`` (a param's
+leaf in that structure and its row on the leaf's layer axis: the one
+rule ``stack_params`` and :mod:`repro_torch.convert` both read).
+``dense``, ``moe`` and ``vlm`` are the transformer, ``hybrid``
+RecurrentGemma, ``ssm`` xLSTM, ``encdec`` whisper, ``dqn`` the case
+study's Q-network: every family the JAX package's ``get_model``
+resolves.
 """
 from __future__ import annotations
 
@@ -21,24 +26,27 @@ def get_model(cfg) -> SimpleNamespace:
         from repro_torch.models import transformer as m
     elif fam == "hybrid":
         from repro_torch.models import rglru as m
+    elif fam == "ssm":
+        from repro_torch.models import xlstm as m
+    elif fam == "encdec":
+        from repro_torch.models import encdec as m
     elif fam == "dqn":
         from repro_torch.models import dqn as m
         return SimpleNamespace(init=m.init, forward=m.forward,
                                init_cache=None)
     else:
-        raise ValueError(
-            f"family {fam!r} ({cfg.name}) is not ported yet: the port runs "
-            "the LM families 'dense', 'moe', 'vlm' and 'hybrid', and the "
-            "case study's 'dqn'")
+        raise ValueError(f"unknown family {fam!r} ({cfg.name})")
     return SimpleNamespace(init=m.init, forward=m.forward,
                            init_cache=m.init_cache,
-                           cast_for_serving=m.cast_for_serving)
+                           cast_for_serving=m.cast_for_serving,
+                           stack_params=m.stack_params,
+                           jax_name=m.jax_name)
 
 
 def lm_loss(params, cfg, tokens, labels, *, embeddings=None, model=None):
     """Next-token cross-entropy in f32, the mean over valid labels (>= 0),
-    plus the MoE aux loss. ``params``: the model's module, or (the
-    transformer families) its ``transformer.stack_params`` dict.
+    plus the MoE aux loss. ``params``: the model's module, or its
+    ``stack_params`` dict. ``embeddings``: the encoder-decoder's frames.
     Differentiable in both; the attention kernel's gradient is its plain
     version's (:mod:`repro_torch.kernels.ops`)."""
     model = model or get_model(cfg)

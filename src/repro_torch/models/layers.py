@@ -6,21 +6,25 @@ each use, norms and softmax run in f32, and weights keep the JAX layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, MLP ``(in, out)``). Parameters live
 in ``nn.Module``s and are trainable; the serving steps run under
 ``torch.no_grad()``. The training path reads the same blocks from a flat
-``{name: tensor}`` dict in the JAX package's leaf structure
-(:func:`repro_torch.models.transformer.stack_params`).
+``{name: tensor}`` dict in the JAX package's leaf structure (each model's
+``stack_params``; :func:`stack_layers` and :func:`unstack_layers` move a
+group of layers between the two).
 
 Attention over a fresh sequence from position 0 (prefill, or a forward
-without cache) goes to the hand-written flash-attention kernel through
-:func:`repro_torch.kernels.ops.flash_attention` (the JAX package's
-``attention`` dispatch picks its XLA paths there). Decode attends over the KV
-cache with the kernel's plain version,
-:func:`repro_torch.kernels.ref.attention_reference`, and ``k_len``, as the
-JAX package does. The JAX attention block's GSPMD sharding constraints wait
-for the multi-GPU slice.
+without cache) or over an encoder's states (the encoder-decoder's
+unmasked self- and cross-attention, S > 1) goes to the hand-written
+flash-attention kernel through :func:`repro_torch.kernels.ops.
+flash_attention` (the JAX package's ``attention`` dispatch and its
+``attention_reference`` pick XLA paths there). Decode (S == 1) attends
+over the KV cache, or the encoder's cross K/V, with the kernel's plain
+version, :func:`repro_torch.kernels.ref.attention_reference` (``k_len``
+for a cache), as the JAX package does. The JAX attention block's GSPMD
+sharding constraints wait for the multi-GPU slice.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -53,6 +57,68 @@ def dtype_of(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def layer_row(name: str, groups) -> tuple:
+    """A module param's JAX name and layer row: ``{group}.<i>.<leaf>`` of
+    a group in ``groups`` → (``{group}.<leaf>``, i), row i of a leaf
+    stacked over the group's layers; any other name → (name, None), a
+    leaf as it is."""
+    group, _, rest = name.partition(".")
+    if group not in groups:
+        return name, None
+    i, _, leaf = rest.partition(".")
+    return f"{group}.{leaf}", int(i)
+
+
+def stack_layers(named: dict, jax_name) -> dict:
+    """A module's named params → its JAX leaf structure. ``jax_name(name)``
+    gives each param's JAX name and its row on that leaf's leading layer
+    axis, or None for a leaf as it is (:func:`layer_row`); the rows of a
+    leaf are stacked in row order, placed where its first row stood. All
+    detached."""
+    rows: dict = {}
+    for name, t in named.items():
+        key, row = jax_name(name)
+        rows.setdefault(key, {})[row] = t.detach()
+    return {key: r[None] if None in r else torch.stack(
+        [r[i] for i in range(len(r))]) for key, r in rows.items()}
+
+
+def namespace(flat: dict) -> SimpleNamespace:
+    """``{"attn.wq": t}`` → a namespace tree read as ``ns.attn.wq``."""
+    groups: dict = {}
+    for name, t in flat.items():
+        head, _, rest = name.partition(".")
+        if rest:
+            groups.setdefault(head, {})[rest] = t
+        else:
+            groups[head] = t
+    return SimpleNamespace(**{k: namespace(v) if isinstance(v, dict) else v
+                              for k, v in groups.items()})
+
+
+def unstack_layers(params: dict, group: str, n: int, cfg=None) -> list:
+    """The inverse view of :func:`stack_layers`: ``{group}.<leaf>`` (n,
+    ...) → a list of n per-layer namespaces of views, each
+    :func:`with_rope`. The views come from one ``unbind`` a leaf, whose
+    backward stacks the n layer gradients once; indexing each layer
+    would give every layer's gradient the whole stack's shape and add
+    them up, n full-size passes a leaf."""
+    prefix = f"{group}."
+    rows = {k[len(prefix):]: v.unbind(0) for k, v in params.items()
+            if k.startswith(prefix)}
+    return [with_rope(namespace({k: v[i] for k, v in rows.items()}), cfg)
+            for i in range(n)]
+
+
+def with_rope(bp: SimpleNamespace, cfg=None) -> SimpleNamespace:
+    """Give a layer namespace's ``attn`` its ``rope_inv`` (the module's
+    buffer) when ``cfg`` uses RoPE; ``bp`` itself."""
+    if cfg is not None and cfg.rope_theta > 0 and hasattr(bp, "attn"):
+        bp.attn.rope_inv = rope_inv(cfg.head_dim_, cfg.rope_theta,
+                                    bp.attn.wq.device)
+    return bp
+
+
 # ---------------------------------------------------------------------------
 # norms and rotary embeddings
 # ---------------------------------------------------------------------------
@@ -65,6 +131,17 @@ def rms_norm(x, weight, eps: float = 1e-6):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.to(torch.float32))).to(dt)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """LayerNorm over the last axis, statistics in f32, cast back to x's
+    dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
 def rope_freqs(head_dim: int, theta: float):
@@ -127,38 +204,53 @@ class Attention(nn.Module):
                                  persistent=False)
 
 
-def _heads_in(x, w):
+def heads_in(x, w):
     """einsum('bsd,dhk->bshk')."""
     d, h, k = w.shape
     return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
-                    cache_index: Optional[int] = None):
-    """Self-attention with optional KV cache. Returns (out, new_cache).
+                    cache_index: Optional[int] = None, cross_kv=None):
+    """Self- (or cross-) attention with optional KV cache. Returns (out,
+    new_cache).
 
     cache: dict(k=(B, C, K, hd), v=(B, C, K, hd)); C == window for SWA
     (circular buffer, slot = position % C), else C == max seq (linear).
     cache_index: number of tokens already in the cache. Prefill (S > 1)
     assumes cache_index == 0 (single-shot prefill); decode (S == 1)
     supports any index. The cache is updated out of place.
+    cross_kv: (k, v) (B, T, K, hd) given (an encoder's states): q comes
+    from x, k and v get no norm and no RoPE, nothing is masked, and the
+    cache comes back untouched.
     """
     dt = dtype_of(cfg.dtype)
     x = x.to(dt)
     B, S, _ = x.shape
-    q = _heads_in(x, p.wq.to(dt))
-    k = _heads_in(x, p.wk.to(dt))
-    v = _heads_in(x, p.wv.to(dt))
+    q = heads_in(x, p.wq.to(dt))
+    if cross_kv is not None:
+        k, v = cross_kv
+    else:
+        k = heads_in(x, p.wk.to(dt))
+        v = heads_in(x, p.wv.to(dt))
     if cfg.use_qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
-        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+        if cross_kv is None:
+            k = rms_norm(k, p.k_norm, cfg.norm_eps)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, p.rope_inv)
-        k = apply_rope(k, positions, p.rope_inv)
+        if cross_kv is None:
+            k = apply_rope(k, positions, p.rope_inv)
 
     def project_out(out):
         wo = p.wo.to(dt)
         return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+    if cross_kv is not None:
+        kw = dict(causal=False, window=0, softcap=cfg.logit_softcap)
+        out = (ops.flash_attention(q, k, v, **kw) if S > 1
+               else attention_reference(q, k, v, **kw))
+        return project_out(out), cache
 
     if cache is None:
         out = ops.flash_attention(q, k, v, causal=True, window=window,

@@ -17,16 +17,25 @@ kernel); a decode step with a state is one fused update
 Layer pattern: cfg.rglru.block_pattern (default (recurrent, recurrent,
 attention)) cycled over cfg.num_layers. The model is one ``nn.Module``
 whose ``blocks`` sit in layer order (the JAX package stacks whole pattern
-periods for ``lax.scan``; ``convert.lm_params_from_numpy`` unstacks them).
+periods for ``lax.scan``; :func:`jax_name` maps each layer to its period
+and row).
+Training reads the params as a flat dict in that JAX leaf structure
+(:func:`stack_params`: ``periods.<j>.*`` stacked over the whole periods,
+``rem.<j>.*`` the remainder layers); with ``cfg.remat`` a forward that
+records gradients recomputes each whole period in the backward, as the
+JAX package checkpoints its period function (the remainder layers are not
+recomputed), so B3 and B4 run again for those layers.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from types import SimpleNamespace
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -216,11 +225,56 @@ class RecurrentGemma(nn.Module):
                                               device=device))
         self.unembed = L.param(L.dense_init((cfg.d_model, cfg.vocab_size),
                                             dtype=pd, **kw))
+        self.block_pattern = tuple(cfg.rglru.block_pattern)
 
 
 def init(cfg, *, generator=None, device="cuda") -> RecurrentGemma:
     """Random params drawn from ``generator`` on ``device``."""
     return RecurrentGemma(cfg, generator=generator, device=device)
+
+
+def stack_params(model: RecurrentGemma) -> Dict[str, torch.Tensor]:
+    """The module's params as a flat dict in the JAX leaf structure
+    (:func:`jax_name`), detached."""
+    return L.stack_layers(dict(model.named_parameters()),
+                          lambda name: jax_name(model, name))
+
+
+def jax_name(model: RecurrentGemma, name: str) -> tuple:
+    """A param's JAX name and layer row: with P layers a pattern period
+    and n_full whole periods, layer ``i·P + j`` (i < n_full) is row i of
+    ``periods.<j>.<leaf>``, remainder layer ``n_full·P + j`` is
+    ``rem.<j>.<leaf>``, the other params are as they are."""
+    group, _, rest = name.partition(".")
+    if group != "blocks":
+        return name, None
+    P = len(model.block_pattern)
+    i, _, leaf = rest.partition(".")
+    i, j = divmod(int(i), P)
+    if i < len(model.blocks) // P:
+        return f"periods.{j}.{leaf}", i
+    return f"rem.{j}.{leaf}", None
+
+
+def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
+    """A :func:`stack_params` dict → the tree :func:`forward` reads, with
+    ``blocks`` a list of per-layer namespaces (views ``t[i]`` of the
+    periods) in layer order."""
+    P = len(cfg.rglru.block_pattern)
+    n_full = cfg.num_layers // P
+    tree = L.namespace({k: v for k, v in params.items()
+                        if k.partition(".")[0] not in ("periods", "rem")})
+    blocks = [None] * cfg.num_layers
+    for j in range(P if n_full else 0):
+        for i, bp in enumerate(L.unstack_layers(params, f"periods.{j}",
+                                                n_full, cfg)):
+            blocks[i * P + j] = bp
+    for j in range(cfg.num_layers - n_full * P):
+        blocks[n_full * P + j] = L.with_rope(L.namespace(
+            {k[len(f"rem.{j}."):]: v for k, v in params.items()
+             if k.startswith(f"rem.{j}.")}), cfg)
+    tree.blocks = blocks
+    return tree
 
 
 def _read_in_f32(name: str) -> bool:
@@ -259,27 +313,52 @@ def init_cache(cfg, batch: int, seq_len: int, *, device="cuda"):
     return [one(t) for t in layer_types(cfg)]
 
 
-def forward(model: RecurrentGemma, cfg, tokens, *, positions=None,
-            caches=None, cache_index: Optional[int] = None,
+def _layer(t, bp, cfg, x, positions, state, cache_index):
+    if t == "recurrent":
+        return recurrent_block(bp, cfg, x, state)
+    return attention_block(bp, cfg, x, positions, state, cache_index)
+
+
+def _period(blocks, cfg, x, positions):
+    """One whole pattern period without caches (the unit remat
+    recomputes)."""
+    for t, bp in zip(cfg.rglru.block_pattern, blocks):
+        x, _ = _layer(t, bp, cfg, x, positions, None, None)
+    return x
+
+
+def forward(model, cfg, tokens, *, positions=None, caches=None,
+            cache_index: Optional[int] = None,
+            embeddings: Optional[torch.Tensor] = None,
             last_only: bool = False):
     """tokens (B, S) → (logits (B, S or 1, V) in cfg.dtype, new caches or
-    None, aux 0.0). ``last_only`` unembeds only the last position (the
-    same numbers as slicing ``logits[:, -1:]``)."""
+    None, aux 0.0). ``model`` is a :class:`RecurrentGemma` or a
+    :func:`stack_params` dict. ``embeddings`` (B, S, d) bypasses the embed
+    table. ``last_only`` unembeds only the last position (the same
+    numbers as slicing ``logits[:, -1:]``)."""
+    if isinstance(model, dict):
+        model = param_tree(model, cfg)
     dt = L.dtype_of(cfg.dtype)
-    x = model.embed[tokens].to(dt)
+    x = (model.embed[tokens] if embeddings is None else embeddings).to(dt)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device) + (
             0 if cache_index is None else int(cache_index))
         positions = positions[None, :].expand(B, S)
 
-    new_caches = []
-    for i, (t, bp) in enumerate(zip(layer_types(cfg), model.blocks)):
+    types = layer_types(cfg)
+    start, new_caches = 0, []
+    if cfg.remat and caches is None and torch.is_grad_enabled():
+        P = len(cfg.rglru.block_pattern)
+        for i in range(0, cfg.num_layers // P * P, P):
+            x = checkpoint(_period, model.blocks[i:i + P], cfg, x, positions,
+                           use_reentrant=False)
+            new_caches += [None] * P
+        start = len(new_caches)
+    for i in range(start, cfg.num_layers):
         st = None if caches is None else caches[i]
-        if t == "recurrent":
-            x, ns = recurrent_block(bp, cfg, x, st)
-        else:
-            x, ns = attention_block(bp, cfg, x, positions, st, cache_index)
+        x, ns = _layer(types[i], model.blocks[i], cfg, x, positions, st,
+                       cache_index)
         new_caches.append(ns)
 
     if last_only:

@@ -5,7 +5,7 @@ package's ``models/transformer.py``.
 
 The JAX package stacks every block on a leading layer axis and scans it;
 here ``blocks`` is a ``ModuleList`` in layer order
-(``convert.lm_params_from_numpy`` unstacks the JAX params), and the
+(:func:`jax_name` maps each param to its JAX leaf and row), and the
 caches are a list of per-layer ``{"k", "v"}`` dicts: linear, or the
 circular SWA window when ``sliding_window`` is shorter than the sequence.
 
@@ -76,47 +76,21 @@ def stack_params(model: Transformer) -> Dict[str, torch.Tensor]:
     """The module's params as a flat dict in the JAX package's leaf
     structure: ``blocks.<i>.<leaf>`` stacked into ``blocks.<leaf>`` (L,
     ...) in layer order, the other params as they are (detached)."""
-    named = dict(model.named_parameters())
-    out = {}
-    for name, t in named.items():
-        if name.startswith("blocks.0."):
-            leaf = name[len("blocks.0."):]
-            out[f"blocks.{leaf}"] = torch.stack(
-                [named[f"blocks.{i}.{leaf}"].detach()
-                 for i in range(len(model.blocks))])
-        elif not name.startswith("blocks."):
-            out[name] = t.detach()
-    return out
+    return L.stack_layers(dict(model.named_parameters()),
+                          lambda name: jax_name(model, name))
 
 
-def _namespace(flat: dict) -> SimpleNamespace:
-    """``{"attn.wq": t}`` → a namespace tree read as ``ns.attn.wq``."""
-    groups: dict = {}
-    for name, t in flat.items():
-        head, _, rest = name.partition(".")
-        if rest:
-            groups.setdefault(head, {})[rest] = t
-        else:
-            groups[head] = t
-    return SimpleNamespace(**{k: _namespace(v) if isinstance(v, dict) else v
-                              for k, v in groups.items()})
+def jax_name(model: Transformer, name: str) -> tuple:
+    """A param's JAX name and layer row (:func:`layers.layer_row`)."""
+    return L.layer_row(name, ("blocks",))
 
 
 def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
     """A :func:`stack_params` dict → the tree :func:`forward` reads, with
     ``blocks`` a list of per-layer namespaces of views ``t[i]``."""
-    top = {k: v for k, v in params.items() if not k.startswith("blocks.")}
-    stacked = {k[len("blocks."):]: v for k, v in params.items()
-               if k.startswith("blocks.")}
-    tree = _namespace(top)
-    blocks = []
-    for i in range(cfg.num_layers):
-        bp = _namespace({k: v[i] for k, v in stacked.items()})
-        if cfg.rope_theta > 0:
-            bp.attn.rope_inv = L.rope_inv(cfg.head_dim_, cfg.rope_theta,
-                                          bp.attn.wq.device)
-        blocks.append(bp)
-    tree.blocks = blocks
+    tree = L.namespace({k: v for k, v in params.items()
+                        if not k.startswith("blocks.")})
+    tree.blocks = L.unstack_layers(params, "blocks", cfg.num_layers, cfg)
     return tree
 
 

@@ -10,6 +10,15 @@ An optimizer is a SimpleNamespace(init, update)::
 Updates are NEGATIVE deltas already scaled by the learning rate, in f32;
 the state is f32 with an int32 ``step``, and Adam's bias corrections are
 ``1 - b ** step`` in f32, as in the JAX package.
+
+``params, state = opt.apply(grads, state, params, scale)`` gives the
+numbers of ``update`` then :func:`apply_updates` on ``grads`` times
+``scale`` (a () tensor, as :func:`clip_scale` gives; None for 1). It
+consumes its inputs as a donated buffer is: it makes the new params and
+state one leaf at a time, popping that leaf's gradient, param and
+per-leaf state as it goes, so it holds each leaf about once, not old
+and new of every leaf. ``grads``, ``params`` and the state's per-leaf
+dicts are left empty.
 """
 from __future__ import annotations
 
@@ -32,16 +41,29 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree.values()))
 
 
+def clip_scale(tree, max_norm: float):
+    """(the factor that scales ``tree`` to a global norm of at most
+    ``max_norm``, the norm): leaf x becomes ``x * scale.to(x.dtype)``."""
+    n = global_norm(tree)
+    return torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0), n
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """(tree scaled to a global norm of at most ``max_norm``, the norm)."""
-    n = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    scale, n = clip_scale(tree, max_norm)
     return {k: x * scale.to(x.dtype) for k, x in tree.items()}, n
 
 
+def _applied(p, u):
+    return (p.to(_F32) + u.to(_F32)).to(p.dtype)
+
+
 def apply_updates(params, updates):
-    return {k: (p.to(_F32) + updates[k].to(_F32)).to(p.dtype)
-            for k, p in params.items()}
+    return {k: _applied(p, updates[k]) for k, p in params.items()}
+
+
+def _scaled(g, scale):
+    return g if scale is None else g * scale.to(g.dtype)
 
 
 def _zeros_f32(params):
@@ -73,7 +95,21 @@ def sgd(lr: Schedule, momentum: float = 0.0):
         return ({k: -lr_t * g.to(_F32) for k, g in grads.items()},
                 {"step": step})
 
-    return SimpleNamespace(init=init, update=update)
+    def apply(grads, state, params, scale=None):
+        step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
+        out, mom = {}, {}
+        for k in list(params):
+            g = _scaled(grads.pop(k), scale).to(_F32)
+            if momentum:
+                g = mom[k] = momentum * state["mom"].pop(k) + g
+            u = -lr_t * g
+            del g                    # freed before the new param is made
+            out[k] = _applied(params.pop(k), u)
+        return out, ({"step": step, "mom": mom} if momentum
+                     else {"step": step})
+
+    return SimpleNamespace(init=init, update=update, apply=apply)
 
 
 def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
@@ -82,27 +118,47 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
         return {"step": _step0(params), "mu": _zeros_f32(params),
                 "nu": _zeros_f32(params)}
 
-    def update(grads, state, params=None):
+    def scalars(state):
+        """The step, its lr and the two bias corrections: once a step."""
         step = state["step"] + 1
-        lr_t = _lr_at(lr, step)
-        mu = {k: b1 * m + (1 - b1) * grads[k].to(_F32)
-              for k, m in state["mu"].items()}
-        nu = {k: b2 * v + (1 - b2) * torch.square(grads[k].to(_F32))
-              for k, v in state["nu"].items()}
         sf = step.to(_F32)
         bc1 = 1 - torch.pow(torch.tensor(b1, dtype=_F32, device=sf.device),
                             sf)
         bc2 = 1 - torch.pow(torch.tensor(b2, dtype=_F32, device=sf.device),
                             sf)
-        updates = {}
-        for k in mu:
-            u = -lr_t * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
-            if weight_decay:
-                u = u - lr_t * weight_decay * params[k].to(_F32)
-            updates[k] = u
+        return step, _lr_at(lr, step), bc1, bc2
+
+    def leaf(g, m, v, p, lr_t, bc1, bc2):
+        """(update, mu, nu) of one leaf."""
+        g = g.to(_F32)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        del g                        # freed before the update's temporaries
+        u = -lr_t * (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay:
+            u = u - lr_t * weight_decay * p.to(_F32)
+        return u, m, v
+
+    def update(grads, state, params=None):
+        step, *sc = scalars(state)
+        updates, mu, nu = {}, {}, {}
+        for k, m in state["mu"].items():
+            updates[k], mu[k], nu[k] = leaf(
+                grads[k], m, state["nu"][k],
+                None if params is None else params[k], *sc)
         return updates, {"step": step, "mu": mu, "nu": nu}
 
-    return SimpleNamespace(init=init, update=update)
+    def apply(grads, state, params, scale=None):
+        step, *sc = scalars(state)
+        out, mu, nu = {}, {}, {}
+        for k in list(params):
+            u, mu[k], nu[k] = leaf(
+                _scaled(grads.pop(k), scale), state["mu"].pop(k),
+                state["nu"].pop(k), params[k], *sc)
+            out[k] = _applied(params.pop(k), u)
+        return out, {"step": step, "mu": mu, "nu": nu}
+
+    return SimpleNamespace(init=init, update=update, apply=apply)
 
 
 def adamw(lr: Schedule, weight_decay: float = 0.01, **kw):

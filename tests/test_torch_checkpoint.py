@@ -180,3 +180,20 @@ def test_lm_params_to_numpy_inverts_from_numpy(arch, num_layers):
         want = params_from_numpy(jp, device="cpu")
         assert set(stacked) == set(want)
         assert all(torch.equal(stacked[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "recurrentgemma-9b",
+                                  "whisper-large-v3", "xlstm-125m"])
+def test_lm_params_from_numpy_refuses_a_tree_of_another_depth(arch):
+    """Each family's ``jax_name`` rule places every leaf: a 3-layer JAX
+    tree read as a 2-layer model raises (a stacked leaf's layer axis, the
+    hybrid's periods, xLSTM's extra tuple entry), where slicing a leaf's
+    first axis would pass without an error."""
+    from repro.models.api import get_model as jget_model
+    jcfg = jreduced(jget_arch(arch), num_layers=3)
+    jp = jget_model(jcfg).init(jax.random.PRNGKey(0), jcfg)
+    lm_params_from_numpy(jp, reduced(get_arch(arch), num_layers=3),
+                         device="cpu")
+    with pytest.raises(ValueError):
+        lm_params_from_numpy(jp, reduced(get_arch(arch), num_layers=2),
+                             device="cpu")

@@ -412,6 +412,26 @@ def test_cuda_flash_attention_bf16_within_rounding(cuda, qscale, window):
         assert float(((uncapped - want).abs() / gate).max()) > 1.0
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [64, 1500])
+def test_cuda_flash_attention_bf16_unmasked_at_whisper_shapes(cuda, S):
+    """bf16, no mask, at whisper-large-v3's heads (H = K = 20, hd 64)
+    over its 1500 encoder frames (a 28-key tail in the last 64-key tile):
+    the encoder's self-attention (S = 1500) and a 64-token decoder prompt's
+    cross-attention (S = 64), within the rounding gate above."""
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((2, S, 20, 64), (2, 1500, 20, 64), (2, 1500, 20, 64)))
+    kw = dict(causal=False, window=0, softcap=0.0)
+    got = ops.flash_attention(q, k, v, **kw).float()
+    want = ref.attention_reference(q, k, v, **kw).float()
+    pv = ref.attention_reference(q.float(), k.float(), v.float().abs(), **kw)
+    gate = 2.0 ** -7 * want.abs() + 2.0 ** -8 * pv + 1e-5
+    assert bool(torch.isfinite(got).all())
+    assert float(((got - want).abs() / gate).max()) <= 1.0
+
+
 def _dynamic_sigma(rng, sig, table):
     """σ tables of rounds where links fade and agents sleep: lanes at
     σ = 0 (faded, sleeping, padding), fractional λ^age weights, rows that

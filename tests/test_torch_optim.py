@@ -110,3 +110,34 @@ def test_apply_updates_keeps_the_param_dtype():
     assert out["a"].dtype == torch.bfloat16
     want = (p["a"].float() + u["a"]).to(torch.bfloat16)
     assert torch.equal(out["a"], want)
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_apply_is_update_then_apply_updates_and_consumes_its_inputs(name):
+    """``opt.apply`` (the train step's leaf-by-leaf form) gives the bits of
+    scaling the gradient, ``update`` and ``apply_updates``, and leaves the
+    gradient, the params and the per-leaf state empty."""
+    params, grads = _inputs(1)
+    opt = OPTIMIZERS[name](optim)
+    p = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
+    p["b"] = p["b"].to(torch.bfloat16)
+    q = {k: v.clone() for k, v in p.items()}
+    st, sq = opt.init(p), opt.init(q)
+    for i, g in enumerate(grads):
+        tg = {k: torch.from_numpy(v) for k, v in g.items()}
+        scale, _ = optim.clip_scale(tg, 2.0) if i % 2 else (None, None)
+        want_g = (tg if scale is None else
+                  {k: x * scale.to(x.dtype) for k, x in tg.items()})
+        u, st = opt.update(want_g, st, p)
+        p = optim.apply_updates(p, u)
+        old_q, old_sq = q, sq
+        q, sq = opt.apply(dict(tg), sq, q, scale)
+        assert not old_q and all(
+            not v for v in old_sq.values() if isinstance(v, dict))
+        for k in SHAPES:
+            assert q[k].dtype == p[k].dtype and torch.equal(q[k], p[k]), k
+        assert torch.equal(sq["step"], st["step"])
+        for key in ("mu", "nu", "mom"):
+            if key in st:
+                assert all(torch.equal(sq[key][k], st[key][k])
+                           for k in SHAPES)

@@ -34,7 +34,7 @@ from repro_torch.convert import lm_params_from_numpy, params_from_numpy  # noqa:
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models import rglru, transformer  # noqa: E402
+from repro_torch.models import encdec, rglru, transformer, xlstm  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -286,17 +286,18 @@ def test_load_time_cast_is_bit_equal():
 
 @pytest.mark.parametrize("family", ["dense", "moe", "ssm", "encdec", "vlm"])
 def test_get_model_refuses_unported_families(family):
-    """``dense``, ``moe`` and ``vlm`` resolve to the transformer; ``ssm``
-    and ``encdec`` are still refused by name."""
+    """Every family the JAX ``get_model`` resolves resolves: ``dense``,
+    ``moe`` and ``vlm`` to the transformer, ``ssm`` to xLSTM, ``encdec``
+    to the encoder-decoder; an unknown family is refused by name."""
     cfg = dataclasses.replace(CFG, family=family)
-    if family in ("dense", "moe", "vlm"):
-        assert get_model(cfg).init is transformer.init
-        assert get_model(cfg).cast_for_serving is transformer.cast_for_serving
-    else:
-        with pytest.raises(ValueError, match=f"{family}.*not ported"):
-            get_model(cfg)
+    m = {"ssm": xlstm, "encdec": encdec}.get(family, transformer)
+    assert get_model(cfg).init is m.init
+    assert get_model(cfg).cast_for_serving is m.cast_for_serving
+    assert get_model(cfg).stack_params is m.stack_params
     assert get_model(CFG).init is rglru.init
     assert get_model(get_arch("paper-dqn")).init_cache is None
+    with pytest.raises(ValueError, match="unknown family 'mamba'"):
+        get_model(dataclasses.replace(CFG, family="mamba"))
 
 
 @pytest.mark.parametrize("change,module", [

@@ -112,6 +112,70 @@ def test_make_train_step_three_steps_match_jax():
         assert float(diff.max()) <= 6e-3, k
 
 
+#: the rest of the LM zoo: reduced whisper (its frames from numpy),
+#: xLSTM (mLSTM + sLSTM) and recurrentgemma at one pattern period
+ZOO = {"whisper-large-v3": {}, "xlstm-125m": {},
+       "recurrentgemma-9b": {"num_layers": 3}}
+
+
+def _zoo_pair(arch, seed=0):
+    """As :func:`_pair`, for any family: the JAX init of its own model."""
+    layers = ZOO[arch].get("num_layers", 2)
+    jcfg = jreduced(jget_arch(arch), d_model=64, num_layers=layers)
+    cfg = reduced(get_arch(arch), d_model=64, num_layers=layers)
+    jp = japi.get_model(jcfg).init(jax.random.PRNGKey(seed), jcfg)
+    return jcfg, cfg, jp, params_from_numpy(jp, device="cpu")
+
+
+@pytest.mark.parametrize("arch", sorted(ZOO))
+def test_make_train_step_three_steps_match_jax_zoo(arch):
+    """Three Adam steps on whisper (with frames), xLSTM and the hybrid:
+    the loss (relatively: whisper's is ~100) and gradient norm of each
+    step, then the params, as the transformer's test holds them. Adam
+    turns a gradient that is zero to within f32 rounding into a step of
+    ±lr whose sign is the rounding's: xLSTM's sLSTM input-gate bias is
+    such a leaf (the stabilizer cancels it from c/n: its reference
+    gradient is ~1e-10 against 1e-2 for the other gates). So the 1e-6
+    agreement is held where some step's reference gradient exceeds 1e-6
+    of its leaf's largest, and every element within 3 · 2 · lr."""
+    jcfg, cfg, jp, p = _zoo_pair(arch)
+    jstep, jopt = jsteps.make_train_step(jcfg, lr=1e-3, clip_norm=1.0)
+    jstep = jax.jit(jstep)
+    jgrad = jax.jit(jax.grad(lambda q, b: japi.lm_loss(
+        q, jcfg, b["tokens"], b["labels"], embeddings=b.get("frames"))))
+    step, opt = steps.make_train_step(cfg, lr=1e-3, clip_norm=1.0)
+    jst, st = jopt.init(jp), opt.init(p)
+    rng = np.random.default_rng(7)
+    signal = {k: torch.zeros(v.shape, dtype=torch.bool) for k, v in p.items()}
+    for i in range(3):
+        toks, labels = _tokens(cfg, (2, 16), seed=20 + i)
+        jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+        b = {"tokens": torch.from_numpy(toks).long(),
+             "labels": torch.from_numpy(labels).long()}
+        if cfg.family == "encdec":
+            frames = (rng.standard_normal(
+                (2, cfg.encdec.encoder_seq_len, cfg.d_model)) * 0.02
+                ).astype(np.float32)
+            jb["frames"], b["frames"] = (jnp.asarray(frames),
+                                         torch.from_numpy(frames))
+        for k, g in params_from_numpy(jgrad(jp, jb), device="cpu").items():
+            signal[k] |= g.abs() > 1e-6 * float(g.abs().max())
+        jp, jst, jm = jstep(jp, jst, jb)
+        p, st, m = step(p, st, b)
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    want = params_from_numpy(jp, device="cpu")
+    assert set(p) == set(want)
+    for k in want:
+        diff = (p[k] - want[k]).abs()
+        if bool(signal[k].any()):
+            held = diff[signal[k]] <= 1e-6
+            assert float(held.float().mean()) >= 0.999, k
+        assert float(diff.max()) <= 6e-3, k
+
+
 # ---------------------------------------------------------------------------
 # one federated round against the reference's leaf functions
 # ---------------------------------------------------------------------------
@@ -179,6 +243,70 @@ def test_one_federated_round_matches_reference_leaves(plan, bf16):
         assert moved > 0 or k.endswith("norm"), k
         tol = (2.0 ** -7 if bf16 else 1e-5) * float(want[k].abs().max())
         assert float((out[k] - want[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "recurrentgemma-9b"])
+@pytest.mark.parametrize("plan", ["dense", "sparse"])
+def test_one_federated_round_matches_reference_leaves_zoo(arch, plan):
+    """xLSTM (its per-layer tuple leaves) and the hybrid (one pattern
+    period: the ``periods`` leaves, B3 and B4 in the local steps): one
+    round of local SGD and the engine's step against the reference's, with
+    the JAX leaf count in the population."""
+    jcfg, cfg, jp, p = _zoo_pair(arch)
+    assert len(p) == len(jax.tree.leaves(jp))
+    toks, labels = _tokens(cfg, (AGENTS, LOCAL, 2, 16), seed=4)
+    jstacked = jax.tree.map(
+        lambda x: jnp.broadcast_to(x[None], (AGENTS,) + x.shape), jp)
+    jnew = _jax_local_round(jcfg, jstacked, toks, labels)
+    jeng = JEngine(jtopo.clusters(TASKS, AGENTS // TASKS),
+                   plan={"dense": "dense-xla", "sparse": "sparse-pallas"}[plan])
+    jout, _ = jeng.step(jnew)
+    eng = ConsensusEngine(topology.clusters(TASKS, AGENTS // TASKS),
+                          plan=plan)
+    stacked = {k: v.expand((AGENTS,) + v.shape) for k, v in p.items()}
+    out, _ = train.fl_round(
+        eng, lambda q, t, lab: api.lm_loss(q, cfg, t, lab), stacked, None,
+        None, torch.from_numpy(toks).long(), torch.from_numpy(labels).long(),
+        lr=LR)
+    want = params_from_numpy(jout, device="cpu")
+    assert set(out) == set(want)
+    for k in want:
+        assert out[k].shape == want[k].shape, k
+        tol = 1e-5 * float(want[k].abs().max())
+        assert float((out[k] - want[k]).abs().max()) <= tol, k
+
+
+@pytest.mark.parametrize("layers", [2, 3, 5, 7])
+def test_hybrid_stack_params_is_the_jax_leaf_structure(layers):
+    """The hybrid's ``stack_params`` gives ``params_from_numpy`` of the
+    JAX tree (``periods`` stacked over whole periods, ``rem`` the rest),
+    and its forward on that dict equals the module's, with and without
+    remat."""
+    from repro.models import rglru as jrglru
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import rglru
+    jcfg = jreduced(jget_arch("recurrentgemma-9b"), d_model=32,
+                    num_layers=layers)
+    cfg = reduced(get_arch("recurrentgemma-9b"), d_model=32,
+                  num_layers=layers)
+    jp = jrglru.init(jax.random.PRNGKey(layers), jcfg)
+    model = rglru.init(cfg, device="cpu")
+    model.load_state_dict(lm_params_from_numpy(jp, cfg, device="cpu"))
+    stacked = rglru.stack_params(model)
+    want = params_from_numpy(jp, device="cpu")
+    assert set(stacked) == set(want)
+    assert all(torch.equal(stacked[k], want[k]) for k in want)
+    toks, labels = (torch.from_numpy(a).long()
+                    for a in _tokens(cfg, (2, 12), seed=layers))
+    with torch.no_grad():
+        a = rglru.forward(model, cfg, toks)[0]
+        b = rglru.forward(stacked, cfg, toks)[0]
+    assert torch.equal(a, b)
+    loss = lambda c: (lambda q: api.lm_loss(q, c, toks, labels))  # noqa
+    l0, g0 = steps.value_and_grad(loss(cfg), stacked)
+    l1, g1 = steps.value_and_grad(
+        loss(dataclasses.replace(cfg, remat=True)), stacked)
+    assert torch.equal(l0, l1) and all(torch.equal(g0[k], g1[k]) for k in g0)
 
 
 @pytest.mark.parametrize("spec", ["int8", "int8:b64", "int4", "bf16"])
@@ -464,9 +592,10 @@ def test_train_standard_loss_drops():
 
 
 def test_train_refuses_a_family_it_does_not_train():
-    with pytest.raises(ValueError, match="transformer families"):
-        train.train_standard(reduced(get_arch("recurrentgemma-9b")), steps=1,
-                             batch=1, seq=4, lr=1e-3, device="cpu")
+    """Every LM family trains; the case study's Q-network is not an LM."""
+    with pytest.raises(ValueError, match="LM families"):
+        train.train_standard(get_arch("paper-dqn"), steps=1, batch=1,
+                             seq=4, lr=1e-3, device="cpu")
 
 
 def test_quickstart_and_federated_lm_twins_run_on_the_cpu():
