@@ -3,23 +3,27 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. env        — torch/CUDA versions, the card's name and power limit.
-2. build      — compile the four CUDA kernels from ``src/repro_torch/
+2. analysis   — the port's source rules (``python -m repro_torch.analysis
+                --strict --baseline src/repro_torch/analysis/baseline.json``)
+                in process on this checkout: a finding the committed
+                baseline does not hold fails the smoke.
+3. build      — compile the four CUDA kernels from ``src/repro_torch/
                 kernels/csrc`` (one nvcc per source, in parallel), timed as
                 set-up; ptxas's registers and spills of each.
-3. kernels    — each kernel against its plain PyTorch version on the card,
+4. kernels    — each kernel against its plain PyTorch version on the card,
                 on full-width paper-DQN params stacked over K = 256 agents
                 (ring and small-world graphs; codecs None and bf16 for the
                 f32/decoded kernel, int8 / int4 / int8:b64 for the fused
                 int-wire kernel) and at the case study's own shapes (one
                 2-robot cluster); then kernel, plain-version and library
                 times and the memory bound at the largest leaf (fc1.w).
-4. engine     — ``ConsensusEngine(ring(256), plan="auto")`` resolves to the
+5. engine     — ``ConsensusEngine(ring(256), plan="auto")`` resolves to the
                 sparse plan and agrees with the dense plan.
-5. casestudy  — the paper's MAML + consensus-FL case study, forced onto the
+6. casestudy  — the paper's MAML + consensus-FL case study, forced onto the
                 sparse plan, with codec int8 and with no codec; each run
                 is counted from 0 and must launch its own kernel once per
                 leaf per FL round, and the other kernel never.
-6. dynamic    — the same path on fading links and sleeping agents: the
+7. dynamic    — the same path on fading links and sleeping agents: the
                 engine at K = 256 (paper-DQN stacks, ring and small-world,
                 codecs None / int8 / int8:b64 / bf16, links fading, agents
                 sleeping, both): 4 rounds of ``scan_rounds`` on the sparse
@@ -35,7 +39,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 than the static bill, E_total = Eq. (12) with the measured
                 joules; a profile of one dynamic FL round and the launches
                 its draws add.
-7. drivers    — per-round Eq.-(11) telemetry and the chunked protocol
+8. drivers    — per-round Eq.-(11) telemetry and the chunked protocol
                 drivers at full width (paper-DQN × K = 256, small_world(k=4),
                 sparse plan, links fading with p = 0.3, agents awake with
                 p = 0.7, τ = 2, λ = 0.9): (a) 8 rounds of ``scan_rounds``
@@ -55,7 +59,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 schema; (d) ``MTLProtocol`` with the paper-DQN Q-network
                 regressed on one-step rewards (2-robot clusters, t0 = 5,
                 max_rounds 16; dense at K = 2, so no kernel launches).
-8. paper      — the paper's experiments at full paper-DQN width on the
+9. paper      — the paper's experiments at full paper-DQN width on the
                 sparse plan, codec None (B2 carries every combine): (a)
                 ``CaseStudy.run`` at ``r_target=-1e9``, t0 2, max_rounds 4,
                 at chunk 1 and chunk 4: every task's t_i, history and
@@ -67,7 +71,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 (median of 7), kernels per meta round and the busy share;
                 (d) the twin of ``examples/async_fleet.py`` (int8, sparse,
                 B1): rows == the host replay, joules == the bill.
-9. mesh       — the sharded and distributed plans: (a) B1/B2 in their
+10. mesh      — the sharded and distributed plans: (a) B1/B2 in their
                 source form (a block of owned rows mixing from the
                 gathered population or wire; one agent from M received
                 rows) against their plain versions at K = 16384, N = 2048,
@@ -86,9 +90,9 @@ Phases (any failure exits non-zero; nothing is caught):
                 population's f32 bytes to the peak allocation; (f)
                 ``repro_torch.launch.consensus_scale --smoke`` with its
                 gates.
-10. profile   — host wall and device kernel time of one case-study FL
+11. profile   — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
-11. lm_kernels — the RG-LRU scan and flash-attention kernels against their
+12. lm_kernels — the RG-LRU scan and flash-attention kernels against their
                 plain versions at recurrentgemma-9b's serving shapes (bf16
                 attention at scores of std 1 and of std 20, which the
                 softcap bends; a ragged bf16 case with a window that cuts
@@ -100,8 +104,16 @@ Phases (any failure exits non-zero; nothing is caught):
                 16 x 128, causal) prefill shapes, bf16: against its plain
                 version under the rounding gate, and kernel, plain, SDPA
                 times and the bound at batch 4. Every time is the median
-                of 20 calls.
-12. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
+                of 20 calls. Last, B4's backward memory (ROADMAP C11): the
+                peak ``max_memory_allocated`` above the inputs of one
+                forward and backward at q = k = v (1, 4096, 4, 64) f32,
+                causal, against the JAX package's compiled gradient
+                temporaries at that shape (its chunked scan's 804.2 MB and
+                its einsum path's 1350.6 MB, on the CPU): the ratio k to
+                the chunked scan must stay within 3. It prints on a line
+                of its own, outside the ``kernels`` line, which holds only
+                this run's measurements.
+13. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
                 recurrentgemma-9b (random weights): 4 prompts of 4096
                 tokens, 32 greedy tokens; each prefill must launch the scan
                 26 and the attention kernel 12 times, decode neither. Then
@@ -109,7 +121,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 kernels, device busy share, B3/B4's share of the prefill);
                 prefill + 1 decode step against the full forward at full
                 width and one pattern period (3 layers).
-13. serve_lm  — the transformer family: (a) h2o-danube-3-4b and
+14. serve_lm  — the transformer family: (a) h2o-danube-3-4b and
                 qwen2-moe-a2.7b served at full width and depth as in
                 ``serve`` (B4 24 times per prefill, never in decode, B3
                 never; counted params == ``param_count()`` plus the shared
@@ -122,7 +134,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 at capacity factor 8.0); (c) stablelm-3b, granite-8b,
                 deepseek-7b, mixtral-8x7b and chameleon-34b at full width
                 and 2 layers, a 1 x 4096 prefill each (B4 twice).
-14. train_lm  — LM training through the kernels: (a) B4 with its gradient
+15. train_lm  — LM training through the kernels: (a) B4 with its gradient
                 at granite-8b's training shape (q (4, 512, 32, 128), kv 8
                 heads, causal) in f32 and bf16: the forward against the
                 plain version under its gate, dq/dk/dv against autograd
@@ -148,7 +160,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 ``CheckpointManager`` round trip of the population, bit
                 for bit; (e) ``python -m repro_torch.launch.train
                 --reduced`` federated and standard, exit 0.
-15. zoo       — the rest of the LM zoo: (a) B4 at whisper-large-v3's
+16. zoo       — the rest of the LM zoo: (a) B4 at whisper-large-v3's
                 shapes, bf16, against its plain version under the rounding
                 gate: served (batch 4), the encoder (q, kv (4, 1500, 20,
                 64), no mask) and a 64-token prompt's cross-attention;
@@ -1933,6 +1945,58 @@ def check_lm_kernels(cfg, generator):
     return rows
 
 
+#: ROADMAP C11: the JAX package's attention gradient at q = k = v (1,
+#: 4096, 4, 64) f32, causal: the temporaries of
+#: ``jax.jit(jax.grad(lambda q, k, v: jnp.sum(f(q, k, v)), argnums=(0, 1,
+#: 2))).lower(...).compile().memory_analysis()`` on the CPU (jax 0.9.0),
+#: in MB. Its model attention takes ``attention_chunked`` at this length;
+#: both are O(S·T) (the scan's VJP keeps every kv chunk's residuals)
+C11_SHAPE = (1, 4096, 4, 64)
+C11_REF_TEMP_MB = {"attention_chunked": 804.2, "attention_reference": 1350.6}
+#: B4's backward peak may exceed the chunked scan's temporaries by this
+#: factor at most: beyond it, B4's gradient would need the chunked form
+C11_MAX_RATIO = 3.0
+
+
+def check_b4_backward_memory(generator):
+    """B4's forward and backward at ``C11_SHAPE`` f32, causal: the peak
+    allocation above the inputs against the JAX package's compiled
+    gradient temporaries (``C11_REF_TEMP_MB``), on a line of its own: the
+    ``kernels`` line holds only this run's measurements."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.empty_cache()
+    q, k, v = (torch.randn(C11_SHAPE, generator=generator, device=DEVICE)
+               .requires_grad_() for _ in range(3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, causal=True, window=0)
+    grads = torch.autograd.grad(out.sum(), (q, k, v))
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    launched = ops.flash_attention.launches - before
+    B, S, H, _ = C11_SHAPE
+    st_mb = B * H * S * S * 4 / 1e6
+    k_ratio = peak_mb / C11_REF_TEMP_MB["attention_chunked"]
+    measured = dict(shape=list(C11_SHAPE), dtype="float32", causal=True,
+                    backward_peak_mb=peak_mb, one_bhst_f32_mb=st_mb,
+                    peak_in_bhst=peak_mb / st_mb, launches=launched)
+    print(f"flash_attention backward memory (C11), measured: "
+          f"{json.dumps(measured)}; against the JAX package's compiled "
+          f"temporaries {C11_REF_TEMP_MB} MB (CPU constants, not this run's):"
+          f" k = {k_ratio} vs chunked, "
+          f"{peak_mb / C11_REF_TEMP_MB['attention_reference']} vs einsum",
+          flush=True)
+    if launched != 1 or k_ratio > C11_MAX_RATIO or not all(
+            torch.isfinite(g).all() for g in grads):
+        fail(f"flash_attention backward memory: k = {k_ratio} (limit "
+             f"{C11_MAX_RATIO}), launches {launched}")
+    del q, k, v, out, grads
+    torch.cuda.empty_cache()
+
+
 def check_b4_transformer_shapes(generator):
     """B4 against its plain version at h2o-danube-3-4b's and
     qwen2-moe-a2.7b's prefill shapes (bf16, softcap 0; the plain version
@@ -3229,6 +3293,18 @@ def zoo_phase(by_path, rows, generator):
     return numbers
 
 
+def run_analysis(src):
+    """The port's source rules on this checkout, against the committed
+    baseline; a new finding fails the smoke."""
+    from repro_torch.analysis.__main__ import main as analysis_main
+
+    baseline = src / "repro_torch" / "analysis" / "baseline.json"
+    code = analysis_main(["--strict", "--baseline", os.fspath(baseline)])
+    if code != 0:
+        fail(f"repro_torch.analysis --strict --baseline {baseline}: exit "
+             f"{code} (a new finding, printed above)")
+
+
 def main():
     phase("env")
     if not torch.cuda.is_available():
@@ -3253,6 +3329,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+
+    phase("analysis")
+    run_analysis(src)
 
     phase("build")
     secs = build.build()
@@ -3340,6 +3419,7 @@ def main():
     rows["flash_attention"]["at_transformer_shapes"] = b4_shapes
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], b4_err)
+    check_b4_backward_memory(gen)
 
     phase("serve")
     by_path["serve"], _ = run_serve(lm_cfg)

@@ -1,0 +1,100 @@
+"""CLI: ``python -m repro_torch.analysis [--strict] [--baseline FILE]
+[--json-out FILE] [--format text|json|sarif]``.
+
+``--format text`` (default) prints the human report, ``--format json``
+the findings as a stable JSON array (the artifact), ``--format sarif`` a
+SARIF 2.1.0 log. ``--json-out PATH`` also writes the JSON artifact to
+``PATH`` whatever stdout shows.
+
+The committed JSON artifact is the BASELINE::
+
+    python -m repro_torch.analysis --strict \\
+        --baseline src/repro_torch/analysis/baseline.json
+
+With ``--baseline``, strict mode fails on every open finding and on
+every allowlisted finding whose ``(rule, file, scope, message)`` site the
+baseline does not hold (:mod:`.baseline`): a new site under a file-wide
+allowlist entry is gated too. Refreshing the baseline is a deliberate
+commit of a ``--format json`` run of a tree with no open finding; a
+baseline that holds an open finding is refused. An unreadable or
+malformed baseline or allowlist is an error, never an empty set. Under
+``--strict`` the CLI also warns on stale allowlist entries.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from repro_torch.analysis.baseline import (findings_to_json,
+                                           findings_to_sarif, load_baseline,
+                                           new_findings)
+from repro_torch.analysis.findings import (apply_allowlist, dedup_findings,
+                                           load_allowlist, render_report,
+                                           stale_entries)
+from repro_torch.analysis.lint import run_lint
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+#: the repository root: two levels above the ``src/`` package
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(PKG_DIR)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.analysis",
+        description="lint the port's source invariants (rules in "
+                    "repro_torch.analysis.lint)")
+    ap.add_argument("--strict", action="store_true",
+                    help="exit 1 on any finding not allowlisted; with "
+                         "--baseline, also on an allowlisted site not in "
+                         "it")
+    ap.add_argument("--root", default=REPO_ROOT,
+                    help="repository root to lint (default: this "
+                         "checkout)")
+    ap.add_argument("--allowlist", default=os.path.join(PKG_DIR,
+                                                        "allowlist.toml"))
+    ap.add_argument("--format", choices=("text", "json", "sarif"),
+                    default="text", dest="fmt")
+    ap.add_argument("--baseline", default=None, metavar="PATH",
+                    help="a committed --format json artifact")
+    ap.add_argument("--json-out", default=None, metavar="PATH",
+                    help="also write the JSON artifact here")
+    args = ap.parse_args(argv)
+
+    # fail fast on a malformed baseline or allowlist
+    baseline = (load_baseline(args.baseline)
+                if args.baseline is not None else None)
+    entries = load_allowlist(args.allowlist)
+    findings = apply_allowlist(dedup_findings(run_lint(args.root)), entries)
+
+    if args.json_out:
+        with open(args.json_out, "w", encoding="utf-8") as fh:
+            fh.write(findings_to_json(findings))
+    if args.fmt == "json":
+        sys.stdout.write(findings_to_json(findings))
+    elif args.fmt == "sarif":
+        sys.stdout.write(findings_to_sarif(findings))
+    else:
+        print(render_report(findings))
+        n_open = sum(1 for f in findings if not f.allowlisted)
+        print(f"\n{n_open} open finding(s), {len(findings) - n_open} "
+              "allowlisted")
+    if args.strict:
+        for _e, warning in stale_entries(entries):
+            print(f"[stale] {warning}", file=sys.stderr)
+
+    if not args.strict:
+        return 0
+    if baseline is None:
+        return int(any(not f.allowlisted for f in findings))
+    fresh = new_findings(findings, baseline)
+    if fresh:
+        print(f"[baseline] {len(fresh)} NEW finding(s) not in "
+              f"{args.baseline}:", file=sys.stderr)
+        for f in fresh:
+            print("  " + f.format(), file=sys.stderr)
+    return int(bool(fresh))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

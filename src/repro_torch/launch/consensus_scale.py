@@ -127,7 +127,7 @@ class Clock:
                 got[k] += self.samples_us(fns[k], reps)
         out = {}
         for k, v in got.items():
-            q1, med, q3 = statistics.quantiles(v, n=4)
+            q1, _, q3 = statistics.quantiles(v, n=4)
             out[k] = (statistics.median(v), q1, q3)
         return out
 
@@ -694,8 +694,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
-        raise SystemExit("consensus_scale: --device cuda but no CUDA device "
-                         "is available; pass --device cpu for a CPU run")
+        raise SystemExit(f"consensus_scale: --device {args.device} but no "
+                         "CUDA device is available; pass --device cpu for a "
+                         "CPU run")
     run(quick=args.quick, smoke=args.smoke, device=args.device,
         codec=args.codec,
         n_params=tuple(int(v) for v in args.n_params.split(",")),

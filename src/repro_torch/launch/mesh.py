@@ -59,7 +59,8 @@ def make_agent_mesh(positions: int = 0, axis_name: str = "agents",
 
     if not dist.is_initialized():
         raise RuntimeError(
-            "make_agent_mesh needs an initialised process group: call "
+            f"make_agent_mesh(positions={positions}, axis_name="
+            f"{axis_name!r}) needs an initialised process group: call "
             "init_local_group(rank, world_size, store_file) (or "
             "torch.distributed.init_process_group) in every process first")
     world = dist.get_world_size()

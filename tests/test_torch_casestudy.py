@@ -230,7 +230,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for name in ("rl/fig4_tradeoff.py", "rl/fig3_energy.py",
-                 "launch/async_fleet.py"):
+                 "launch/async_fleet.py", "analysis/__init__.py",
+                 "analysis/__main__.py", "analysis/findings.py",
+                 "analysis/baseline.py", "analysis/lint.py"):
         assert ROOT / "src" / "repro_torch" / name in files, name
     for f in files:
         for name in _imports(f):
