@@ -3,13 +3,19 @@
 Phases (any failure exits non-zero; nothing is caught):
 
 1. env        — torch/CUDA versions, the card's name and power limit.
-2. analysis   — the port's source rules (``python -m repro_torch.analysis
-                --strict --baseline src/repro_torch/analysis/baseline.json``)
-                in process on this checkout: a finding the committed
-                baseline does not hold fails the smoke.
-3. build      — compile the four CUDA kernels from ``src/repro_torch/
+2. build      — compile the four CUDA kernels from ``src/repro_torch/
                 kernels/csrc`` (one nvcc per source, in parallel), timed as
                 set-up; ptxas's registers and spills of each.
+3. analysis   — ``python -m repro_torch.analysis --strict --baseline
+                src/repro_torch/analysis/baseline.json --device cuda``
+                (``--layer all``) in process on this checkout: the source
+                rules, and the cost model with its engine rounds on the
+                card (C2 at K = 12 and at K = 256 paper-DQN width on the
+                dense plan; C1b on every plan x codec at K = 8 and on the
+                dense and sparse plans at K = 256 paper-DQN width, where
+                B1 and B2 must launch) and C1a/C3 on a gloo group of 8
+                CPU processes it spawns; a finding the committed baseline
+                does not hold fails the smoke. Its wall is printed.
 4. kernels    — each kernel against its plain PyTorch version on the card,
                 on full-width paper-DQN params stacked over K = 256 agents
                 (ring and small-world graphs; codecs None and bf16 for the
@@ -197,6 +203,22 @@ Phases (any failure exits non-zero; nothing is caught):
                 against B3's and B4's plain versions, ``train_federated``
                 (2 agents, 1 local step of 2 x 256, 2 rounds, codec None):
                 B3, B4 and B2 (42 leaves a round) exact.
+17. mesh_lm   — the LM zoo on a data x model mesh, in an NCCL group of
+                world size 1 (``make_host_mesh(1, 1)``; the multi-rank
+                splits are held to the JAX package and to the one-process
+                port by the gloo tests on the CPU,
+                tests/test_torch_sharding.py): (a) granite-8b at full
+                width and 2 layers, one ``train_standard``-style step
+                (batch 4 x 512) of ``make_train_step`` with the mesh and
+                the params placed by the table against the same builder
+                without a mesh: loss and gradient norm within the
+                ``train_lm`` gates, B4 2·L launches each; (b)
+                qwen2-moe-a2.7b at full width and 2 layers in f32, a 1 x
+                4096 prefill with the MoE routed per data shard
+                (``moe_block`` given the mesh's view, both layers) against
+                the same prefill without a mesh:
+                last-position logits within the f32 serve gate (abs + rel
+                per logit), B4 2 launches each; the times of each.
 
 The line before the last is the kernels JSON; the last is the ``ok`` line.
 
@@ -3293,16 +3315,187 @@ def zoo_phase(by_path, rows, generator):
     return numbers
 
 
-def run_analysis(src):
-    """The port's source rules on this checkout, against the committed
-    baseline; a new finding fails the smoke."""
+def run_analysis(src, smi):
+    """The port's source rules and cost model on this checkout (engine
+    rounds on the card), against the committed baseline; a new finding
+    fails the smoke, and so does a cost layer in which B1 or B2 never
+    launched."""
     from repro_torch.analysis.__main__ import main as analysis_main
 
     baseline = src / "repro_torch" / "analysis" / "baseline.json"
-    code = analysis_main(["--strict", "--baseline", os.fspath(baseline)])
+    zero_counts()
+    t = time.perf_counter()
+    code = analysis_main(["--strict", "--baseline", os.fspath(baseline),
+                          "--device", DEVICE])
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    print(f"analysis --layer all --device {DEVICE}: {wall:.2f} s wall "
+          f"({smi}); launches {counts}", flush=True)
     if code != 0:
         fail(f"repro_torch.analysis --strict --baseline {baseline}: exit "
              f"{code} (a new finding, printed above)")
+    if not counts["quant_consensus_pop"] or not counts["consensus_update_pop"]:
+        fail(f"the cost layer's sparse rounds launched {counts}: B1 and B2 "
+             "must both run on the card")
+    zero_counts()
+
+
+MESH_LM_TRAIN = dict(batch=4, seq=512, lr=1e-3)
+MESH_LM_PREFILL = dict(arch="qwen2-moe-a2.7b", layers=2, batch=1,
+                       prompt=4096)
+
+
+def timed(fn):
+    """(value, ms) of one call of ``fn`` on the card, synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def mesh_lm_train(mesh, smi):
+    """(a) one granite-8b step on the 1 x 1 mesh against the step without
+    one, each from the same params and batch, run twice (the second
+    timed)."""
+    from repro_torch.data.pipeline import sharded_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.sharding import parallel
+
+    cfg = train_cfg()
+    per_step = 2 * cfg.num_layers if cfg.remat else cfg.num_layers
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    full = transformer.stack_params(transformer.init(cfg, generator=gen,
+                                                     device=DEVICE))
+    toks = torch.randint(0, cfg.vocab_size, (MESH_LM_TRAIN["batch"],
+                                             MESH_LM_TRAIN["seq"] + 1),
+                         generator=gen, device=DEVICE)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    local, specs = parallel.shard_params(full, cfg, mesh)
+    tokens, labels = sharded_batch(batch["tokens"], batch["labels"], mesh)
+    runs = {}
+    for name, (step, opt), params, b in (
+            ("no mesh", make_train_step(cfg, lr=MESH_LM_TRAIN["lr"]), full,
+             batch),
+            ("mesh 1x1", make_train_step(cfg, lr=MESH_LM_TRAIN["lr"],
+                                         mesh=mesh, specs=specs), local,
+             {"tokens": tokens, "labels": labels})):
+        out = []
+        for _ in range(2):
+            p = {k: v.clone() for k, v in params.items()}
+            st = opt.init(p)
+            zero_counts()
+            (_, _, m), ms = timed(lambda: step(p, st, b))
+            out.append((float(m["loss"]), float(m["grad_norm"]), ms,
+                        launch_counts()))
+            del p, st
+            torch.cuda.empty_cache()
+        runs[name] = out
+    (l0, g0, _, c0), (_, _, ms0, _) = runs["no mesh"]
+    (l1, g1, _, c1), (_, _, ms1, _) = runs["mesh 1x1"]
+    dl, dg = abs(l1 - l0) / abs(l0), abs(g1 - g0) / abs(g0)
+    print(f"(a) {cfg.name} width {cfg.d_model} layers {cfg.num_layers} "
+          f"batch {MESH_LM_TRAIN['batch']} x {MESH_LM_TRAIN['seq']}: mesh "
+          f"1x1 step loss {l1} grad norm {g1} vs no mesh {l0} / {g0} (rel "
+          f"{dl} / {dg}, gates {TRAIN_LOSS_REL} / {TRAIN_GNORM_REL}); ms a "
+          f"step (second call) mesh {ms1} vs no mesh {ms0} ({smi}); B4 "
+          f"launches {c1['flash_attention']} / {c0['flash_attention']}",
+          flush=True)
+    want = dict({n: 0 for n in KERNELS}, flash_attention=per_step)
+    if not dl <= TRAIN_LOSS_REL or not dg <= TRAIN_GNORM_REL \
+            or c0 != want or c1 != want:
+        fail(f"mesh_lm train step: loss rel {dl}, grad norm rel {dg}, "
+             f"launches {c1} / {c0} (want {want})")
+    del full, local
+    torch.cuda.empty_cache()
+    return dict(loss_rel=dl, grad_norm_rel=dg, mesh_ms=ms1, plain_ms=ms0,
+                launches=c1)
+
+
+def mesh_lm_prefill(mesh, smi):
+    """(b) a qwen2-moe-a2.7b prefill on the 1 x 1 mesh, its MoE routed
+    per data shard (``moe_block`` given the mesh's view: the path the JAX
+    package names ``moe_block_distributed``), against the same prefill
+    without a mesh, run twice each (the second timed)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, transformer
+    from repro_torch.sharding import parallel
+
+    spec = MESH_LM_PREFILL
+    cfg = dataclasses.replace(get_arch(spec["arch"]),
+                              num_layers=spec["layers"], dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    full = transformer.stack_params(transformer.init(cfg, generator=gen,
+                                                     device=DEVICE))
+    toks = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt"]),
+                         generator=gen, device=DEVICE)
+    local, specs = parallel.shard_params(full, cfg, mesh)
+    tp = parallel.TensorParallel(mesh, specs)
+    real, calls = moe.moe_block, []
+
+    def counted(*a, **kw):
+        # the per-data-shard calls: a view whose mesh has a data axis
+        if kw.get("tp") is not None and kw["tp"].data_axes:
+            calls.append(1)
+        return real(*a, **kw)
+
+    def prefill(params, **kw):
+        caches = transformer.init_cache(cfg, spec["batch"], spec["prompt"],
+                                        device=DEVICE)
+        with torch.no_grad():
+            return transformer.forward(params, cfg, toks, caches=caches,
+                                       cache_index=0, last_only=True,
+                                       **kw)[0]
+
+    runs = {}
+    moe.moe_block = counted
+    try:
+        for name, fn in (("moe_block", lambda: prefill(full)),
+                         ("per data shard", lambda: prefill(local, tp=tp))):
+            out = []
+            for _ in range(2):
+                zero_counts()
+                logits, ms = timed(fn)
+                out.append((logits[:, -1].float(), ms, launch_counts()))
+            runs[name] = out
+    finally:
+        moe.moe_block = real
+    (b, _, c0), (_, ms0, _) = runs["moe_block"]
+    (a, _, c1), (_, ms1, _) = runs["per data shard"]
+    worst = float(((a - b).abs() / (DECODE_TOL + DECODE_TOL * b.abs())).max())
+    print(f"(b) {cfg.name} width {cfg.d_model} layers {cfg.num_layers} f32 "
+          f"prefill {spec['batch']} x {spec['prompt']}: mesh 1x1, MoE per "
+          f"data shard ({len(calls)} calls) vs no mesh: max "
+          f"|d| {float((a - b).abs().max())}, {worst:.4g} of the "
+          f"{DECODE_TOL} abs+rel gate; ms (second call) mesh {ms1} vs no "
+          f"mesh {ms0} ({smi}); B4 launches {c1['flash_attention']} / "
+          f"{c0['flash_attention']}", flush=True)
+    want = dict({n: 0 for n in KERNELS}, flash_attention=cfg.num_layers)
+    if not torch.isfinite(a).all() or worst > 1.0 or c0 != want \
+            or c1 != want or len(calls) != 2 * cfg.num_layers:
+        fail(f"mesh_lm prefill: {worst} of the gate, launches {c1} / {c0} "
+             f"(want {want}), per-data-shard MoE calls {len(calls)}")
+    del full, local
+    torch.cuda.empty_cache()
+    return dict(gate_share=worst, mesh_ms=ms1, plain_ms=ms0, launches=c1)
+
+
+def mesh_lm_phase(smi):
+    """The ``mesh_lm`` phase in its own NCCL group of world size 1."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    store = Path(__file__).resolve().parent / "build" / "nccl_store_lm"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    mesh_lib.init_local_group(0, 1, str(store), backend="nccl")
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        return dict(train=mesh_lm_train(mesh, smi),
+                    prefill=mesh_lm_prefill(mesh, smi))
+    finally:
+        mesh_lib.destroy_local_group()
 
 
 def main():
@@ -3330,14 +3523,14 @@ def main():
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    phase("analysis")
-    run_analysis(src)
-
     phase("build")
     secs = build.build()
     for name in build.BUILD_LOGS:
         print(f"{name}: {ptxas_summary(name)}", flush=True)
     print(f"built in {secs:.1f} s ({os.fspath(build.BUILD_ROOT)})", flush=True)
+
+    phase("analysis")
+    run_analysis(src, smi)
 
     phase("kernels")
     cfg = get_arch("paper-dqn")
@@ -3448,6 +3641,15 @@ def main():
     zoo = zoo_phase(by_path, rows, gen)
     print(f"zoo: {time.perf_counter() - t:.2f} s; zoo numbers "
           f"{json.dumps(zoo)}", flush=True)
+    torch.cuda.empty_cache()
+
+    phase("mesh_lm")
+    t = time.perf_counter()
+    meshed = mesh_lm_phase(smi)
+    for part in ("train", "prefill"):
+        by_path[f"mesh_lm_{part}"] = meshed[part].pop("launches")
+    print(f"mesh_lm: {time.perf_counter() - t:.2f} s; mesh numbers "
+          f"{json.dumps(meshed)}", flush=True)
 
     # launches: the sum over the main paths (the case study's runs, the
     # drivers' runs, the paper's runs, the serving run), each counted from

@@ -1,5 +1,14 @@
-"""CLI: ``python -m repro_torch.analysis [--strict] [--baseline FILE]
-[--json-out FILE] [--format text|json|sarif]``.
+"""CLI: ``python -m repro_torch.analysis [--strict] [--layer
+all|lint|cost] [--device cpu|cuda] [--baseline FILE] [--json-out FILE]
+[--format text|json|sarif]``.
+
+``--layer lint`` runs the source rules (:mod:`.lint`), ``--layer cost``
+the cost model (:mod:`.costmodel`: C2, C1a and C3 on a gloo group of 8
+processes spawned on this host, C3 over the chunked drivers, the C1b
+matrix), ``--layer all`` (default) both. ``--device``
+is where the cost layer's engine rounds run: ``cuda`` (default; there
+also C2 and C1b at the paper-DQN width of K = 256 with B1/B2 launching)
+or ``cpu`` (the gloo group is on the CPU whatever it says).
 
 ``--format text`` (default) prints the human report, ``--format json``
 the findings as a stable JSON array (the artifact), ``--format sarif`` a
@@ -9,7 +18,7 @@ SARIF 2.1.0 log. ``--json-out PATH`` also writes the JSON artifact to
 The committed JSON artifact is the BASELINE::
 
     python -m repro_torch.analysis --strict \\
-        --baseline src/repro_torch/analysis/baseline.json
+        --baseline src/repro_torch/analysis/baseline.json [--device cpu]
 
 With ``--baseline``, strict mode fails on every open finding and on
 every allowlisted finding whose ``(rule, file, scope, message)`` site the
@@ -25,6 +34,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 from repro_torch.analysis.baseline import (findings_to_json,
                                            findings_to_sarif, load_baseline,
@@ -34,6 +44,8 @@ from repro_torch.analysis.findings import (apply_allowlist, dedup_findings,
                                            stale_entries)
 from repro_torch.analysis.lint import run_lint
 
+LAYERS = ("all", "lint", "cost")
+
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 #: the repository root: two levels above the ``src/`` package
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(PKG_DIR)))
@@ -42,12 +54,17 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(PKG_DIR)))
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="lint the port's source invariants (rules in "
-                    "repro_torch.analysis.lint)")
+        description="audit the port's invariants: source rules "
+                    "(repro_torch.analysis.lint) and the Eq.-(11) cost "
+                    "model (repro_torch.analysis.costmodel)")
     ap.add_argument("--strict", action="store_true",
                     help="exit 1 on any finding not allowlisted; with "
                          "--baseline, also on an allowlisted site not in "
                          "it")
+    ap.add_argument("--layer", choices=LAYERS, default="all")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
+                    help="where the cost layer's engine rounds run (its "
+                         "gloo group runs on the CPU either way)")
     ap.add_argument("--root", default=REPO_ROOT,
                     help="repository root to lint (default: this "
                          "checkout)")
@@ -65,7 +82,17 @@ def main(argv=None) -> int:
     baseline = (load_baseline(args.baseline)
                 if args.baseline is not None else None)
     entries = load_allowlist(args.allowlist)
-    findings = apply_allowlist(dedup_findings(run_lint(args.root)), entries)
+    findings, timings = [], []
+    if args.layer in ("all", "lint"):
+        t0 = time.monotonic()
+        findings += run_lint(args.root)
+        timings.append(("lint", time.monotonic() - t0))
+    if args.layer in ("all", "cost"):
+        from repro_torch.analysis.costmodel import run_cost_audit
+        t0 = time.monotonic()
+        findings += run_cost_audit(args.device)
+        timings.append(("cost", time.monotonic() - t0))
+    findings = apply_allowlist(dedup_findings(findings), entries)
 
     if args.json_out:
         with open(args.json_out, "w", encoding="utf-8") as fh:
@@ -80,6 +107,8 @@ def main(argv=None) -> int:
         print(f"\n{n_open} open finding(s), {len(findings) - n_open} "
               "allowlisted")
     if args.strict:
+        for name, dt in timings:
+            print(f"[timing] {name:5s} {dt:7.2f}s", file=sys.stderr)
         for _e, warning in stale_entries(entries):
             print(f"[stale] {warning}", file=sys.stderr)
 

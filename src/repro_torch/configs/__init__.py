@@ -1,8 +1,8 @@
 """Configs the port runs (its own copy; see :mod:`repro_torch.configs.base`).
 Importing this package registers every one of them."""
 from repro_torch.configs.base import (  # noqa: F401
-    ArchConfig, EncDecConfig, MoEConfig, RGLRUConfig, XLSTMConfig, get_arch,
-    list_archs, reduced, register)
+    INPUT_SHAPES, ArchConfig, EncDecConfig, InputShape, MoEConfig,
+    RGLRUConfig, XLSTMConfig, get_arch, list_archs, reduced, register)
 from repro_torch.configs.chameleon_34b import CHAMELEON_34B  # noqa: F401
 from repro_torch.configs.deepseek_7b import DEEPSEEK_7B  # noqa: F401
 from repro_torch.configs.granite_8b import GRANITE_8B  # noqa: F401

@@ -146,6 +146,25 @@ class ArchConfig:
         return dense_like + active_mlp
 
 
+@dataclass(frozen=True)
+class InputShape:
+    """One input shape of the dry run and the mesh placements: sequence
+    length, global batch and mode (``train``, ``prefill``, ``decode``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: dict = {}
 
 

@@ -81,6 +81,27 @@ PLAN_ALIASES = {"dense-xla": "dense", "sparse-pallas": "sparse"}
 #: plans whose survival and σ live on the (K, H) neighbour lanes
 LANE_PLANS = ("sparse", "sharded")
 
+#: per-plan facts :mod:`repro_torch.analysis.costmodel` keys on (the JAX
+#: package's ``PLAN_AUDIT_EXPECTATIONS`` under the port's plan names).
+#: ``kk_buffer``: whether the plan may legitimately hold a (K, K) tensor
+#: (the dense σ stack). ``wire_collective``: the c10d op(s) that carry the
+#: codec WIRE between processes on a mesh: the all-gather of the sharded
+#: plan (``all_gather_into_tensor`` dispatches ``c10d._allgather_base_``),
+#: the p2p pair of the distributed plan's ``batch_isend_irecv`` slots
+#: (``c10d.send`` / ``c10d.recv_``). ``int_lane_gather``: the plan mixes
+#: int-codec wires through a fused gather that keeps int8 lanes.
+PLAN_AUDIT_EXPECTATIONS = {
+    "dense":       {"kk_buffer": True, "wire_collective": None,
+                    "int_lane_gather": False},
+    "sparse":      {"kk_buffer": False, "wire_collective": None,
+                    "int_lane_gather": True},
+    "sharded":     {"kk_buffer": False,
+                    "wire_collective": ("_allgather_base_",),
+                    "int_lane_gather": True},
+    "distributed": {"kk_buffer": False, "wire_collective": ("send", "recv_"),
+                    "int_lane_gather": False},
+}
+
 #: largest permutation-schedule superset a time-varying or async
 #: ``distributed`` engine accepts (≈ the base graph's max degree, one slot
 #: per matching). Every masked round ships all M slots whether or not
@@ -841,6 +862,36 @@ class ConsensusEngine:
                 "classes to bill; construct it from a Topology")
         return self.topology.round_comm_joules(
             energy_params, model_bits=model_bits, codec=self.codec)
+
+    # -- audit metadata ---------------------------------------------------------
+    def audit_meta(self) -> dict:
+        """Resolved facts :mod:`repro_torch.analysis.costmodel` keys its
+        checks on: the plan's :data:`PLAN_AUDIT_EXPECTATIONS` entry, the
+        plan kind, K, blocks, the mesh axis size (None without a mesh), the
+        wire codec's name and its base codec's int-lane width, the
+        topology's per-class directed message counts (``link_classes``,
+        None for a raw mix) and ``priced_collectives``: each c10d op that
+        carries the Eq.-(11)-billed wire, mapped to those counts. Every
+        other collective a round runs must be control plane (rule C3)."""
+        base = (getattr(self.codec, "inner", self.codec)
+                if self.codec is not None else None)
+        meta = dict(PLAN_AUDIT_EXPECTATIONS[self.plan.kind])
+        link_classes = (None if self.topology is None else {
+            k: v for k, v in self.topology.links_per_round().items()
+            if k != "NONE"})
+        meta.update(
+            plan=self.plan.kind, K=self.K,
+            num_blocks=self.plan.num_blocks,
+            axis_name=self.plan.axis_name,
+            mesh_axis=consensus.mesh_axis_size(self.mesh,
+                                               self.plan.axis_name),
+            codec=None if self.codec is None else self.codec.name,
+            qbits=getattr(base, "qbits", None),
+            link_classes=link_classes,
+            priced_collectives={op: link_classes
+                                for op in meta["wire_collective"] or ()},
+        )
+        return meta
 
     @classmethod
     def wrap(cls, obj, **kw) -> "ConsensusEngine":

@@ -7,8 +7,8 @@ by a per-task perturbation (the paper's "different but related tasks").
 The tables are the JAX package's numpy code, so they are equal (``==``).
 Rollouts draw from an explicit ``torch.Generator`` on its device
 (Gumbel-max categorical steps, as ``jax.random.categorical``), so the
-draws differ from ``jax.random``'s. ``sharded_batch`` (placing a batch on
-a mesh's data axes) waits for the multi-GPU LM meshes.
+draws differ from ``jax.random``'s. :func:`sharded_batch` gives a rank
+its rows of a batch on a data x model mesh.
 """
 from __future__ import annotations
 
@@ -102,3 +102,15 @@ def batches(dist: TaskTokenDistribution, task_id: int, batch: int,
                  else torch.Generator().manual_seed(0))
     while True:
         yield dist.sample(generator, task_id, batch, seq_len)
+
+
+def sharded_batch(tokens, labels, mesh, data_axes=("data",)):
+    """This rank's rows of (B, S) ``tokens`` and ``labels``: the batch dim
+    ``Shard(0)`` over the mesh's ``data_axes``, replicated over the rest
+    (every rank holds the same whole batch, so nothing is sent)."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    pl = [Shard(0) if a in data_axes else Replicate()
+          for a in mesh.mesh_dim_names]
+    return tuple(distribute_tensor(t, mesh, pl, src_data_rank=None).to_local()
+                 for t in (tokens, labels))

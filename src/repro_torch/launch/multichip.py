@@ -19,8 +19,15 @@ masking changes):
   2048 may add at most 4× the population's f32 bytes to the card's peak
   allocation (512 MiB; one (K, K) f32 buffer is 1 GiB).
 
-The JAX harness's HLO checks (collective layout, donation, the collective
-ledger) audit XLA artifacts and have no counterpart here.
+The collective ledger (the bytes each rank's round ships against the
+codec's Eq.-(11) bits) is :mod:`repro_torch.analysis.costmodel`'s C1a and
+C3; the JAX harness's other HLO checks (collective layout, donation)
+audit XLA artifacts and have no counterpart here.
+
+For the LM zoo, :func:`run_lm_parity` spawns a data x model gloo group
+and runs :func:`lm_mesh_case` on each rank: the tensor- and data-parallel
+transformer's logits, loss, gradient and one Adam step, which the tests
+hold to the one-process port (tests/test_torch_sharding.py).
 
 Run (a gloo group on the CPU; with as many cards as ``--world``, an NCCL
 group, and then the memory bound too)::
@@ -32,11 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import queue as queue_lib
-import tempfile
 import time
-import traceback
 from pathlib import Path
 
 import numpy as np
@@ -126,19 +129,11 @@ def parity_cases(world: int):
             for K, plan in ((4 * world, "sharded"), (world, "distributed"))]
 
 
-def _worker(rank, world, store, backend, cases, results):
-    """One rank of :func:`run_parity`: join the group, run every case,
-    report (rank, rows) or (rank, traceback)."""
-    try:
-        mesh_lib.init_local_group(rank, world, store, backend=backend)
-        device = "cuda" if backend == "nccl" else "cpu"
-        mesh = mesh_lib.make_agent_mesh(device_type=device)
-        rows = [parity_case(t, p, c, mesh, device) for t, p, c in cases]
-        results.put((rank, rows))
-    except Exception:               # a worker boundary: report, then exit
-        results.put((rank, traceback.format_exc()))
-    finally:
-        mesh_lib.destroy_local_group()
+def parity_rows(rank, world, cases, device="cpu"):
+    """One rank of :func:`run_parity` on the initialised group: every
+    case's row."""
+    mesh = mesh_lib.make_agent_mesh(device_type=device)
+    return [parity_case(t, p, c, mesh, device) for t, p, c in cases]
 
 
 def run_parity(world: int, cases=None, *, backend: str = "gloo",
@@ -147,44 +142,89 @@ def run_parity(world: int, cases=None, *, backend: str = "gloo",
     file store) and run :func:`parity_case` for each case in each of
     them. Returns every rank's rows; raises if a rank failed, hung or
     disagreed with its emulation."""
-    import multiprocessing as mp
-
     cases = parity_cases(world) if cases is None else cases
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    with tempfile.TemporaryDirectory() as tmp:
-        store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_worker,
-                             args=(r, world, store, backend, cases, results))
-                 for r in range(world)]
-        for p in procs:
-            p.start()
-        got, deadline = {}, time.monotonic() + timeout_s
-        try:
-            while len(got) < world:
-                left = deadline - time.monotonic()
-                try:
-                    rank, rows = results.get(timeout=max(left, 0.1))
-                except queue_lib.Empty:
-                    raise RuntimeError(
-                        f"mesh parity: {world - len(got)} of {world} ranks "
-                        f"reported nothing within {timeout_s} s") from None
-                got[rank] = rows
-        finally:
-            for p in procs:
-                p.join(timeout=10)
-                if p.is_alive():
-                    p.terminate()
-                    p.join(timeout=10)
-    bad = {r: v for r, v in got.items() if isinstance(v, str)}
-    if bad:
-        raise RuntimeError("mesh parity failed:\n" + "\n".join(
-            f"--- rank {r} ---\n{tb}" for r, tb in sorted(bad.items())))
-    rows = [dict(rank=r, **row) for r in sorted(got) for row in got[r]]
+    device = "cuda" if backend == "nccl" else "cpu"
+    got = mesh_lib.run_on_group(world, parity_rows, cases, device,
+                                backend=backend, timeout_s=timeout_s)
+    rows = [dict(rank=r, **row) for r, rank_rows in enumerate(got)
+            for row in rank_rows]
     wrong = [row for row in rows if not row["ok"]]
     if wrong:
         raise RuntimeError(f"mesh path disagrees with its emulation: {wrong}")
     return rows
+
+
+def lm_mesh_case(mesh, case: dict) -> dict:
+    """One LM case on a data x model ``mesh`` (the tensor- and
+    data-parallel transformer, :mod:`repro_torch.sharding.parallel`), this
+    rank's view: ``case`` names a reduced arch (``arch``, field
+    ``overrides``) and the batch (``batch`` x ``seq``). Every rank draws
+    the same full params and batch on the CPU (seed 0), takes its shards
+    by the table and its rows of the batch, and returns its rows' logits,
+    the full gradient (gathered), the loss and gradient norm one
+    ``make_train_step`` on the mesh reports, and for an MoE arch
+    ``moe_block_distributed`` of layer 0 on its rows of ``moe_x``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.data.pipeline import sharded_batch
+    from repro_torch.launch.steps import make_train_step, value_and_grad
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.api import lm_loss
+    from repro_torch.sharding import parallel
+
+    cfg = dataclasses.replace(reduced(get_arch(case["arch"])),
+                              **case.get("overrides", {}))
+    gen = torch.Generator().manual_seed(0)
+    full = transformer.stack_params(transformer.init(cfg, generator=gen,
+                                                     device="cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (case["batch"], case["seq"] + 1),
+                         generator=gen)
+    local, specs = parallel.shard_params(full, cfg, mesh)
+    tokens, labels = sharded_batch(toks[:, :-1], toks[:, 1:], mesh)
+    tp = parallel.TensorParallel(mesh, specs)
+    with torch.no_grad():
+        logits, _, _ = transformer.forward(local, cfg, tokens, tp=tp)
+    batch = {"tokens": tokens, "labels": labels}
+    _, grads = value_and_grad(
+        lambda p, b: lm_loss(p, cfg, b["tokens"], b["labels"], tp=tp),
+        local, batch)
+    for g in grads.values():
+        parallel.sum_over_data(g, mesh)
+    full_grads = parallel.gather_params(grads, specs, mesh)
+    step, opt = make_train_step(cfg, mesh=mesh, specs=specs)
+    _, _, metrics = step(dict(local), opt.init(local), batch)
+    row = dict(arch=case["arch"], data_rank=mesh.get_local_rank("data"),
+               model_rank=mesh.get_local_rank("model"),
+               logits=logits.numpy(), loss=float(metrics["loss"]),
+               grad_norm=float(metrics["grad_norm"]),
+               grads={k: v.numpy() for k, v in full_grads.items()},
+               split={k: "model" in s for k, s in specs.items()})
+    if cfg.moe is not None and "moe_x" in case:
+        x = torch.from_numpy(case["moe_x"])
+        rows = x.shape[0] // mesh.size(0)
+        r = row["data_rank"]
+        p = transformer.param_tree(local, cfg).blocks[0].mlp
+        with torch.no_grad():
+            y, aux = moe.moe_block_distributed(
+                p, cfg, x[r * rows:(r + 1) * rows], mesh, tp=tp)
+        row.update(moe_y=y.numpy(), moe_aux=float(aux))
+    return row
+
+
+def lm_mesh_rows(rank, world, cases, data: int, model: int) -> list:
+    """One rank of :func:`run_lm_parity` on the initialised group."""
+    mesh = mesh_lib.make_host_mesh(data, model, device_type="cpu")
+    return [lm_mesh_case(mesh, case) for case in cases]
+
+
+def run_lm_parity(cases, *, data: int = 2, model: int = 2,
+                  timeout_s: float = 120.0) -> list:
+    """Spawn a gloo group of ``data`` x ``model`` processes on this host
+    and run :func:`lm_mesh_case` for each case in each; every rank's rows,
+    in rank order (the caller holds them to the one-process port)."""
+    return mesh_lib.run_on_group(data * model, lm_mesh_rows, cases, data,
+                                 model, timeout_s=timeout_s)
 
 
 def h1_memory(K: int = H1_K, n: int = H1_N, *, codec="int8",

@@ -1,12 +1,18 @@
 """Step builders: the port's ``make_train_step``, ``make_prefill_step``
-and ``make_decode_step`` (the JAX package's ``launch/steps.py``). The
-serving steps run without autograd."""
+and ``make_decode_step`` (the JAX package's ``launch/steps.py``), and on
+a data x model ``DeviceMesh`` the placements of a step's params, Adam
+state, caches and batch (:func:`shardings_for`); ``make_train_step``
+also runs the transformer family tensor- and data-parallel on such a
+mesh. The serving steps run without autograd.
+"""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.api import get_model, lm_loss
 from repro_torch.optim import adam, clip_scale
+from repro_torch.sharding import rules
+from repro_torch.sharding.parallel import sum_over_data
 
 
 def value_and_grad(loss, params, *args):
@@ -20,7 +26,8 @@ def value_and_grad(loss, params, *args):
     return val.detach(), dict(zip(leaves, grads))
 
 
-def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0):
+def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0,
+                    mesh=None, specs=None):
     """(params, opt_state, batch{tokens, labels, frames (encdec)}) ->
     (params, opt_state, {"loss", "grad_norm"}): Adam on the gradient
     clipped to a global norm of ``clip_norm``. ``params`` is the model's
@@ -30,17 +37,40 @@ def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0):
     optimizer's ``apply`` (:mod:`repro_torch.optim.optimizers`), so its
     peak is about the f32 params, Adam's two moments and the gradient (4×
     the params), not old and new of each (8×). The numbers are those of
-    clipping the whole gradient and updating every leaf at once."""
+    clipping the whole gradient and updating every leaf at once.
+
+    On a data x model ``mesh`` (the transformer family) ``params`` are
+    this rank's shards (``specs``: the table's,
+    :func:`repro_torch.sharding.parallel.shard_params`) and the batch its
+    rows, and the loss and the norm are the whole batch's and model's: the
+    gradient of :func:`lm_loss` is summed over the data axes, its norm
+    sums the split leaves' squares over the model group, and Adam updates
+    each shard (elementwise, so each shard's numbers are the whole
+    leaf's)."""
     model = get_model(cfg)
     opt = adam(lr)
+    tp = None
+    if mesh is not None:
+        from repro_torch.sharding.parallel import TensorParallel
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"{cfg.name} is a {cfg.family!r} model: the tensor-parallel "
+                "train step covers the transformer family (dense, moe, "
+                "vlm); train it without a mesh")
+        tp = TensorParallel(mesh, specs)
 
     def loss(params, batch):
         return lm_loss(params, cfg, batch["tokens"], batch["labels"],
-                       embeddings=batch.get("frames"), model=model)
+                       embeddings=batch.get("frames"), model=model, tp=tp)
 
     def train_step(params, opt_state, batch):
         l, g = value_and_grad(loss, params, batch)
-        scale, gnorm = clip_scale(g, clip_norm)
+        if tp is not None and tp.dp > 1:
+            l = sum_over_data(l.clone(), mesh)
+            for x in g.values():
+                sum_over_data(x, mesh)
+        scale, gnorm = clip_scale(
+            g, clip_norm, norm=None if tp is None else tp.grad_norm(g))
         params, opt_state = opt.apply(g, opt_state, params, scale)
         return params, opt_state, {"loss": l, "grad_norm": gnorm}
 
@@ -81,3 +111,65 @@ def make_decode_step(cfg):
         return nxt[:, None], caches
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# shapes and placements on a mesh
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg, shape) -> dict:
+    """Every model input of this (arch, :class:`repro_torch.configs.
+    InputShape`) as a ``meta`` tensor (shape and dtype, no storage)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def tok(b, s):
+        return torch.empty((b, s), dtype=torch.int32, device="meta")
+
+    out = {}
+    if shape.mode == "train":
+        out["tokens"], out["labels"] = tok(B, S), tok(B, S)
+    elif shape.mode == "prefill":
+        out["tokens"] = tok(B, S)
+    else:
+        out["tokens"] = tok(B, 1)
+        out["cache_index"] = torch.empty((), dtype=torch.int32,
+                                         device="meta")
+    if cfg.family == "encdec" and shape.mode != "decode":
+        # decode reads the cross K/V the prefill cached
+        out["frames"] = torch.empty(
+            (B, cfg.encdec.encoder_seq_len, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device="meta")
+    return out
+
+
+def abstract_params(cfg) -> dict:
+    """The ``stack_params`` dict of ``cfg`` on ``meta`` (no storage)."""
+    model = get_model(cfg)
+    return model.stack_params(model.init(cfg, device="meta"))
+
+
+def abstract_caches(cfg, shape):
+    return get_model(cfg).init_cache(cfg, shape.global_batch, shape.seq_len,
+                                     device="meta")
+
+
+def shardings_for(cfg, mesh, shape, *, with_opt: bool):
+    """(params, Adam state, caches, batch) DTensor placements on ``mesh``
+    for one (arch, input shape): params by the table, Adam's moments
+    mirroring them and its step replicated, caches (None in training) and
+    the batch over the data axes."""
+    from torch.distributed.tensor import Replicate
+
+    p_abs = abstract_params(cfg)
+    p_pl = rules.param_placements(p_abs, cfg, mesh)
+    o_pl = None
+    if with_opt:
+        o_pl = {"step": [Replicate()] * mesh.ndim, "mu": dict(p_pl),
+                "nu": dict(p_pl)}
+    c_pl = None
+    if shape.mode != "train":
+        c_pl = rules.cache_placements(abstract_caches(cfg, shape), mesh)
+    # the 0-d cache_index has no batch dim, so the table replicates it
+    b_pl = rules.data_placements(input_specs(cfg, shape), mesh)
+    return p_pl, o_pl, c_pl, b_pl

@@ -19,6 +19,8 @@ from types import SimpleNamespace
 
 import torch
 
+from repro_torch.sharding.parallel import sum_over_data
+
 
 def get_model(cfg) -> SimpleNamespace:
     fam = cfg.family
@@ -43,19 +45,35 @@ def get_model(cfg) -> SimpleNamespace:
                            jax_name=m.jax_name)
 
 
-def lm_loss(params, cfg, tokens, labels, *, embeddings=None, model=None):
+def lm_loss(params, cfg, tokens, labels, *, embeddings=None, model=None,
+            tp=None):
     """Next-token cross-entropy in f32, the mean over valid labels (>= 0),
     plus the MoE aux loss. ``params``: the model's module, or its
     ``stack_params`` dict. ``embeddings``: the encoder-decoder's frames.
     Differentiable in both; the attention kernel's gradient is its plain
-    version's (:mod:`repro_torch.kernels.ops`)."""
+    version's (:mod:`repro_torch.kernels.ops`).
+
+    ``tp``: the transformer family on a data x model mesh
+    (:class:`repro_torch.sharding.parallel.TensorParallel`), ``params``
+    this rank's shards and ``tokens``/``labels`` its rows of a batch that
+    divides the data-parallel size (:func:`repro_torch.data.pipeline.
+    sharded_batch`). The loss is then this rank's term: its rows' summed
+    NLL over the whole batch's valid labels, plus the data-averaged aux
+    over the data-parallel size, so the terms summed over the data axes
+    are the whole batch's loss with a per-shard MoE."""
     model = model or get_model(cfg)
     kw = {} if embeddings is None else {"embeddings": embeddings}
+    if tp is not None:
+        kw["tp"] = tp
     logits, _, aux = model.forward(params, cfg, tokens, **kw)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     valid = labels >= 0
     nll = -logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
-    loss = torch.sum(nll * valid) / valid.sum().clamp(min=1)
+    n_valid = valid.sum()
+    if tp is not None and tp.dp > 1:
+        n_valid = sum_over_data(n_valid.clone(), tp.mesh)
+        aux = aux / tp.dp
+    loss = torch.sum(nll * valid) / n_valid.clamp(min=1)
     return loss + aux
 
 

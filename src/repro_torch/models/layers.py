@@ -18,8 +18,12 @@ flash_attention` (the JAX package's ``attention`` dispatch and its
 ``attention_reference`` pick XLA paths there). Decode (S == 1) attends
 over the KV cache, or the encoder's cross K/V, with the kernel's plain
 version, :func:`repro_torch.kernels.ref.attention_reference` (``k_len``
-for a cache), as the JAX package does. The JAX attention block's GSPMD
-sharding constraints wait for the multi-GPU slice.
+for a cache), as the JAX package does. On a data x model mesh the block
+reads this rank's heads (:mod:`repro_torch.sharding.parallel`), so the
+kernel gets them as plain tensors; the JAX block's GSPMD layout
+constraints (q over heads at prefill, q on the cache's layout at decode)
+have no counterpart: the explicit shards already sit where the kernel
+reads them.
 """
 from __future__ import annotations
 

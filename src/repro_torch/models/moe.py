@@ -12,8 +12,10 @@ zero; the residual stream carries the token) is the JAX package's set.
 
 The router and the shared expert's gate multiply in f32, as the JAX
 package does; :func:`repro_torch.models.transformer.cast_for_serving`
-keeps both in f32. The data-sharded ``moe_block_distributed`` waits for
-the multi-GPU LM meshes.
+keeps both in f32. On a data x model mesh (:func:`moe_block` given a
+``tp``) each data shard routes its own tokens and the experts' f
+dimension stays split over ``model`` (:mod:`repro_torch.sharding.
+parallel`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
+from repro_torch.sharding.parallel import Region, TensorParallel, data_mean
 
 
 class MoeMlp(nn.Module):
@@ -124,9 +127,23 @@ def combine(r: Routing, ho, N: int, k: int):
     return (yk * w[:, None]).reshape(N, k, -1).sum(dim=1)
 
 
-def moe_block(p, cfg, x, *, capacity: Optional[int] = None):
+def moe_block(p, cfg, x, *, capacity: Optional[int] = None, tp=None):
     """x (B, S, d) -> (out (B, S, d) in cfg.dtype, aux_loss () f32).
-    ``capacity`` overrides the slots per expert."""
+    ``capacity`` overrides the slots per expert.
+
+    ``tp``: the :class:`repro_torch.sharding.parallel.TensorParallel`
+    view of a data x model mesh, ``x`` this data rank's rows and ``p``
+    its f-split experts. The routing does not cross data shards (a global
+    dispatch buffer is O(global tokens · d)): the rank routes its LOCAL
+    tokens into a local (E, cap_local, d) buffer, the router and the
+    gates read the whole tokens, the experts' partial outputs are summed
+    over the model group, and the aux loss is averaged over the data
+    axes, so every shard returns the same scalar
+    (:func:`~repro_torch.sharding.parallel.data_mean`). A batch that does
+    not divide the data axes is replicated by the table
+    (:func:`repro_torch.sharding.rules.data_spec`): every shard then
+    routes the whole batch, as the JAX package's plain-path fallback
+    does, and the mean of the equal aux values is that value."""
     m = cfg.moe
     dt = L.dtype_of(cfg.dtype)
     x = x.to(dt)
@@ -134,10 +151,33 @@ def moe_block(p, cfg, x, *, capacity: Optional[int] = None):
     N = B * S
     xf = x.reshape(N, d)
     r = route(p, cfg, xf, capacity=capacity)
-    ho = experts(p, cfg, dispatch(r, xf, m.top_k, m.num_experts))
-    y = combine(r, ho, N, m.top_k)
+    experts_tp = (Region() if tp is None
+                  else tp.region("blocks.mlp.w_down"))
+    r = r._replace(gates=experts_tp.enter(r.gates))
+    ho = experts(p, cfg, dispatch(r, experts_tp.enter(xf), m.top_k,
+                                  m.num_experts))
+    y = experts_tp.reduce(combine(r, ho, N, m.top_k))
     if hasattr(p, "shared"):
+        shared_tp = (Region() if tp is None
+                     else tp.mlp_region(p.shared, "blocks.mlp.shared.w_down"))
         sg = torch.sigmoid(xf.to(torch.float32)
                            @ p.shared_gate.to(torch.float32))
-        y = y + L.mlp_block(p.shared, cfg, xf) * sg.to(dt)
-    return y.reshape(B, S, d), r.aux
+        y = y + shared_tp.reduce(
+            L.mlp_block(p.shared, cfg, shared_tp.enter(xf))
+            * shared_tp.enter(sg.to(dt)))
+    aux = r.aux
+    if tp is not None and tp.data_axes:
+        aux = data_mean(aux, tp.mesh)
+    return y.reshape(B, S, d), aux
+
+
+def moe_block_distributed(p, cfg, x, mesh, *, tp=None):
+    """Per-data-shard MoE dispatch on ``mesh`` (the JAX package's name
+    for its production path): :func:`moe_block` with ``tp``, or with
+    every leaf whole on every rank when ``tp`` is None."""
+    if tp is None:
+        tp = TensorParallel(mesh)
+    elif tp.mesh is not mesh:
+        raise ValueError("moe_block_distributed: tp is the view of "
+                         "another mesh")
+    return moe_block(p, cfg, x, tp=tp)

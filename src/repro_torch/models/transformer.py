@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe
+from repro_torch.sharding.parallel import Region
 
 
 class Block(nn.Module):
@@ -94,35 +95,63 @@ def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
     return tree
 
 
-def _block_apply(bp, cfg, x, positions, cache, cache_index):
+def _block_apply(bp, cfg, x, positions, cache, cache_index, tp=None):
     h = L.rms_norm(x, bp.attn_norm, cfg.norm_eps)
+    attn, region = ((bp.attn, Region()) if tp is None
+                    else tp.attention_params(bp.attn, cfg))
     a, new_cache = L.attention_block(
-        bp.attn, cfg, h, positions, window=cfg.sliding_window, cache=cache,
-        cache_index=cache_index)
-    x = x + a
+        attn, cfg, region.enter(h), positions, window=cfg.sliding_window,
+        cache=cache, cache_index=cache_index)
+    x = x + region.reduce(a)
     h = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
     if cfg.moe is not None:
-        y, aux = moe.moe_block(bp.mlp, cfg, h)
+        y, aux = moe.moe_block(bp.mlp, cfg, h, tp=tp)
     else:
-        y, aux = L.mlp_block(bp.mlp, cfg, h), None
+        region = (Region() if tp is None
+                  else tp.mlp_region(bp.mlp, "blocks.mlp.w_down"))
+        y = region.reduce(L.mlp_block(bp.mlp, cfg, region.enter(h)))
+        aux = None
     return x + y, new_cache, aux
 
 
 def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
             cache_index: Optional[int] = None,
             embeddings: Optional[torch.Tensor] = None,
-            last_only: bool = False):
+            last_only: bool = False, tp=None):
     """tokens (B, S) -> (logits (B, S or 1, V) in cfg.dtype, new caches or
     None, aux () f32: the summed MoE aux loss, 0 for a dense model).
 
     ``model`` is a :class:`Transformer` or a :func:`stack_params` dict.
     ``embeddings`` (B, S, d) bypasses the embed table (modality
     frontends). ``last_only`` unembeds only the last position (the same
-    numbers as slicing ``logits[:, -1:]``)."""
+    numbers as slicing ``logits[:, -1:]``).
+
+    On a data x model mesh, ``model`` is this rank's shards of a
+    :func:`stack_params` dict (:func:`repro_torch.sharding.parallel.
+    shard_params`), ``tokens`` this rank's rows of the batch and ``tp``
+    the :class:`~repro_torch.sharding.parallel.TensorParallel` view: each
+    block runs its split regions between the model group's collectives,
+    and the logits come back whole. When the mesh has a data axis the
+    MoE routes per data shard (:func:`repro_torch.models.moe.moe_block`).
+    A ``cfg.remat`` block is recomputed with the ``tp`` of its forward.
+    Caches on the mesh hold this rank's kv heads, so their kv heads must
+    split over ``model`` as the query heads do."""
     if isinstance(model, dict):
         model = param_tree(model, cfg)
+    if (tp is not None and caches is not None and tp.split("blocks.attn.wo")
+            and not tp.split("blocks.attn.wk")):
+        raise ValueError(
+            f"{cfg.name}: {cfg.num_kv_heads} kv heads do not split over a "
+            f"model axis of {tp.model_size}, so the table places its KV "
+            "cache on head_dim, which this forward does not read; serve it "
+            "with a model axis that divides the kv heads, or without a mesh")
     dt = L.dtype_of(cfg.dtype)
-    x = (model.embed[tokens] if embeddings is None else embeddings).to(dt)
+    if embeddings is not None:
+        x = embeddings.to(dt)
+    elif tp is not None:
+        x = tp.embed(model.embed, tokens).to(dt)
+    else:
+        x = model.embed[tokens].to(dt)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device) + (
@@ -135,11 +164,11 @@ def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
     for i, bp in enumerate(model.blocks):
         if remat:
             x, nc, aux = checkpoint(_block_apply, bp, cfg, x, positions, None,
-                                    None, use_reentrant=False)
+                                    None, tp, use_reentrant=False)
         else:
             x, nc, aux = _block_apply(bp, cfg, x, positions,
                                       None if caches is None else caches[i],
-                                      cache_index)
+                                      cache_index, tp)
         if aux is not None:
             aux_total = aux_total + aux
         new_caches.append(nc)
@@ -147,8 +176,9 @@ def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    w_out = model.embed.T if cfg.tie_embeddings else model.unembed
-    logits = x @ w_out.to(dt)
+    w_out = (model.embed.T if cfg.tie_embeddings else model.unembed).to(dt)
+    logits = (x @ w_out if tp is None
+              else tp.unembed(x, w_out, cfg.tie_embeddings))
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(
             logits.to(torch.float32) / cfg.logit_softcap).to(dt)

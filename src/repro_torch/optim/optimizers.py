@@ -41,10 +41,12 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree.values()))
 
 
-def clip_scale(tree, max_norm: float):
+def clip_scale(tree, max_norm: float, *, norm=None):
     """(the factor that scales ``tree`` to a global norm of at most
-    ``max_norm``, the norm): leaf x becomes ``x * scale.to(x.dtype)``."""
-    n = global_norm(tree)
+    ``max_norm``, the norm): leaf x becomes ``x * scale.to(x.dtype)``.
+    ``norm``: the norm when the caller has it (a tensor-parallel shard's
+    gradient, whose norm is the whole model's)."""
+    n = global_norm(tree) if norm is None else norm
     return torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0), n
 
 

@@ -395,7 +395,8 @@ def test_cli_gates_new_findings_only(tmp_path, capsys):
     allow.write_text('[[allow]]\nrule = "R6"\nfile = "core/old.py"\n'
                      'note = "tracked"\nadded_in = 21\n')
     base, out = tmp_path / "base.json", tmp_path / "out.json"
-    common = ["--root", str(root), "--allowlist", str(allow)]
+    common = ["--root", str(root), "--allowlist", str(allow), "--layer",
+              "lint"]
     assert main(common + ["--format", "json", "--json-out", str(base)]) == 0
     assert main(common + ["--strict"]) == 0           # allowlisted
     assert main(common + ["--strict", "--baseline", str(base),
@@ -442,5 +443,6 @@ def test_live_tree_is_clean():
     for e in entries:
         fresh = [Finding(f.rule, f.file, f.line, f.message) for f in findings]
         assert any(f.allowlisted for f in apply_allowlist(fresh, [e])), e
-    assert main(["--strict", "--baseline", str(PKG / "baseline.json")]) == 0
-    assert main(["--strict"]) == 0
+    assert main(["--strict", "--baseline", str(PKG / "baseline.json"),
+                 "--device", "cpu"]) == 0
+    assert main(["--strict", "--layer", "lint"]) == 0
