@@ -218,7 +218,25 @@ Phases (any failure exits non-zero; nothing is caught):
                 (``moe_block`` given the mesh's view, both layers) against
                 the same prefill without a mesh:
                 last-position logits within the f32 serve gate (abs + rel
-                per logit), B4 2 launches each; the times of each.
+                per logit), B4 2 launches each; the times of each; (c)
+                recurrentgemma-9b at full width and 3 layers,
+                whisper-large-v3 and xlstm-125m at full size, each one
+                training step with the mesh against the same step without
+                it (loss and gradient norm ``==``) and a prefill plus 4
+                decode steps from caches placed by the table against the
+                same serving without it (max |d| 0), B3 and B4 launching
+                as often on both paths (tests/test_torch_sharding_
+                families.py holds the multi-rank splits on the CPU).
+18. dryrun    — (a) ``python -m repro_torch.launch.dryrun --arch
+                granite-8b --shape train_4k`` (the 16 x 16 production
+                mesh on a fake group, meta tensors, H100 roofline) in a
+                subprocess, its report printed; (b) the same code's
+                prediction of (a)'s granite step (2 layers, 4 x 512, 1 x 1)
+                against the step measured on the card: predicted peak
+                within [0.8, 1.25] x ``max_memory_allocated``, and the
+                roofline step time at most the median of 3 measured steps
+                (a faster step means a wrong count); the ratio and the
+                joules a step at the card's power limit.
 
 The line before the last is the kernels JSON; the last is the ``ok`` line.
 
@@ -237,9 +255,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
-F32_FLOPS_PER_S = 67e12         # H100 SXM float32 outside tensor cores
-BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 dense tensor cores
+#: H100 SXM rates of the bound column, set from
+#: ``repro_torch.core.energy.H100_SXM`` (data sheet) by :func:`set_rates`:
+#: device memory, float32 outside tensor cores, bf16 dense tensor cores
+HBM_BYTES_PER_S = F32_FLOPS_PER_S = BF16_FLOPS_PER_S = None
 F32_TOL = 1e-6                  # kernel vs plain: same ops, same order
 BF16_TOL = 0.0                  # ... and the same final rounding
 K_POP = 256
@@ -353,10 +372,31 @@ def median_ms(fn, iters=20, warmup=2):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
-    """(least time in ms, what bounds it) for the given bytes and flops."""
+def set_rates():
+    """The bound column's rates from the port's H100 SXM table."""
+    from repro_torch.core.energy import H100_SXM
+
+    global HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S
+    HBM_BYTES_PER_S = H100_SXM["hbm_bw"]
+    F32_FLOPS_PER_S = H100_SXM["peak_flops_f32"]
+    BF16_FLOPS_PER_S = H100_SXM["peak_flops_bf16"]
+
+
+def bound(nbytes, flops, flops_per_s=None):
+    """(least time in ms, what bounds it) for the given bytes and flops
+    (float32 rate unless ``flops_per_s`` is given)."""
+    flops_per_s = flops_per_s or F32_FLOPS_PER_S
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def same_work(name, got, old):
+    """A kernel's (bytes, flops) from ``repro_torch.kernels.work`` must be
+    the smoke's earlier inline count of the same call."""
+    if tuple(int(x) for x in got) != tuple(int(x) for x in old):
+        fail(f"{name}: kernels/work.py counts {got}, the smoke's earlier "
+             f"formula {old}")
+    return got
 
 
 def ptxas_summary(name):
@@ -444,7 +484,7 @@ def check_kernels(cfg, generator):
 def time_kernels(pops, errs):
     from repro_torch.comms import codecs
     from repro_torch.core import consensus, topology
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     rows = {}
     for K, topo in ((K_POP, topology.ring(K_POP)), (2, topology.clusters(1, 2))):
@@ -457,7 +497,9 @@ def time_kernels(pops, errs):
         M = torch.as_tensor(consensus._effective_mix(mix), device=DEVICE)
         # bytes: x read and out written (4 + 4 per element), lane tables;
         # flops: sub, mul, add per neighbour per element, then x + acc
-        b2 = bound(8 * K * N + 8 * K * H, 3 * K * N * H + K * N)
+        b2 = bound(*same_work("consensus_update_pop",
+                              work.consensus_update_pop(K, N, H),
+                              (8 * K * N + 8 * K * H, 3 * K * N * H + K * N)))
         t_b2 = (median_ms(lambda: ops.consensus_update_pop(xf, idx, sig)),
                 median_ms(lambda: ref.consensus_update_pop_reference(
                     xf, idx, sig)),
@@ -467,7 +509,9 @@ def time_kernels(pops, errs):
         q, s = enc["q"], enc["scale"]
         # bytes: x, out (4 + 4), int8 lanes (1) per element, scales, lanes;
         # flops: dequant, sub, mul, add per neighbour, own dequant, x + acc
-        b1 = bound(9 * K * N + 4 * K + 8 * K * H, 4 * K * N * H + 2 * K * N)
+        b1 = bound(*same_work(
+            "quant_consensus_pop", work.quant_consensus_pop(K, N, H, s.numel()),
+            (9 * K * N + 4 * K + 8 * K * H, 4 * K * N * H + 2 * K * N)))
         t_b1 = (median_ms(lambda: ops.quant_consensus_pop(xf, q, s, idx, sig)),
                 median_ms(lambda: ref.quant_consensus_pop_reference(
                     xf, q, s, idx, sig)))
@@ -1836,19 +1880,36 @@ def profile_round(rounds=3):
 
 
 def visible_pairs(S, T, causal, window):
-    """(query, key) pairs the masks leave visible, positions from 0."""
+    """(query, key) pairs the masks leave visible, positions from 0:
+    ``repro_torch.kernels.work.visible_pairs``, held to the smoke's
+    earlier count."""
+    from repro_torch.kernels import work
+
     q = torch.arange(S, dtype=torch.int64)
     hi = torch.minimum(q, torch.tensor(T - 1)) if causal else \
         torch.full_like(q, T - 1)
     lo = (q - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(q)
-    return int((hi - lo + 1).clamp(min=0).sum())
+    old = int((hi - lo + 1).clamp(min=0).sum())
+    return same_work("visible_pairs",
+                     (work.visible_pairs(S, T, causal, window), 0), (old, 0))[0]
+
+
+def b4_work(q, k, causal, window, old):
+    """B4's (bytes, flops) for q over k from ``kernels/work.py``, held to
+    the smoke's earlier count ``old``."""
+    from repro_torch.kernels import work
+
+    B, S, H, hd = q.shape
+    return same_work("flash_attention", work.flash_attention(
+        B, S, k.shape[1], H, k.shape[2], hd, causal=causal, window=window,
+        elem=q.element_size()), old)
 
 
 def check_lm_kernels(cfg, generator):
     """B3 and B4 against their plain versions on the card at the serving
     shapes, then their times and bounds there."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     Bs, S = SERVE["batch"], SERVE["prompt_len"]
     W, H, K, hd = (cfg.rglru.lru_width, cfg.num_heads, cfg.num_kv_heads,
@@ -1918,7 +1979,9 @@ def check_lm_kernels(cfg, generator):
     # B3 times: inputs read once (2 x 4 B), output written (4 B) per
     # element, h0 and h_last rows; exp + mul + add per element
     n = Bs * S * W
-    b3 = bound(12 * n + 8 * Bs * W, 3 * n)
+    b3 = bound(*same_work("rglru_scan", work.rglru_scan(Bs, S, W,
+                                                        with_h0=True),
+                          (12 * n + 8 * Bs * W, 3 * n)))
     t3 = (median_ms(lambda: ops.rglru_scan(log_a, b, h0)),
           median_ms(lambda: ref.rglru_scan_reference(log_a, b, h0)))
     print(f"rglru_scan ({Bs}, {S}, {W}) f32: kernel_ms={t3[0]} plain_ms="
@@ -1935,7 +1998,8 @@ def check_lm_kernels(cfg, generator):
     q, k, v = (randn(Bs, S, n_, hd, dtype=torch.bfloat16) for n_ in (H, K, K))
     pairs = visible_pairs(S, S, True, window)
     flops = 4 * hd * pairs * Bs * H
-    b4 = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flops,
+    b4 = bound(*b4_work(q, k, True, window,
+                        (2 * (2 * q.numel() + k.numel() + v.numel()), flops)),
                BF16_FLOPS_PER_S)
     kw = dict(causal=True, window=window, softcap=softcap)
     t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
@@ -2065,8 +2129,9 @@ def check_b4_transformer_shapes(generator):
         q, k, v = (randn(Bs, S, n, hd) for n in (H, K, K))
         pairs = visible_pairs(S, S, True, window)
         flops = 4 * hd * pairs * Bs * H
-        b4 = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flops,
-                   BF16_FLOPS_PER_S)
+        b4 = bound(*b4_work(q, k, True, window,
+                            (2 * (2 * q.numel() + k.numel() + v.numel()),
+                             flops)), BF16_FLOPS_PER_S)
         t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
         t_plain = median_ms(lambda: ref.attention_reference(q, k, v, **kw))
         qt = q.transpose(1, 2)
@@ -2489,8 +2554,9 @@ def check_lm_gradients(generator):
         t["bwd_ms"] = t["fwd_bwd_ms"] - t["fwd_ms"]
         pairs = visible_pairs(S, S, True, 0)
         t["bound_ms"], t["bound_by"] = bound(
-            q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
-            4 * hd * pairs * B * H,
+            *b4_work(q, k, True, 0, (
+                q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
+                4 * hd * pairs * B * H)),
             BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
         t["grad_rel_err"] = max(gerr)
         print(f"flash_attention {dtype} at the training shape: {t}",
@@ -2534,7 +2600,7 @@ def b3_gradient(generator, B, T, W, *, with_h0):
     each gradient's max |d| / max |plain| under GRAD_F32_REL, the forward
     under B3_TOL, one launch; forward and forward+backward times of both,
     and the forward's byte bound. Returns the numbers."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     log_a = (-torch.rand(B, T, W, generator=generator, device=DEVICE)
              * 0.5).requires_grad_()
@@ -2573,8 +2639,9 @@ def b3_gradient(generator, B, T, W, *, with_h0):
     numbers["bwd_ms"] = numbers["fwd_bwd_ms"] - numbers["fwd_ms"]
     # the forward's bytes as in ``lm_kernels``: log_a and b read, h
     # written, h0 and h_last rows; exp + mul + add per element
-    numbers["bound_ms"], numbers["bound_by"] = bound(
-        12 * n + (8 if with_h0 else 4) * B * W, 3 * n)
+    numbers["bound_ms"], numbers["bound_by"] = bound(*same_work(
+        "rglru_scan", work.rglru_scan(B, T, W, with_h0=with_h0),
+        (12 * n + (8 if with_h0 else 4) * B * W, 3 * n)))
     print(f"rglru_scan {what}: {numbers}", flush=True)
     return numbers
 
@@ -3068,8 +3135,9 @@ def check_b4_whisper_shapes(generator):
         del got, want
         q, k, v = (x.detach() for x in (q, k, v))
         flops = 4 * B * H * hd * visible_pairs(S, Tk, causal, 0)
-        b4 = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flops,
-                   BF16_FLOPS_PER_S)
+        b4 = bound(*b4_work(q, k, causal, 0,
+                            (2 * (2 * q.numel() + k.numel() + v.numel()),
+                             flops)), BF16_FLOPS_PER_S)
         t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
         t_plain = median_ms(lambda: ref.attention_reference(q, k, v, **kw))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -3341,6 +3409,18 @@ def run_analysis(src, smi):
 
 
 MESH_LM_TRAIN = dict(batch=4, seq=512, lr=1e-3)
+#: ``mesh_lm`` (c): the hybrid at full width and one pattern period, and
+#: whisper and xLSTM at full size, one training step and a prefill + 4
+#: decode steps each on the 1 x 1 mesh against the same without one
+MESH_LM_FAMILIES = (
+    (ARCH, HYBRID_LAYERS, dict(batch=2, seq=512), dict(batch=2, prompt=256)),
+    (WHISPER, None, dict(batch=2, seq=448), dict(batch=2, prompt=64)),
+    (XLSTM, None, dict(batch=4, seq=256), dict(batch=2, prompt=256)))
+MESH_LM_DECODE = 4
+#: ``dryrun`` (b): the predicted peak within this band of the measured
+#: one, and the roofline step time at most the median of this many steps
+DRYRUN_PEAK_BAND = (0.8, 1.25)
+DRYRUN_STEPS = 3
 MESH_LM_PREFILL = dict(arch="qwen2-moe-a2.7b", layers=2, batch=1,
                        prompt=4096)
 
@@ -3481,6 +3561,95 @@ def mesh_lm_prefill(mesh, smi):
     return dict(gate_share=worst, mesh_ms=ms1, plain_ms=ms0, launches=c1)
 
 
+def mesh_lm_family(mesh, smi, arch, layers, train, serve):
+    """(c) ``arch`` (cut to ``layers`` when given) on the 1 x 1 mesh: one
+    ``make_train_step`` step given the mesh and the table's specs against
+    the same step without a mesh (loss and gradient norm ``==``: at 1 x 1
+    every region is the identity), and a prefill of ``serve["prompt"]``
+    tokens plus ``MESH_LM_DECODE`` decode steps from caches placed by the
+    table against the same serving without a mesh (max |d| 0), B3 and B4
+    launching as many times on both paths."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.multichip import serve_logits
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import frontend
+    from repro_torch.models.api import get_model
+    from repro_torch.sharding import parallel
+
+    cfg = get_arch(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = get_model(cfg)
+
+    def fresh():
+        """The same params each call (seed 2), this rank's shards by the
+        table: on a 1 x 1 mesh each shard is its whole leaf. Drawn anew
+        for each run, so that only one copy is alive (the hybrid's step
+        peaks near 56 GB)."""
+        gen = torch.Generator(device=DEVICE).manual_seed(2)
+        full = model.stack_params(model.init(cfg, generator=gen,
+                                             device=DEVICE))
+        return parallel.shard_params(full, cfg, mesh)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    B, S = train["batch"], train["seq"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=gen,
+                         device=DEVICE)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    frames = None
+    if cfg.family == "encdec":
+        frames = frontend.audio_frame_embeddings(gen, cfg, B, device=DEVICE)
+        batch["frames"] = frames
+    runs = {}
+    for name, with_mesh in (("no mesh", False), ("mesh 1x1", True)):
+        p, specs = fresh()
+        torch.cuda.empty_cache()
+        step, opt = make_train_step(
+            cfg, lr=1e-3, **(dict(mesh=mesh, specs=specs) if with_mesh
+                            else {}))
+        st = opt.init(p)
+        zero_counts()
+        (_, _, m), ms = timed(lambda: step(p, st, batch))
+        runs[name] = (float(m["loss"]), float(m["grad_norm"]), ms,
+                      launch_counts())
+        del p, st, m
+        torch.cuda.empty_cache()
+    (l0, g0, ms0, c0), (l1, g1, ms1, c1) = runs["no mesh"], runs["mesh 1x1"]
+    sB, sP = serve["batch"], serve["prompt"]
+    stoks = torch.randint(0, cfg.vocab_size, (sB, sP + MESH_LM_DECODE),
+                          generator=gen, device=DEVICE)
+    sframes = None if frames is None else frames[:sB]
+    params, specs = fresh()
+    tp = parallel.TensorParallel(mesh, specs)
+    served = {}
+    for name, kw in (("no mesh", {}), ("mesh 1x1", dict(tp=tp, mesh=mesh))):
+        zero_counts()
+        out, ms = timed(lambda: serve_logits(
+            model, cfg, params, stoks, sframes, sP, MESH_LM_DECODE, **kw))
+        served[name] = (out, ms, launch_counts())
+    d = max(float(np.abs(a - b).max()) for a, b in zip(
+        served["no mesh"][0], served["mesh 1x1"][0]))
+    sc0, sc1 = served["no mesh"][2], served["mesh 1x1"][2]
+    print(f"(c) {cfg.name} width {cfg.d_model} layers {cfg.num_layers}: "
+          f"train {B} x {S} mesh 1x1 loss {l1} grad norm {g1} vs no mesh "
+          f"{l0} / {g0}; ms (one call) mesh {ms1} vs {ms0}; launches "
+          f"{c1} / {c0}; prefill {sB} x {sP} + {MESH_LM_DECODE} decode "
+          f"steps: max |d| of the logits {d}, ms {served['mesh 1x1'][1]} "
+          f"vs {served['no mesh'][1]}, launches {sc1} / {sc0} ({smi})",
+          flush=True)
+    uses = {"hybrid": ("rglru_scan", "flash_attention"),
+            "encdec": ("flash_attention",)}.get(cfg.family, ())
+    if (l1, g1) != (l0, g0) or d != 0.0 or c1 != c0 or sc1 != sc0 \
+            or not np.isfinite(l0) or not all(c1[k] and sc1[k] for k in uses):
+        fail(f"mesh_lm {cfg.name}: loss {l1} / {l0}, grad norm {g1} / {g0}, "
+             f"serving max |d| {d}, launches {c1} / {c0}, {sc1} / {sc0}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(loss=l1, grad_norm=g1, mesh_ms=ms1, plain_ms=ms0,
+                serve_max_abs_diff=d, launches={
+                    k: c1[k] + sc1[k] for k in c1})
+
+
 def mesh_lm_phase(smi):
     """The ``mesh_lm`` phase in its own NCCL group of world size 1."""
     from repro_torch.launch import mesh as mesh_lib
@@ -3492,10 +3661,129 @@ def mesh_lm_phase(smi):
     mesh_lib.init_local_group(0, 1, str(store), backend="nccl")
     try:
         mesh = mesh_lib.make_host_mesh(1, 1)
-        return dict(train=mesh_lm_train(mesh, smi),
-                    prefill=mesh_lm_prefill(mesh, smi))
+        out = dict(train=mesh_lm_train(mesh, smi),
+                   prefill=mesh_lm_prefill(mesh, smi))
+        for arch, layers, train, serve in MESH_LM_FAMILIES:
+            t = time.perf_counter()
+            out[arch] = mesh_lm_family(mesh, smi, arch, layers, train, serve)
+            print(f"(c) {arch}: {time.perf_counter() - t:.2f} s", flush=True)
+        return out
     finally:
         mesh_lib.destroy_local_group()
+
+
+def dryrun_predict():
+    """The dry run's prediction of ``mesh_lm`` (a)'s granite step (2
+    layers, batch 4 x 512, 1 x 1 mesh): ``python -m repro_torch.launch.
+    dryrun`` in a subprocess on the CPU (its fake process group cannot
+    share this process with the card's NCCL group); the report dict."""
+    cfg = train_cfg()
+    src = Path(__file__).resolve().parent / "src"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cfg.name, "--shape", "train_4k", "--layers", str(cfg.num_layers),
+         "--batch", str(MESH_LM_TRAIN["batch"]), "--seq-len",
+         str(MESH_LM_TRAIN["seq"]), "--mesh", "1x1", "--json"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(src)))
+    if out.returncode != 0:
+        fail(f"dry run of the mesh_lm step: rc {out.returncode}\n"
+             f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    print(out.stdout.strip().splitlines()[-2], flush=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def dryrun_phase(smi):
+    """(a) the dry run of granite-8b x train_4k on the 16 x 16 production
+    mesh (a subprocess, CPU, meta tensors), its report printed; (b) the
+    same code's prediction of ``mesh_lm`` (a)'s granite step against that
+    step measured on the card: the predicted peak within
+    ``DRYRUN_PEAK_BAND`` of ``max_memory_allocated``, and the H100
+    roofline step time at most the median of ``DRYRUN_STEPS`` measured
+    steps (a faster step would mean a wrong count), with the ratio and
+    the joules a step at the card's power limit."""
+    from repro_torch.core.energy import RooflineTerms, gpu_energy_params
+    from repro_torch.data.pipeline import sharded_batch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.sharding import parallel
+
+    src = Path(__file__).resolve().parent / "src"
+    t = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "granite-8b", "--shape", "train_4k"], capture_output=True,
+        text=True, timeout=600, env=dict(os.environ, PYTHONPATH=str(src)))
+    print(out.stdout.strip(), flush=True)
+    if out.returncode != 0:
+        fail(f"dryrun granite-8b x train_4k: rc {out.returncode}\n"
+             f"{out.stderr[-2000:]}")
+    print(f"(a) dry run granite-8b x train_4k on 16 x 16: "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+    pred = dryrun_predict()
+    cfg = train_cfg()
+    store = Path(__file__).resolve().parent / "build" / "nccl_store_dry"
+    if store.exists():
+        store.unlink()
+    mesh_lib.init_local_group(0, 1, str(store), backend="nccl")
+    try:
+        mesh = mesh_lib.make_host_mesh(1, 1)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        full = transformer.stack_params(transformer.init(
+            cfg, generator=gen, device=DEVICE))
+        p, specs = parallel.shard_params(full, cfg, mesh)
+        del full
+        toks = torch.randint(0, cfg.vocab_size, (MESH_LM_TRAIN["batch"],
+                                                 MESH_LM_TRAIN["seq"] + 1),
+                             generator=gen, device=DEVICE)
+        tokens, labels = sharded_batch(toks[:, :-1], toks[:, 1:], mesh)
+        batch = {"tokens": tokens, "labels": labels}
+        step, opt = make_train_step(cfg, lr=MESH_LM_TRAIN["lr"], mesh=mesh,
+                                    specs=specs)
+        st = opt.init(p)
+        torch.cuda.empty_cache()
+        times, peaks = [], []
+        for i in range(DRYRUN_STEPS + 1):        # the first warms up
+            torch.cuda.reset_peak_memory_stats()
+            (p, st, _), ms = timed(lambda: step(p, st, batch))
+            if i:
+                times.append(ms)
+                peaks.append(torch.cuda.max_memory_allocated())
+        del p, st
+        torch.cuda.empty_cache()
+    finally:
+        mesh_lib.destroy_local_group()
+    median_ms = statistics.median(times)
+    peak = max(peaks)
+    rt = RooflineTerms(flops=pred["flops"], hbm_bytes=pred["hbm_bytes"],
+                       collective_bytes=0.0, chips=pred["chips"])
+    watts = float(smi.split(",")[-1].strip().split()[0])
+    ep = gpu_energy_params(rt, 4 * cfg.param_count(), chip_power=watts)
+    ratio = pred["bytes_per_device"] / peak
+    step_ratio = rt.step_time * 1e3 / median_ms
+    joules = watts * median_ms / 1e3
+    print(f"(b) {cfg.name} {cfg.num_layers} layers, {MESH_LM_TRAIN['batch']}"
+          f" x {MESH_LM_TRAIN['seq']}, mesh 1x1: predicted peak "
+          f"{pred['bytes_per_device']} B vs max_memory_allocated {peak} B "
+          f"(ratio {ratio}, band {DRYRUN_PEAK_BAND}); roofline step "
+          f"{rt.step_time * 1e3} ms ({rt.bottleneck}-bound: compute "
+          f"{rt.t_compute * 1e3}, memory {rt.t_memory * 1e3}) vs the median "
+          f"of {DRYRUN_STEPS} measured steps {median_ms} ms ({times}; "
+          f"roofline / measured {step_ratio}); J a step at the card's "
+          f"limit: measured {joules}, roofline {rt.step_time * watts} "
+          f"(Eq.-(11) device role: {ep.Ek_C} J a gradient) ({smi})",
+          flush=True)
+    lo, hi = DRYRUN_PEAK_BAND
+    if not lo <= ratio <= hi or rt.step_time * 1e3 > median_ms:
+        fail(f"dryrun (b): predicted / measured peak {ratio} outside "
+             f"{DRYRUN_PEAK_BAND}, or roofline {rt.step_time * 1e3} ms above "
+             f"the median measured step {median_ms} ms")
+    return dict(predicted_peak=pred["bytes_per_device"], peak=peak,
+                peak_ratio=ratio, roofline_ms=rt.step_time * 1e3,
+                median_ms=median_ms, step_ratio=step_ratio,
+                joules_per_step=joules)
 
 
 def main():
@@ -3514,6 +3802,7 @@ def main():
     from repro_torch.kernels import build
 
     repro_torch.set_f32_matmul()
+    set_rates()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -3648,8 +3937,16 @@ def main():
     meshed = mesh_lm_phase(smi)
     for part in ("train", "prefill"):
         by_path[f"mesh_lm_{part}"] = meshed[part].pop("launches")
+    for arch, *_ in MESH_LM_FAMILIES:
+        by_path[f"mesh_lm_{arch}"] = meshed[arch].pop("launches")
     print(f"mesh_lm: {time.perf_counter() - t:.2f} s; mesh numbers "
           f"{json.dumps(meshed)}", flush=True)
+
+    phase("dryrun")
+    t = time.perf_counter()
+    dry = dryrun_phase(smi)
+    print(f"dryrun: {time.perf_counter() - t:.2f} s; dry-run numbers "
+          f"{json.dumps(dry)}", flush=True)
 
     # launches: the sum over the main paths (the case study's runs, the
     # drivers' runs, the paper's runs, the serving run), each counted from

@@ -101,6 +101,15 @@ class ArchConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
 
+    @property
+    def subquadratic(self) -> bool:
+        """Can this arch serve ~500k contexts (O(T) or O(w*T) attention)?"""
+        return self.family in ("hybrid", "ssm") or self.sliding_window > 0
+
+    @property
+    def is_decoder(self) -> bool:
+        return self.family != "encoder_only"
+
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks + norms), the JAX
         package's formula. Like the JAX one, it leaves out the shared

@@ -164,6 +164,112 @@ def optimize_split(p: EnergyParams, Q: int,
     return best_t0, energies[best_t0], energies
 
 
+# -- H100 pricing of the same protocol (the JAX package prices a TPU v5e) ----
+
+#: NVIDIA H100 SXM5, typed in from NVIDIA's *H100 Tensor Core GPU* data
+#: sheet (SXM5 column): bf16 dense tensor-core and f32 (non-tensor) peak
+#: FLOP/s, HBM3 bytes/s and capacity, NVLink 4 bytes/s each way, one NDR
+#: InfiniBand port per GPU, and the board power limit. ``host_pue`` is the
+#: JAX package's data-center assumption (1.1), not a data-sheet figure.
+H100_SXM = {
+    "peak_flops_bf16": 989.4e12,   # FLOP/s per GPU
+    "peak_flops_f32": 67e12,       # FLOP/s per GPU
+    "hbm_bw": 3.35e12,             # B/s per GPU
+    "hbm_bytes": 80e9,             # B per GPU
+    "nvlink_bw": 450e9,            # B/s per GPU each way, within an HGX node
+    "ib_bw": 50e9,                 # B/s per GPU (NDR 400 Gb/s), across nodes
+    "gpus_per_node": 8,            # one HGX H100 board
+    "chip_power": 700.0,           # W per GPU
+    "host_pue": 1.1,
+}
+
+
+def link_bw(span: int, chip: dict = H100_SXM) -> float:
+    """B/s per GPU of a collective whose group's ranks lie within ``span``
+    consecutive ranks (its last rank − its first + 1), ranks filling the
+    HGX nodes in order: NVLink when they fit in one node, InfiniBand when
+    the group spans nodes."""
+    return (chip["nvlink_bw"] if span <= chip["gpus_per_node"]
+            else chip["ib_bw"])
+
+
+@dataclass(frozen=True)
+class RooflineTerms:
+    """Per-step roofline terms (seconds) and their inputs, from a dry run
+    (:mod:`repro_torch.launch.dryrun`): global FLOPs, bytes and collective
+    bytes over ``chips`` devices, priced at an H100 SXM by default."""
+
+    flops: float
+    hbm_bytes: float
+    collective_bytes: float
+    chips: int
+    peak_flops: float = H100_SXM["peak_flops_bf16"]
+    hbm_bw: float = H100_SXM["hbm_bw"]
+    link_bw: float = H100_SXM["ib_bw"]
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / (self.chips * self.peak_flops)
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / (self.chips * self.hbm_bw)
+
+    @property
+    def t_collective(self) -> float:
+        return self.collective_bytes / (self.chips * self.link_bw)
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def step_time(self) -> float:
+        """The perfectly overlapped bound: the largest of the three."""
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    def energy_per_step(self, power: float = H100_SXM["chip_power"],
+                        pue: float = H100_SXM["host_pue"]) -> float:
+        """J per step: chips × W × roofline step time × PUE."""
+        return pue * self.chips * power * self.step_time
+
+
+def single_chip_terms(step_terms: RooflineTerms) -> RooflineTerms:
+    """The same per-step workload on ONE chip: the whole FLOP/byte budget
+    lands on a single device and there are no cross-chip collectives."""
+    return replace(step_terms, chips=1, collective_bytes=0.0)
+
+
+def gpu_energy_params(step_terms: RooflineTerms, model_bytes: float,
+                      *, chip: dict = H100_SXM,
+                      chip_power: float = None,
+                      dcn_bit_per_joule: float = 5e9,
+                      ici_bit_per_joule: float = 50e9,
+                      **overrides) -> EnergyParams:
+    """Table I's shape on GPU constants, the JAX package's
+    ``tpu_energy_params`` mapping: a 'gradient' is one train step; UL/DL
+    are data-center network transfers, SL the links inside the slice.
+    The data-center role keeps the whole ``step_terms.chips`` slice, the
+    device role is ONE chip running the same workload alone
+    (:func:`single_chip_terms`). ``chip_power`` (W) replaces the chip's
+    board figure, e.g. with the card's ``nvidia-smi`` power limit."""
+    power = chip["chip_power"] if chip_power is None else float(chip_power)
+    single = single_chip_terms(step_terms)
+    base = EnergyParams(
+        P_datacenter=power * step_terms.chips,
+        T_batch_datacenter=step_terms.step_time,
+        P_device=power,
+        T_batch_device=single.step_time,
+        gamma=chip["host_pue"],
+        model_bits=model_bytes * BYTE,
+        E_UL=dcn_bit_per_joule, E_DL=dcn_bit_per_joule,
+        E_SL=ici_bit_per_joule,
+    )
+    return replace(base, **overrides) if overrides else base
+
+
 def paper_calibrated(regime: str = "fig3") -> EnergyParams:
     """Constants that reproduce the paper's reported energies: ``fig3``
     (kB/J links, 6.25 J/grad devices, near-zero data-center compute) or

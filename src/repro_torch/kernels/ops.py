@@ -4,7 +4,11 @@ kernels, the RG-LRU scan and flash attention.
 Each wrapper checks dtypes and shapes (the guards of the JAX package's
 ``kernels/ops.py``), then dispatches BY DEVICE: a tensor on the CPU goes
 to the plain version in :mod:`repro_torch.kernels.ref`; a CUDA tensor
-launches the CUDA kernel or raises. There is no fallback.
+launches the CUDA kernel or raises. There is no fallback. A ``meta``
+tensor (the dry run, :mod:`repro_torch.launch.dryrun`) computes nothing:
+the wrapper returns outputs of the kernel's shapes and dtypes, launches
+nothing, and reports the call's bytes and flops
+(:mod:`repro_torch.kernels.work`). Any other device raises by name.
 
 Each wrapper counts its launches in a plain integer attribute
 (``consensus_update_pop.launches``), raised by one exactly where the
@@ -32,7 +36,7 @@ import numpy as np
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, work
 
 _ALLOWED = (torch.float32, torch.bfloat16)
 #: qblock the kernel sees for per-tensor scales: larger than any N, so
@@ -79,7 +83,8 @@ def _cuda_args(x, idx, sig):
     """Contiguous int32/f32 lane tables and the launch limits."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}: pass CPU "
-                         "tensors (plain version) or CUDA tensors")
+                         "tensors (plain version), CUDA tensors or meta "
+                         "tensors (the dry run)")
     K, H = idx.shape
     if H > 6144 or K > 65535:
         raise ValueError(f"K={K} (max 65535) or H={H} (max 6144) exceeds "
@@ -109,6 +114,10 @@ def consensus_update_pop(x, idx, sig, src=None):
     _check_lanes(x, idx, sig, x if src is None else src)
     if x.device.type == "cpu":
         return ref.consensus_update_pop_reference(x, idx, sig, src)
+    if x.device.type == "meta":
+        work.add("consensus_update_pop", work.consensus_update_pop(
+            x.shape[0], x.shape[1], idx.shape[1], x.element_size()))
+        return torch.empty_like(x)
     idx32, sig32 = _cuda_args(x, idx, sig)
     x = x.contiguous()
     src = x if src is None else src.contiguous()
@@ -176,6 +185,10 @@ def quant_consensus_pop(x, q, s, idx, sig, qblock: Optional[int] = None,
     if x.device.type == "cpu":
         return ref.quant_consensus_pop_reference(x, q, s, idx, sig, qblock,
                                                  q_src, s_src)
+    if x.device.type == "meta":
+        work.add("quant_consensus_pop", work.quant_consensus_pop(
+            K, N, idx.shape[1], s.numel()))
+        return torch.empty_like(x)
     idx32, sig32 = _cuda_args(x, idx, sig)
     x, q, q_src = x.contiguous(), q.contiguous(), q_src.contiguous()
     s = s.to(torch.float32).contiguous()
@@ -231,10 +244,17 @@ def _cuda_only(*ts):
             raise ValueError(f"tensors on {t.device} and {x.device}")
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}: pass CPU "
-                         "tensors (plain version) or CUDA tensors")
+                         "tensors (plain version), CUDA tensors or meta "
+                         "tensors (the dry run)")
     if any(t.dtype != x.dtype for t in ts):
         raise TypeError("the kernel takes one dtype for all inputs, got "
                         f"{[t.dtype for t in ts]}")
+
+
+def _on_meta(*ts) -> bool:
+    """All of ``ts`` on ``meta`` (the dry run): the wrapper computes
+    nothing and reports the call's work."""
+    return all(t.device.type == "meta" for t in ts)
 
 
 def _rglru_scan_forward(log_a, b, h0):
@@ -244,6 +264,11 @@ def _rglru_scan_forward(log_a, b, h0):
     if log_a.device.type == "cpu" and b.device.type == "cpu" and (
             h0 is None or h0.device.type == "cpu"):
         return ref.rglru_scan_reference(log_a, b, h0)
+    if _on_meta(log_a, b, *(() if h0 is None else (h0,))):
+        work.add("rglru_scan", work.rglru_scan(
+            B, T, W, with_h0=h0 is not None, elem=log_a.element_size()))
+        return (torch.empty_like(log_a),
+                torch.empty(B, W, dtype=torch.float32, device="meta"))
     _cuda_only(log_a, b)
     if B > _GRID_YZ:
         raise ValueError(f"B={B} exceeds the kernel's grid ({_GRID_YZ})")
@@ -336,9 +361,14 @@ def _flash_attention_forward(q, k, v, causal, window, softcap):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.attention_reference(q, k, v, causal=causal, window=window,
                                        softcap=softcap)
-    _cuda_only(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
+    if _on_meta(q, k, v):
+        work.add("flash_attention", work.flash_attention(
+            B, S, T, H, K, hd, causal=causal, window=window,
+            elem=q.element_size()))
+        return torch.empty(B, S, H, hd, dtype=q.dtype, device="meta")
+    _cuda_only(q, k, v)
     if hd > 256 or hd % 4:
         raise ValueError(f"head_dim={hd}: the kernel takes head_dim <= 256 "
                          "and a multiple of 4")

@@ -65,6 +65,8 @@ def rglru_scan_reference(log_a, b, h0=None):
     tests' gradient checks)."""
     B, T, W = log_a.shape
     acc = torch.promote_types(log_a.dtype, torch.float32)
+    if log_a.device.type == "meta" and T > 1:
+        return _rglru_scan_meta(log_a, b, h0, acc)
     h = (torch.zeros(B, W, dtype=acc, device=log_a.device)
          if h0 is None else h0.to(acc))
     out = []
@@ -72,6 +74,23 @@ def rglru_scan_reference(log_a, b, h0=None):
         h = torch.exp(log_a[:, t].to(acc)) * h + b[:, t].to(acc)
         out.append(h.to(log_a.dtype))
     return torch.stack(out, dim=1), h
+
+
+def _rglru_scan_meta(log_a, b, h0, acc):
+    """The time loop on ``meta`` tensors (the dry run,
+    :mod:`repro_torch.launch.dryrun`), where only shapes exist: every step
+    at once, reading b's previous step (h0 first) in place of h_{t-1}
+    (the same shape; values do not exist on meta), so the elementwise
+    bytes, the saved activations and the gradient's operands are the
+    loop's, in T times fewer dispatches."""
+    bt = b.to(acc)
+    prev = bt[:, :-1]
+    if h0 is not None:
+        prev = torch.cat([h0.to(acc)[:, None], prev], dim=1)
+    else:
+        prev = torch.cat([torch.zeros_like(bt[:, :1]), prev], dim=1)
+    h = torch.exp(log_a.to(acc)) * prev + bt
+    return h.to(log_a.dtype), h[:, -1]
 
 
 NEG_INF = -2.0 ** 30

@@ -1,9 +1,11 @@
 """Step builders: the port's ``make_train_step``, ``make_prefill_step``
 and ``make_decode_step`` (the JAX package's ``launch/steps.py``), and on
 a data x model ``DeviceMesh`` the placements of a step's params, Adam
-state, caches and batch (:func:`shardings_for`); ``make_train_step``
-also runs the transformer family tensor- and data-parallel on such a
-mesh. The serving steps run without autograd.
+state, caches and batch (:func:`shardings_for`); every step also runs
+every LM family tensor- and data-parallel on such a mesh.
+:func:`lower_step` builds a step and its ``meta`` inputs at one rank's
+shapes for the dry run (:mod:`repro_torch.launch.dryrun`). The serving
+steps run without autograd.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0,
     the params), not old and new of each (8×). The numbers are those of
     clipping the whole gradient and updating every leaf at once.
 
-    On a data x model ``mesh`` (the transformer family) ``params`` are
+    On a data x model ``mesh`` (every LM family) ``params`` are
     this rank's shards (``specs``: the table's,
     :func:`repro_torch.sharding.parallel.shard_params`) and the batch its
     rows, and the loss and the norm are the whole batch's and model's: the
@@ -49,15 +51,7 @@ def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0,
     leaf's)."""
     model = get_model(cfg)
     opt = adam(lr)
-    tp = None
-    if mesh is not None:
-        from repro_torch.sharding.parallel import TensorParallel
-        if cfg.family not in ("dense", "moe", "vlm"):
-            raise ValueError(
-                f"{cfg.name} is a {cfg.family!r} model: the tensor-parallel "
-                "train step covers the transformer family (dense, moe, "
-                "vlm); train it without a mesh")
-        tp = TensorParallel(mesh, specs)
+    tp = _view(mesh, specs)
 
     def loss(params, batch):
         return lm_loss(params, cfg, batch["tokens"], batch["labels"],
@@ -77,18 +71,32 @@ def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0,
     return train_step, opt
 
 
-def make_prefill_step(cfg):
+def _view(mesh, specs):
+    """The :class:`~repro_torch.sharding.parallel.TensorParallel` view of
+    ``mesh`` (None without one)."""
+    if mesh is None:
+        return None
+    from repro_torch.sharding.parallel import TensorParallel
+    return TensorParallel(mesh, specs)
+
+
+def make_prefill_step(cfg, *, mesh=None, specs=None):
     """(params, caches, batch{tokens, frames (encdec)}) -> (last-position
     logits (B, 1, V), caches). Only the last position is unembedded, which
     gives the numbers of slicing the full logits without the (B, S, V)
     tensor. The encoder-decoder's ``frames`` run its encoder and fill the
-    cross caches."""
+    cross caches. On a data x model ``mesh``, ``params`` and ``caches``
+    are this rank's shards by the table (``specs``) and the batch its
+    rows."""
     model = get_model(cfg)
+    tp = _view(mesh, specs)
 
     @torch.no_grad()
     def prefill_step(params, caches, batch):
         frames = batch.get("frames")
         kw = {} if frames is None else {"embeddings": frames}
+        if tp is not None:
+            kw["tp"] = tp
         logits, caches, _ = model.forward(params, cfg, batch["tokens"],
                                           caches=caches, cache_index=0,
                                           last_only=True, **kw)
@@ -97,16 +105,20 @@ def make_prefill_step(cfg):
     return prefill_step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, *, mesh=None, specs=None):
     """(params, caches, batch{tokens (B, 1), cache_index}) -> (greedy next
-    token (B, 1) int32, caches)."""
+    token (B, 1) int32, caches); on a ``mesh`` as
+    :func:`make_prefill_step`."""
     model = get_model(cfg)
+    tp = _view(mesh, specs)
 
     @torch.no_grad()
     def decode_step(params, caches, batch):
+        kw = {} if tp is None else {"tp": tp}
         logits, caches, _ = model.forward(params, cfg, batch["tokens"],
                                           caches=caches,
-                                          cache_index=batch["cache_index"])
+                                          cache_index=batch["cache_index"],
+                                          **kw)
         nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return nxt[:, None], caches
 
@@ -173,3 +185,42 @@ def shardings_for(cfg, mesh, shape, *, with_opt: bool):
     # the 0-d cache_index has no batch dim, so the table replicates it
     b_pl = rules.data_placements(input_specs(cfg, shape), mesh)
     return p_pl, o_pl, c_pl, b_pl
+
+
+def _meta_local(t, spec, mesh):
+    from repro_torch.sharding.parallel import local_shape
+
+    return torch.empty(local_shape(tuple(t.shape), spec, mesh),
+                       dtype=t.dtype, device="meta")
+
+
+def lower_step(cfg, mesh, shape, *, lr: float = 3e-4):
+    """(step, inputs) of the right step for (cfg, :class:`repro_torch.
+    configs.InputShape`) on a data x model ``mesh``, for the dry run: the
+    train step with Adam (``shape.mode == "train"``), the prefill, or the
+    decode step, built for the mesh, and its inputs as ``meta`` tensors at
+    this rank's shapes (params by the table, Adam's state mirroring them,
+    caches by the table, the batch over the data axes). ``step(*inputs)``
+    runs it. The decode position (``cache_index``) is ``seq_len − 1``, a
+    Python int: the port's decode step reads the position on the host.
+    The JAX package's ``lower_step`` returns a lowered XLA program; eager
+    PyTorch runs the step instead (:mod:`repro_torch.launch.dryrun`)."""
+    p_abs = abstract_params(cfg)
+    specs = rules.param_specs(p_abs, cfg, mesh)
+    params = {k: _meta_local(v, specs[k], mesh) for k, v in p_abs.items()}
+    batch = {k: _meta_local(v, rules.data_spec(tuple(v.shape), mesh), mesh)
+             for k, v in input_specs(cfg, shape).items()
+             if k != "cache_index"}
+    if shape.mode == "train":
+        step, opt = make_train_step(cfg, lr=lr, mesh=mesh, specs=specs)
+        return step, (params, opt.init(params), batch)
+    caches = rules._map_tree(
+        lambda names, t: _meta_local(
+            t, rules.cache_spec(names, tuple(t.shape), mesh), mesh),
+        abstract_caches(cfg, shape))
+    if shape.mode == "prefill":
+        return make_prefill_step(cfg, mesh=mesh, specs=specs), (
+            params, caches, batch)
+    batch["cache_index"] = shape.seq_len - 1
+    return make_decode_step(cfg, mesh=mesh, specs=specs), (
+        params, caches, batch)

@@ -53,7 +53,7 @@ def lm_loss(params, cfg, tokens, labels, *, embeddings=None, model=None,
     Differentiable in both; the attention kernel's gradient is its plain
     version's (:mod:`repro_torch.kernels.ops`).
 
-    ``tp``: the transformer family on a data x model mesh
+    ``tp``: any LM family on a data x model mesh
     (:class:`repro_torch.sharding.parallel.TensorParallel`), ``params``
     this rank's shards and ``tokens``/``labels`` its rows of a batch that
     divides the data-parallel size (:func:`repro_torch.data.pipeline.

@@ -25,6 +25,19 @@ dict in the JAX leaf structure (:func:`stack_params`: ``enc_blocks.*``
 ``cfg.remat`` a forward that records gradients recomputes each encoder and
 decoder block in the backward (``torch.utils.checkpoint``), so a training
 step runs the attention kernel twice per attention.
+
+On a data x model mesh (``tp``, :mod:`repro_torch.sharding.parallel`)
+the attention heads split where their count divides the model axis
+(self, cross and the encoder's, each a region), the plain MLP splits
+``w_up`` by column with ``b_up`` cut to the rank's columns through *f*
+and ``w_down`` by row with ``b_down`` added once after *g*, the
+LayerNorms run on the replicated stream before each region's *f*, and
+the tied embedding splits over the vocabulary. The cross K/V of a split
+layer are this rank's heads. When the heads do not divide the model
+axis (20 heads on 16) the attention runs whole on every rank and the
+table puts the self and cross caches on head_dim: a prefill stores every
+head's head_dim slice and a decode step reads them through
+:class:`~repro_torch.sharding.parallel.CacheSplit`.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.parallel import Region
 
 #: the stacked layer groups of the JAX leaf structure
 GROUPS = ("enc_blocks", "dec_blocks")
@@ -152,61 +166,93 @@ def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
     return tree
 
 
-def _enc_block(bp, cfg, x):
+def _mlp(tp, group, p, cfg, h):
+    """The block group's plain MLP on ``h``, a region on the mesh ``tp``
+    (b_up cut to the rank's columns, b_down added after *g*)."""
+    view, region = ((p, None) if tp is None else
+                    tp.mlp_params(p, tp.split(f"{group}.mlp.w_down")))
+    return L.mlp_block(view, cfg, h, region)
+
+
+def _enc_block(bp, cfg, x, tp=None):
     dt = L.dtype_of(cfg.dtype)
-    h = _ln(bp.ln1, cfg, x)
+    region = Region() if tp is None else tp.region("enc_blocks.attn.wo")
+    h = region.enter(_ln(bp.ln1, cfg, x))
     q, k, v = (L.heads_in(h, w.to(dt))
                for w in (bp.attn.wq, bp.attn.wk, bp.attn.wv))
     out = ops.flash_attention(q, k, v, causal=False)
     wo = bp.attn.wo.to(dt)
-    x = x + out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    x = x + region.reduce(out.flatten(-2) @ wo.reshape(-1, wo.shape[-1]))
     h = _ln(bp.ln2, cfg, x)
-    return x + L.mlp_block(bp.mlp, cfg, h)
+    return x + _mlp(tp, "enc_blocks", bp.mlp, cfg, h)
 
 
 def _remat(cfg) -> bool:
     return cfg.remat and torch.is_grad_enabled()
 
 
-def encode(params, cfg, frames):
+def encode(params, cfg, frames, tp=None):
     """frames (B, T_enc, d) stub embeddings → encoder states (B, T_enc,
-    d) in ``cfg.dtype``."""
+    d) in ``cfg.dtype`` (whole on every rank of a mesh ``tp``)."""
     dt = L.dtype_of(cfg.dtype)
     T = frames.shape[1]
     x = frames.to(dt) + sinusoid_table(T, cfg.d_model,
                                        frames.device).to(dt)[None]
     for bp in params.enc_blocks:
-        x = (checkpoint(_enc_block, bp, cfg, x, use_reentrant=False)
-             if _remat(cfg) else _enc_block(bp, cfg, x))
+        x = (checkpoint(_enc_block, bp, cfg, x, tp, use_reentrant=False)
+             if _remat(cfg) else _enc_block(bp, cfg, x, tp))
     return _ln(params.enc_norm, cfg, x)
 
 
-def compute_cross_kv(params, cfg, enc_out):
+def compute_cross_kv(params, cfg, enc_out, tp=None):
     """Per-decoder-layer cross K/V from the encoder states: a list of
-    ``{"k", "v"}`` (B, T_enc, H, hd)."""
+    ``{"k", "v"}`` (B, T_enc, H, hd), this rank's heads on a mesh ``tp``
+    whose model axis splits them (the states enter the cross-attention
+    region through *f*)."""
     dt = L.dtype_of(cfg.dtype)
-    return [{"k": L.heads_in(enc_out, bp.cross_attn.wk.to(dt)),
-             "v": L.heads_in(enc_out, bp.cross_attn.wv.to(dt))}
-            for bp in params.dec_blocks]
+    region = (Region() if tp is None
+              else tp.region("dec_blocks.cross_attn.wo"))
+    out = []
+    for bp in params.dec_blocks:
+        e = region.enter(enc_out)
+        out.append({"k": L.heads_in(e, bp.cross_attn.wk.to(dt)),
+                    "v": L.heads_in(e, bp.cross_attn.wv.to(dt))})
+    return out
 
 
-def _dec_block(bp, cfg, x, positions, cross, cache, cache_index):
-    h = _ln(bp.ln1, cfg, x)
-    a, new_cache = L.attention_block(bp.self_attn, cfg, h, positions,
-                                     cache=cache, cache_index=cache_index)
-    x = x + a
-    h = _ln(bp.ln2, cfg, x)
-    a, _ = L.attention_block(bp.cross_attn, cfg, h, positions,
-                             cross_kv=(cross["k"], cross["v"]))
-    x = x + a
+def _attention(tp, p, cfg, name, cache):
+    """(p as the attention reads it, its region, the cache split) of the
+    attention ``name`` on the mesh ``tp``."""
+    if tp is None:
+        return p, Region(), None
+    return tp.attention_params(p, cfg, split=tp.split(f"{name}.wo"),
+                               cache=cache)
+
+
+def _dec_block(bp, cfg, x, positions, cross, cache, cache_index, tp=None,
+               serving=False):
+    attn, region, csplit = _attention(tp, bp.self_attn, cfg,
+                                      "dec_blocks.self_attn",
+                                      None if cache is None else cache["k"])
+    h = region.enter(_ln(bp.ln1, cfg, x))
+    a, new_cache = L.attention_block(attn, cfg, h, positions, cache=cache,
+                                     cache_index=cache_index, split=csplit)
+    x = x + region.reduce(a)
+    attn, region, csplit = _attention(tp, bp.cross_attn, cfg,
+                                      "dec_blocks.cross_attn",
+                                      cross["k"] if serving else None)
+    h = region.enter(_ln(bp.ln2, cfg, x))
+    a, _ = L.attention_block(attn, cfg, h, positions,
+                             cross_kv=(cross["k"], cross["v"]), split=csplit)
+    x = x + region.reduce(a)
     h = _ln(bp.ln3, cfg, x)
-    return x + L.mlp_block(bp.mlp, cfg, h), new_cache
+    return x + _mlp(tp, "dec_blocks", bp.mlp, cfg, h), new_cache
 
 
 def forward(params, cfg, tokens, *, positions=None, caches=None,
             cache_index: Optional[int] = None,
             embeddings: Optional[torch.Tensor] = None,
-            last_only: bool = False):
+            last_only: bool = False, tp=None):
     """tokens (B, S) → (logits (B, S or 1, V) in cfg.dtype, new caches or
     None, aux 0 f32).
 
@@ -215,14 +261,22 @@ def forward(params, cfg, tokens, *, positions=None, caches=None,
     runs and its cross K/V go into the caches), or None (a decode step:
     the cross K/V must already be in ``caches``). ``caches`` None: teacher
     forcing, no self cache. ``last_only`` unembeds only the last position
-    (the same numbers as slicing ``logits[:, -1:]``)."""
+    (the same numbers as slicing ``logits[:, -1:]``). ``tp``: on a data x
+    model mesh, ``params`` is this rank's shards of a
+    :func:`stack_params` dict and ``caches`` its shards by the table
+    (module docstring)."""
     if isinstance(params, dict):
         params = param_tree(params, cfg)
     dt = L.dtype_of(cfg.dtype)
     B, S = tokens.shape
+    csplit = None
+    if tp is not None and caches is not None:
+        csplit = tp.cache_split(
+            cfg, params.dec_blocks[0].cross_attn.wq.shape[1]
+            if tp.split("dec_blocks.cross_attn.wo") else 0)
     if embeddings is not None:
         cross = compute_cross_kv(params, cfg,
-                                 encode(params, cfg, embeddings))
+                                 encode(params, cfg, embeddings, tp), tp)
     elif caches is not None and caches.get("cross") is not None:
         cross = caches["cross"]
     else:
@@ -231,7 +285,8 @@ def forward(params, cfg, tokens, *, positions=None, caches=None,
             "(embeddings=, from repro_torch.models.frontend) or caches "
             "holding the cross K/V of an earlier prefill")
 
-    x = params.embed[tokens].to(dt)
+    x = (params.embed[tokens] if tp is None
+         else tp.embed(params.embed, tokens)).to(dt)
     if positions is None:
         positions = torch.arange(S, device=x.device) + (
             0 if cache_index is None else int(cache_index))
@@ -246,17 +301,21 @@ def forward(params, cfg, tokens, *, positions=None, caches=None,
     for i, bp in enumerate(params.dec_blocks):
         if remat:
             x, nc = checkpoint(_dec_block, bp, cfg, x, positions, cross[i],
-                               None, None, use_reentrant=False)
+                               None, None, tp, use_reentrant=False)
         else:
             x, nc = _dec_block(bp, cfg, x, positions, cross[i],
                                None if self_caches is None else self_caches[i],
-                               cache_index)
+                               cache_index, tp, caches is not None)
         new_self.append(nc)
 
     if last_only:
         x = x[:, -1:]
     x = _ln(params.dec_norm, cfg, x)
-    logits = x @ params.embed.T.to(dt)                  # tied
+    w_out = params.embed.T.to(dt)                       # tied
+    logits = x @ w_out if tp is None else tp.unembed(x, w_out, True)
+    if csplit is not None and embeddings is not None:
+        # the prefill's whole cross K/V → the head_dim slices cached
+        cross = [{k: csplit.store(v) for k, v in c.items()} for c in cross]
     new_caches = None if caches is None else {"self": new_self,
                                               "cross": cross}
     return logits, new_caches, torch.zeros((), dtype=torch.float32,

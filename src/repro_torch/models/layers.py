@@ -215,7 +215,8 @@ def heads_in(x, w):
 
 
 def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
-                    cache_index: Optional[int] = None, cross_kv=None):
+                    cache_index: Optional[int] = None, cross_kv=None,
+                    split=None):
     """Self- (or cross-) attention with optional KV cache. Returns (out,
     new_cache).
 
@@ -227,6 +228,11 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
     cross_kv: (k, v) (B, T, K, hd) given (an encoder's states): q comes
     from x, k and v get no norm and no RoPE, nothing is masked, and the
     cache comes back untouched.
+    split: a :class:`repro_torch.sharding.parallel.CacheSplit` when the
+    cache (or, at decode, the cross K/V) holds this rank's head_dim slice
+    of every kv head: ``p``'s kv projection is whole, the kernel runs on
+    this rank's query heads at a prefill, the cache stores the slice, and
+    a decode step reads it through the split's collectives.
     """
     dt = dtype_of(cfg.dtype)
     x = x.to(dt)
@@ -252,8 +258,14 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
 
     if cross_kv is not None:
         kw = dict(causal=False, window=0, softcap=cfg.logit_softcap)
-        out = (ops.flash_attention(q, k, v, **kw) if S > 1
-               else attention_reference(q, k, v, **kw))
+        if split is None:
+            out = (ops.flash_attention(q, k, v, **kw) if S > 1
+                   else attention_reference(q, k, v, **kw))
+        elif S > 1:                 # the encoder's whole K/V, just computed
+            out = ops.flash_attention(q, split.for_kernel(k),
+                                      split.for_kernel(v), **kw)
+        else:                       # the cached head_dim slices
+            out = split.decode(q, k, v, q_offset=0, k_len=None, **kw)
         return project_out(out), cache
 
     if cache is None:
@@ -264,39 +276,47 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
     C = cache["k"].shape[1]
     idx = 0 if cache_index is None else int(cache_index)
     cdt = cache["k"].dtype
+    # what the cache stores, and the kv heads the kernel reads at a prefill
+    k_st, v_st = (k, v) if split is None else (split.store(k), split.store(v))
+    k_in, v_in = (k, v) if split is None else (split.for_kernel(k),
+                                               split.for_kernel(v))
 
     if window > 0 and C == window:
         # circular: write the last min(S, C) tokens at slot = position % C
         tail = min(S, C)
         slots = (idx + (S - tail) + torch.arange(tail, device=x.device)) % C
-        ck = cache["k"].index_copy(1, slots, k[:, S - tail:].to(cdt))
-        cv = cache["v"].index_copy(1, slots, v[:, S - tail:].to(cdt))
+        ck = cache["k"].index_copy(1, slots, k_st[:, S - tail:].to(cdt))
+        cv = cache["v"].index_copy(1, slots, v_st[:, S - tail:].to(cdt))
         if S > 1:
             # single-shot prefill: attention over the fresh sequence
-            out = ops.flash_attention(q, k, v, causal=True, window=window,
+            out = ops.flash_attention(q, k_in, v_in, causal=True,
+                                      window=window,
                                       softcap=cfg.logit_softcap)
         else:
             # decode: every valid cache slot is an in-window past position
             kl = torch.full((B,), min(idx + S, C), dtype=torch.int32,
                             device=x.device)
-            out = attention_reference(q, ck, cv, causal=False, window=0,
-                                      softcap=cfg.logit_softcap, k_len=kl)
+            kw = dict(causal=False, window=0, softcap=cfg.logit_softcap,
+                      k_len=kl)
+            out = (attention_reference(q, ck, cv, **kw) if split is None
+                   else split.decode(q, ck, cv, q_offset=0, **kw))
         return project_out(out), {"k": ck, "v": cv}
 
     # linear buffer (the start clamps so the update fits, as
     # dynamic_update_slice does)
     start = min(max(idx, 0), C - S)
     ck, cv = cache["k"].clone(), cache["v"].clone()
-    ck[:, start:start + S] = k.to(cdt)
-    cv[:, start:start + S] = v.to(cdt)
+    ck[:, start:start + S] = k_st.to(cdt)
+    cv[:, start:start + S] = v_st.to(cdt)
     if S > 1:
-        out = ops.flash_attention(q, k, v, causal=True, window=window,
+        out = ops.flash_attention(q, k_in, v_in, causal=True, window=window,
                                   softcap=cfg.logit_softcap)
     else:
         kl = torch.full((B,), idx + S, dtype=torch.int32, device=x.device)
-        out = attention_reference(q, ck, cv, causal=True, window=window,
-                                  q_offset=idx, softcap=cfg.logit_softcap,
-                                  k_len=kl)
+        kw = dict(causal=True, window=window, q_offset=idx,
+                  softcap=cfg.logit_softcap, k_len=kl)
+        out = (attention_reference(q, ck, cv, **kw) if split is None
+               else split.decode(q, ck, cv, **kw))
     return project_out(out), {"k": ck, "v": cv}
 
 
@@ -346,12 +366,21 @@ def act_fn(name: str):
             "relu": F.relu}[name]
 
 
-def mlp_block(p, cfg, x):
+def mlp_block(p, cfg, x, region=None):
+    """The gated or plain MLP. ``region``: its
+    :class:`repro_torch.sharding.parallel.Region` on a mesh (``p`` this
+    rank's columns of ``w_gate``/``w_up`` and rows of ``w_down``, a plain
+    MLP's ``b_up`` cut to those columns): ``x`` enters through *f*, the
+    partial sums leave through *g*, and ``b_down`` is added once after
+    it."""
     dt = dtype_of(cfg.dtype)
     x = x.to(dt)
     act = act_fn(cfg.act)
+    enter = (lambda t: t) if region is None else region.enter
+    reduce = (lambda t: t) if region is None else region.reduce
+    x = enter(x)
     if hasattr(p, "w_gate"):
         h = act(x @ p.w_gate.to(dt)) * (x @ p.w_up.to(dt))
-        return h @ p.w_down.to(dt)
+        return reduce(h @ p.w_down.to(dt))
     h = act(x @ p.w_up.to(dt) + p.b_up.to(dt))
-    return h @ p.w_down.to(dt) + p.b_down.to(dt)
+    return reduce(h @ p.w_down.to(dt)) + p.b_down.to(dt)

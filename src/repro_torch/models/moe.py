@@ -159,7 +159,7 @@ def moe_block(p, cfg, x, *, capacity: Optional[int] = None, tp=None):
     y = experts_tp.reduce(combine(r, ho, N, m.top_k))
     if hasattr(p, "shared"):
         shared_tp = (Region() if tp is None
-                     else tp.mlp_region(p.shared, "blocks.mlp.shared.w_down"))
+                     else tp.region("blocks.mlp.shared.w_down"))
         sg = torch.sigmoid(xf.to(torch.float32)
                            @ p.shared_gate.to(torch.float32))
         y = y + shared_tp.reduce(

@@ -25,6 +25,25 @@ Training reads the params as a flat dict in that JAX leaf structure
 records gradients recomputes each whole period in the backward, as the
 JAX package checkpoints its period function (the remainder layers are not
 recomputed), so B3 and B4 run again for those layers.
+
+On a data x model mesh (``tp``, :mod:`repro_torch.sharding.parallel`) a
+recurrent block whose leaves the table splits on the RG-LRU width (the
+remainder layers, unstacked) runs as one region: ``w_branch_x`` and
+``w_branch_gate`` by column, ``w_a``/``w_x`` by block, ``b_a``, ``b_x``,
+``lam`` by width, ``w_out`` by row; the replicated conv weight and bias
+enter through *f* cut to this rank's width columns, so the scan kernel
+runs on this rank's (B, T, W/m). The table puts the recurrent state
+``h`` and the conv state on the batch dim only, whole width on every
+rank: a serving step reads its width slice of each and all-gathers the
+new state over the model group, so the state stays where the table puts
+it, at (m − 1)/m · B·W·(4 + (w − 1)·e) bytes a layer and step received
+per rank (e bytes an activation element, w the conv width). The period-stacked leaves the
+table splits on d or on the period dim (its stack dim is not skipped
+for ``periods.<j>`` paths) are gathered whole a layer at a time and
+their blocks run whole on every rank (:meth:`~repro_torch.sharding.
+parallel.TensorParallel.materialize`). The local attention serves from a
+KV cache split on head_dim when its kv head does not divide the model
+axis (:class:`~repro_torch.sharding.parallel.CacheSplit`).
 """
 from __future__ import annotations
 
@@ -39,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.sharding.parallel import Region, gather
 
 RGLRU_C = 8.0
 
@@ -158,19 +178,58 @@ class RecurrentBlock(nn.Module):
         self.mlp = L.Mlp(cfg, **kw)
 
 
-def recurrent_block(bp, cfg, x, state=None):
-    """Griffin recurrent block. state: {'conv': ..., 'h': ...} or None."""
+#: the dims a recurrent block's region splits its leaves on (any other
+#: split is gathered whole first)
+_KEEP_REC = {"w_branch_x": 1, "w_branch_gate": 1, "w_out": 0,
+             "rglru.w_a": 0, "rglru.w_x": 0, "rglru.b_a": 0, "rglru.b_x": 0,
+             "rglru.lam": 0}
+_KEEP_MLP = {"mlp.w_gate": 1, "mlp.w_up": 1, "mlp.w_down": 0}
+_KEEP_ATT = {"attn.wq": 1, "attn.wk": 1, "attn.wv": 1, "attn.wo": 0}
+
+
+def _keep(bp, regions):
+    """The dims each region of ``bp`` splits on, for the regions whose
+    every leaf the table splits there (else none: gathered whole)."""
+    keep = {}
+    for region in regions:
+        if all(bp._specs.get(k) == d for k, d in region.items()):
+            keep.update(region)
+    return keep
+
+
+def recurrent_block(bp, cfg, x, state=None, tp=None):
+    """Griffin recurrent block. state: {'conv': ..., 'h': ...} or None.
+    ``tp``: the mesh's view (see the module docstring)."""
     dt = L.dtype_of(cfg.dtype)
-    h = L.rms_norm(x, bp.norm, cfg.norm_eps)
+    region, mlp_split, conv, cols = Region(), False, bp.conv, None
+    if tp is not None:
+        bp, left = tp.materialize(bp, bp._specs,
+                                  _keep(bp, (_KEEP_REC, _KEEP_MLP)))
+        mlp_split = "mlp.w_down" in left
+        if "w_out" in left:
+            region = Region(tp.group)
+            n = bp.w_out.shape[0]
+            cols = slice(tp.rank * n, (tp.rank + 1) * n)
+            conv = SimpleNamespace(w=region.enter(bp.conv.w)[:, cols],
+                                   b=region.enter(bp.conv.b)[cols])
+            if state is not None:
+                state = {"conv": state["conv"][..., cols],
+                         "h": state["h"][:, cols]}
+    h = region.enter(L.rms_norm(x, bp.norm, cfg.norm_eps))
     gate = F.gelu(h @ bp.w_branch_gate.to(dt), approximate="tanh")
     u = h @ bp.w_branch_x.to(dt)
-    u, new_conv = conv1d_apply(bp.conv, u,
+    u, new_conv = conv1d_apply(conv, u,
                                None if state is None else state["conv"])
     y, h_last = rglru_apply(bp.rglru, cfg, u,
                             None if state is None else state["h"])
-    x = x + (y * gate) @ bp.w_out.to(dt)
+    x = x + region.reduce((y * gate) @ bp.w_out.to(dt))
     hh = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
-    x = x + L.mlp_block(bp.mlp, cfg, hh)
+    mlp, mreg = ((bp.mlp, None) if tp is None
+                 else tp.mlp_params(bp.mlp, mlp_split))
+    x = x + L.mlp_block(mlp, cfg, hh, mreg)
+    if cols is not None and state is not None:
+        new_conv = gather(new_conv, tp.group, tp.model_size, -1)
+        h_last = gather(h_last, tp.group, tp.model_size, -1)
     return x, {"conv": new_conv, "h": h_last}
 
 
@@ -185,14 +244,23 @@ class AttentionBlock(nn.Module):
         self.mlp = L.Mlp(cfg, generator=generator, device=device)
 
 
-def attention_block(bp, cfg, x, positions, cache=None, cache_index=None):
+def attention_block(bp, cfg, x, positions, cache=None, cache_index=None,
+                    tp=None):
+    attn, region, csplit, mlp, mreg = bp.attn, Region(), None, bp.mlp, None
+    if tp is not None:
+        bp, left = tp.materialize(bp, bp._specs,
+                                  _keep(bp, (_KEEP_ATT, _KEEP_MLP)))
+        attn, region, csplit = tp.attention_params(
+            bp.attn, cfg, split="attn.wo" in left,
+            cache=None if cache is None else cache["k"])
+        mlp, mreg = tp.mlp_params(bp.mlp, "mlp.w_down" in left)
     h = L.rms_norm(x, bp.norm, cfg.norm_eps)
     a, new_cache = L.attention_block(
-        bp.attn, cfg, h, positions, window=cfg.sliding_window,
-        cache=cache, cache_index=cache_index)
-    x = x + a
+        attn, cfg, region.enter(h), positions, window=cfg.sliding_window,
+        cache=cache, cache_index=cache_index, split=csplit)
+    x = x + region.reduce(a)
     hh = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
-    x = x + L.mlp_block(bp.mlp, cfg, hh)
+    x = x + L.mlp_block(mlp, cfg, hh, mreg)
     return x, new_cache
 
 
@@ -256,23 +324,35 @@ def jax_name(model: RecurrentGemma, name: str) -> tuple:
     return f"rem.{j}.{leaf}", None
 
 
-def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
+def param_tree(params: Dict[str, torch.Tensor], cfg,
+               tp=None) -> SimpleNamespace:
     """A :func:`stack_params` dict → the tree :func:`forward` reads, with
     ``blocks`` a list of per-layer namespaces (views ``t[i]`` of the
-    periods) in layer order."""
+    periods) in layer order. With ``tp`` (this rank's shards) each layer
+    carries ``_specs``, the table's split dim of each of its leaves, and
+    the leaves split on the period dim are gathered whole first."""
     P = len(cfg.rglru.block_pattern)
     n_full = cfg.num_layers // P
     tree = L.namespace({k: v for k, v in params.items()
                         if k.partition(".")[0] not in ("periods", "rem")})
     blocks = [None] * cfg.num_layers
     for j in range(P if n_full else 0):
+        prefix = f"periods.{j}."
+        if tp is not None:
+            params = tp.gather_stack_splits(params, prefix)
         for i, bp in enumerate(L.unstack_layers(params, f"periods.{j}",
                                                 n_full, cfg)):
+            if tp is not None:
+                bp._specs = tp.layer_specs(prefix, True)
             blocks[i * P + j] = bp
     for j in range(cfg.num_layers - n_full * P):
-        blocks[n_full * P + j] = L.with_rope(L.namespace(
-            {k[len(f"rem.{j}."):]: v for k, v in params.items()
-             if k.startswith(f"rem.{j}.")}), cfg)
+        prefix = f"rem.{j}."
+        bp = L.with_rope(L.namespace(
+            {k[len(prefix):]: v for k, v in params.items()
+             if k.startswith(prefix)}), cfg)
+        if tp is not None:
+            bp._specs = tp.layer_specs(prefix, False)
+        blocks[n_full * P + j] = bp
     tree.blocks = blocks
     return tree
 
@@ -313,33 +393,40 @@ def init_cache(cfg, batch: int, seq_len: int, *, device="cuda"):
     return [one(t) for t in layer_types(cfg)]
 
 
-def _layer(t, bp, cfg, x, positions, state, cache_index):
+def _layer(t, bp, cfg, x, positions, state, cache_index, tp=None):
     if t == "recurrent":
-        return recurrent_block(bp, cfg, x, state)
-    return attention_block(bp, cfg, x, positions, state, cache_index)
+        return recurrent_block(bp, cfg, x, state, tp)
+    return attention_block(bp, cfg, x, positions, state, cache_index, tp)
 
 
-def _period(blocks, cfg, x, positions):
+def _period(blocks, cfg, x, positions, tp=None):
     """One whole pattern period without caches (the unit remat
     recomputes)."""
     for t, bp in zip(cfg.rglru.block_pattern, blocks):
-        x, _ = _layer(t, bp, cfg, x, positions, None, None)
+        x, _ = _layer(t, bp, cfg, x, positions, None, None, tp)
     return x
 
 
 def forward(model, cfg, tokens, *, positions=None, caches=None,
             cache_index: Optional[int] = None,
             embeddings: Optional[torch.Tensor] = None,
-            last_only: bool = False):
+            last_only: bool = False, tp=None):
     """tokens (B, S) → (logits (B, S or 1, V) in cfg.dtype, new caches or
     None, aux 0.0). ``model`` is a :class:`RecurrentGemma` or a
     :func:`stack_params` dict. ``embeddings`` (B, S, d) bypasses the embed
     table. ``last_only`` unembeds only the last position (the same
-    numbers as slicing ``logits[:, -1:]``)."""
+    numbers as slicing ``logits[:, -1:]``). ``tp``: on a data x model
+    mesh, ``model`` is this rank's shards of a :func:`stack_params` dict
+    and ``caches`` its shards by the table (module docstring)."""
     if isinstance(model, dict):
-        model = param_tree(model, cfg)
+        model = param_tree(model, cfg, tp)
     dt = L.dtype_of(cfg.dtype)
-    x = (model.embed[tokens] if embeddings is None else embeddings).to(dt)
+    if embeddings is not None:
+        x = embeddings.to(dt)
+    elif tp is not None:
+        x = tp.embed(model.embed, tokens).to(dt)
+    else:
+        x = model.embed[tokens].to(dt)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device) + (
@@ -352,19 +439,20 @@ def forward(model, cfg, tokens, *, positions=None, caches=None,
         P = len(cfg.rglru.block_pattern)
         for i in range(0, cfg.num_layers // P * P, P):
             x = checkpoint(_period, model.blocks[i:i + P], cfg, x, positions,
-                           use_reentrant=False)
+                           tp, use_reentrant=False)
             new_caches += [None] * P
         start = len(new_caches)
     for i in range(start, cfg.num_layers):
         st = None if caches is None else caches[i]
         x, ns = _layer(types[i], model.blocks[i], cfg, x, positions, st,
-                       cache_index)
+                       cache_index, tp)
         new_caches.append(ns)
 
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
-    logits = x @ model.unembed.to(dt)
+    w_out = model.unembed.to(dt)
+    logits = x @ w_out if tp is None else tp.unembed(x, w_out, False)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(
             logits.to(torch.float32) / cfg.logit_softcap).to(dt)

@@ -97,18 +97,20 @@ def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
 
 def _block_apply(bp, cfg, x, positions, cache, cache_index, tp=None):
     h = L.rms_norm(x, bp.attn_norm, cfg.norm_eps)
-    attn, region = ((bp.attn, Region()) if tp is None
-                    else tp.attention_params(bp.attn, cfg))
+    attn, region, csplit = (
+        (bp.attn, Region(), None) if tp is None
+        else tp.attention_params(bp.attn, cfg,
+                                 cache=None if cache is None else cache["k"]))
     a, new_cache = L.attention_block(
         attn, cfg, region.enter(h), positions, window=cfg.sliding_window,
-        cache=cache, cache_index=cache_index)
+        cache=cache, cache_index=cache_index, split=csplit)
     x = x + region.reduce(a)
     h = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
     if cfg.moe is not None:
         y, aux = moe.moe_block(bp.mlp, cfg, h, tp=tp)
     else:
         region = (Region() if tp is None
-                  else tp.mlp_region(bp.mlp, "blocks.mlp.w_down"))
+                  else tp.region("blocks.mlp.w_down"))
         y = region.reduce(L.mlp_block(bp.mlp, cfg, region.enter(h)))
         aux = None
     return x + y, new_cache, aux
@@ -134,17 +136,12 @@ def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
     and the logits come back whole. When the mesh has a data axis the
     MoE routes per data shard (:func:`repro_torch.models.moe.moe_block`).
     A ``cfg.remat`` block is recomputed with the ``tp`` of its forward.
-    Caches on the mesh hold this rank's kv heads, so their kv heads must
-    split over ``model`` as the query heads do."""
+    Caches on the mesh are this rank's shards by the table
+    (:func:`repro_torch.sharding.parallel.shard_cache`): its kv heads, or,
+    when the kv heads do not divide the model axis, every kv head's
+    head_dim slice (:class:`repro_torch.sharding.parallel.CacheSplit`)."""
     if isinstance(model, dict):
         model = param_tree(model, cfg)
-    if (tp is not None and caches is not None and tp.split("blocks.attn.wo")
-            and not tp.split("blocks.attn.wk")):
-        raise ValueError(
-            f"{cfg.name}: {cfg.num_kv_heads} kv heads do not split over a "
-            f"model axis of {tp.model_size}, so the table places its KV "
-            "cache on head_dim, which this forward does not read; serve it "
-            "with a model axis that divides the kv heads, or without a mesh")
     dt = L.dtype_of(cfg.dtype)
     if embeddings is not None:
         x = embeddings.to(dt)

@@ -20,6 +20,19 @@ The model is one ``nn.Module`` whose ``blocks`` sit in layer order, as the
 JAX package's tuple of per-layer dicts does; its flat parameter names
 (``blocks.<i>.<leaf>``) are already the JAX leaf structure
 (:func:`stack_params`). The caches are a list of per-layer states.
+
+On a data x model mesh (``tp``, :mod:`repro_torch.sharding.parallel`)
+the embedding and unembedding split over the vocabulary and the sLSTM
+block's feed-forward ``w_ff1``/``w_ff2`` runs as a column/row region.
+The mLSTM and sLSTM cells' leaves stay whole on every rank, as the table
+leaves them, and run with no collective; the table also splits the
+mLSTM block's ``w_up``, ``w_gate`` and ``w_down`` (by their MLP names),
+which the mLSTM cell reads whole, so those three are gathered whole
+before the block runs (about 3·d·pdim·4 bytes received per rank a block
+and step, f32 params) and the block runs whole on every rank
+(:meth:`~repro_torch.sharding.parallel.TensorParallel.materialize`).
+The recurrent states are whole on every rank (the table puts them on
+the batch dim only) and need no collective.
 """
 from __future__ import annotations
 
@@ -34,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.rglru import Conv1d, conv1d_apply
+from repro_torch.sharding.parallel import Region
 
 F32 = torch.float32
 
@@ -170,6 +184,8 @@ def slstm_apply(p, x, state=None):
     # gates z, i, f, o side by side: (H, hd, 4·hd)
     R = torch.cat([getattr(p, f"r_{g}").to(F32) for g in "zifo"], dim=-1)
     bias = p.b.to(F32)                          # (4, H, hd)
+    if x.device.type == "meta" and T > 1:
+        return _slstm_meta(wx, R, bias, (c, n, m, h), x.dtype)
     hs = []
     for t in range(T):
         rec = torch.einsum("bhk,hkj->bhj", h, R).unflatten(-1, (4, hd))
@@ -188,6 +204,35 @@ def slstm_apply(p, x, state=None):
         hs.append(h)
     y = torch.stack(hs, dim=1).reshape(B, T, H * hd)
     return y.to(x.dtype), (c, n, m, h)
+
+
+def _slstm_meta(wx, R, bias, state, dtype):
+    """The sLSTM's time loop on ``meta`` tensors (the dry run,
+    :mod:`repro_torch.launch.dryrun`), where only shapes exist: every step
+    at once, each op over (B, T, ·) where the loop's runs T times over (B,
+    ·). The recurrent product reads the input gate's contribution in place
+    of the previous step's h (the same shape; values do not exist on
+    meta), so the forward and backward matmul FLOPs, the elementwise
+    bytes and the saved activations are the loop's, in T times fewer
+    dispatches (the loop costs ~15 meta ops a step, ~0.2 ms each on a
+    host CPU)."""
+    B, T, _, H, hd = wx.shape
+    c, n, m, _ = (t[:, None] for t in state)
+    rec = torch.einsum("bthk,hkj->bthj", wx[:, :, 3], R).unflatten(
+        -1, (4, hd))
+    pre = wx + rec.transpose(2, 3) + bias              # (B, T, 4, H, hd)
+    z = torch.tanh(pre[:, :, 0])
+    li = pre[:, :, 1]
+    lf = F.logsigmoid(pre[:, :, 2])
+    o = torch.sigmoid(pre[:, :, 3])
+    m_new = _finite(torch.maximum(lf + m, li))
+    a = torch.exp(lf + m - m_new)
+    bcf = torch.exp(li - m_new)
+    c = a * c + bcf * z
+    n = a * n + bcf
+    h = o * c / n.clamp(min=1e-6)
+    y = h.reshape(B, T, H * hd).clone()                # the loop's stack
+    return y.to(dtype), (c[:, -1], n[:, -1], m_new[:, -1], h[:, -1])
 
 
 # ---------------------------------------------------------------------------
@@ -229,9 +274,12 @@ class MLSTMBlock(nn.Module):
         self.w_down = L.param(L.dense_init((pdim, d), **kw))
 
 
-def mlstm_block(bp, cfg, x, state=None, *, chunk: int = 256):
+def mlstm_block(bp, cfg, x, state=None, tp=None, *, chunk: int = 256):
     """state: {'conv': (B, w-1, pdim), 'cell': (C, n, m)} or None.
-    Returns (x + y, new state)."""
+    Returns (x + y, new state). ``tp``: the mesh's view (the block runs
+    whole on every rank; module docstring)."""
+    if tp is not None:
+        bp, _ = tp.materialize(bp, bp._specs, {})
     dt = L.dtype_of(cfg.dtype)
     B, T, d = x.shape
     H = cfg.num_heads
@@ -303,8 +351,20 @@ class SLSTMBlock(nn.Module):
         self.w_ff2 = L.param(L.dense_init((fdim, d), **kw))
 
 
-def slstm_block(bp, cfg, x, state=None):
-    """state: {'conv': (B, w-1, d), 'cell': (c, n, m, h)} or None."""
+_KEEP_FF = {"w_ff1": 1, "w_ff2": 0}
+
+
+def slstm_block(bp, cfg, x, state=None, tp=None):
+    """state: {'conv': (B, w-1, d), 'cell': (c, n, m, h)} or None.
+    ``tp``: the mesh's view (the feed-forward region; module
+    docstring)."""
+    region = Region()
+    if tp is not None:
+        keep = (_KEEP_FF if all(bp._specs.get(k) == d
+                                for k, d in _KEEP_FF.items()) else {})
+        bp, left = tp.materialize(bp, bp._specs, keep)
+        if "w_ff2" in left:
+            region = Region(tp.group)
     dt = L.dtype_of(cfg.dtype)
     h = L.rms_norm(x, bp.norm, cfg.norm_eps)
     c, new_conv = conv1d_apply(bp.conv, h,
@@ -313,9 +373,9 @@ def slstm_block(bp, cfg, x, state=None):
     y, new_cell = slstm_apply(bp.cell, c,
                               None if state is None else state["cell"])
     x = x + y.to(dt)
-    hh = L.rms_norm(x, bp.mlp_norm, cfg.norm_eps)
+    hh = region.enter(L.rms_norm(x, bp.mlp_norm, cfg.norm_eps))
     ff = L.act_fn("gelu")(hh @ bp.w_ff1.to(dt)) @ bp.w_ff2.to(dt)
-    return x + ff, {"conv": new_conv, "cell": new_cell}
+    return x + region.reduce(ff), {"conv": new_conv, "cell": new_cell}
 
 
 # ---------------------------------------------------------------------------
@@ -368,12 +428,17 @@ def jax_name(model: XLSTM, name: str) -> tuple:
     return name, None
 
 
-def param_tree(params: Dict[str, torch.Tensor], cfg) -> SimpleNamespace:
+def param_tree(params: Dict[str, torch.Tensor], cfg,
+               tp=None) -> SimpleNamespace:
     """A :func:`stack_params` dict → the tree :func:`forward` reads, with
-    ``blocks`` a list of per-layer namespaces."""
+    ``blocks`` a list of per-layer namespaces (with ``tp``, each carrying
+    ``_specs``, the table's split dim of each of its leaves)."""
     tree = L.namespace(params)
     tree.blocks = [getattr(tree.blocks, str(i))
                    for i in range(cfg.num_layers)]
+    if tp is not None:
+        for i, bp in enumerate(tree.blocks):
+            bp._specs = tp.layer_specs(f"blocks.{i}.", False)
     return tree
 
 
@@ -407,32 +472,40 @@ def init_cache(cfg, batch: int, seq_len: int, *, device="cuda"):
 def forward(params, cfg, tokens, *, positions=None, caches=None,
             cache_index: Optional[int] = None,
             embeddings: Optional[torch.Tensor] = None,
-            last_only: bool = False):
+            last_only: bool = False, tp=None):
     """tokens (B, S) → (logits (B, S or 1, V) in cfg.dtype, new states or
     None, aux 0 f32). ``params``: an :class:`XLSTM` or a
     :func:`stack_params` dict. ``positions`` and ``cache_index`` are taken
     for the common signature: the states carry the position. With
     ``cfg.remat`` a forward that records gradients recomputes each block
-    in the backward (``torch.utils.checkpoint``)."""
+    in the backward (``torch.utils.checkpoint``). ``tp``: on a data x
+    model mesh, ``params`` is this rank's shards of a
+    :func:`stack_params` dict (module docstring)."""
     if isinstance(params, dict):
-        params = param_tree(params, cfg)
+        params = param_tree(params, cfg, tp)
     dt = L.dtype_of(cfg.dtype)
-    x = (params.embed[tokens] if embeddings is None else embeddings).to(dt)
+    if embeddings is not None:
+        x = embeddings.to(dt)
+    elif tp is not None:
+        x = tp.embed(params.embed, tokens).to(dt)
+    else:
+        x = params.embed[tokens].to(dt)
     remat = cfg.remat and torch.is_grad_enabled()
     new_states = []
     for i, kind in enumerate(layer_kinds(cfg)):
         fn = slstm_block if kind == "slstm" else mlstm_block
         st = None if caches is None else caches[i]
         if remat:
-            x, ns = checkpoint(fn, params.blocks[i], cfg, x, st,
+            x, ns = checkpoint(fn, params.blocks[i], cfg, x, st, tp,
                                use_reentrant=False)
         else:
-            x, ns = fn(params.blocks[i], cfg, x, st)
+            x, ns = fn(params.blocks[i], cfg, x, st, tp)
         new_states.append(ns)
     if last_only:
         x = x[:, -1:]
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
-    logits = x @ params.unembed.to(dt)
+    w_out = params.unembed.to(dt)
+    logits = x @ w_out if tp is None else tp.unembed(x, w_out, False)
     return (logits, None if caches is None else new_states,
             torch.zeros((), dtype=F32, device=x.device))
 

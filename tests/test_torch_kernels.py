@@ -159,10 +159,24 @@ def test_wrapper_guards_and_no_fallback():
                                     torch.ones(4), torch.full_like(idx, bad),
                                     sig)
     # a tensor on a device with no kernel raises instead of falling back
-    # to the plain version
-    with pytest.raises(ValueError, match="no kernel"):
-        ops.consensus_update_pop(x.to("meta"), idx.to("meta"),
-                                 sig.to("meta"))
+    # to the plain version (``meta`` is the dry run's: shapes, no launch)
+    other = [t.as_subclass(OtherDevice) for t in (x, idx, sig)]
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        ops.consensus_update_pop(*other)
+    before = ops.consensus_update_pop.launches
+    out = ops.consensus_update_pop(x.to("meta"), idx.to("meta"),
+                                   sig.to("meta"))
+    assert out.device.type == "meta" and out.shape == x.shape
+    assert ops.consensus_update_pop.launches == before
+
+
+class OtherDevice(torch.Tensor):
+    """A CPU tensor that reports a device the wrappers have no kernel for
+    (``xpu``)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
 
 
 def _source_case(rng, N, qblock=None, B=3):

@@ -163,20 +163,35 @@ def test_rglru_scan_guards_match_jax(what, sa, sb, dtype, exc):
         ops.rglru_scan(torch.from_numpy(la), torch.from_numpy(b))
 
 
+class _OtherDevice(torch.Tensor):
+    """A CPU tensor that reports a device the wrappers have no kernel for
+    (``xpu``)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_lm_wrappers_have_no_fallback():
     """A tensor on a device with no kernel raises instead of falling back
-    to the plain version; the launch counters do not move."""
+    to the plain version; ``meta`` (the dry run) computes nothing and
+    launches nothing; the launch counters do not move."""
     before = (ops.rglru_scan.launches, ops.flash_attention.launches)
-    x = torch.zeros(1, 8, 2, 16, device="meta")
-    kv = torch.zeros(1, 8, 1, 16, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
+    x = torch.zeros(1, 8, 2, 16).as_subclass(_OtherDevice)
+    kv = torch.zeros(1, 8, 1, 16).as_subclass(_OtherDevice)
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
         ops.flash_attention(x, kv, kv)
-    a = torch.zeros(1, 8, 16, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
+    a = torch.zeros(1, 8, 16).as_subclass(_OtherDevice)
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
         ops.rglru_scan(a, a)
+    m = torch.zeros(1, 8, 16, device="meta")
+    h, last = ops.rglru_scan(m, m)
+    assert h.device.type == "meta" and last.shape == (1, 16)
+    q = torch.zeros(1, 8, 2, 16, device="meta")
+    assert ops.flash_attention(q, q[:, :, :1], q[:, :, :1]).shape == q.shape
     # mixed devices are refused too
     with pytest.raises(ValueError):
-        ops.rglru_scan(torch.zeros(1, 8, 16), a)
+        ops.rglru_scan(torch.zeros(1, 8, 16), m)
     assert (ops.rglru_scan.launches, ops.flash_attention.launches) == before
 
 
