@@ -95,7 +95,19 @@ Phases (any failure exits non-zero; nothing is caught):
                 masked sharded round at K = 16384 adds at most 4x the
                 population's f32 bytes to the peak allocation; (f)
                 ``repro_torch.launch.consensus_scale --smoke`` with its
-                gates.
+                gates; (g) in another NCCL group of world size 1, the FL
+                driver on the meshed engine at full width (paper-DQN x
+                K = 256, small_world(k=4), sharded with 1 block, links
+                fading with p = 0.3): ``multichip.fl_run``, the gloo
+                tests' FL case (``run_fl_until_scan`` at chunk 8 with
+                buffered telemetry and a generator), on the int8 (B1)
+                and f32 (B2) wires, == the same run without ``mesh=``
+                (params, t_i, history, generator, rows; disagreement
+                within its tolerance), B1 / B2 exactly 10 x the rounds
+                computed, the observer collectives' bytes, walls beside
+                the run without a mesh. As in (d), one rank exchanges
+                nothing: multi-rank runs are held by the gloo tests
+                (tests/test_torch_mesh_fl.py) alone.
 11. profile   — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
 12. lm_kernels — the RG-LRU scan and flash-attention kernels against their
@@ -1784,6 +1796,122 @@ def check_nccl_mesh():
         for r in rows) + " (one rank: no send/recv ran and the all_gather "
           "was a copy; multi-rank exchanges are held by the gloo tests "
           "only)", flush=True)
+
+
+#: part (g) of ``mesh``: chunk, rounds at most, and the rounds of the
+#: recorded run that reads the collectives
+MESH_FL = dict(chunk=8, max_rounds=12, recorded_rounds=2)
+
+
+def check_mesh_fl(cfg, smi):
+    """(g) The FL driver on a meshed engine at full width, in an NCCL
+    group of world size 1: paper-DQN (811,012 params) x K = 256,
+    small_world(k=4), the sharded plan with 1 block, links fading with
+    p = 0.3. ``multichip.fl_run`` (the gloo tests' FL case at this width:
+    ``run_fl_until_scan`` at chunk 8, buffered telemetry, a regression
+    pull toward seeded targets with the batches' noise and the stochastic
+    rounding from one generator, the hit mid-chunk from a probe run
+    without the mesh), on the int8 wire (B1) and the f32 wire (B2):
+    params, t_i, history, the generator's final state and every row's
+    exact fields ``==`` the same run without ``mesh=``, the disagreement
+    within its tolerance; the run's kernel launches exactly 10 x the
+    rounds computed and the other kernel none, on both paths. A 2-round
+    recorded run reads the observer collectives' bytes (population
+    gather, disagreement all-reduces) against ``audit_meta()`` and C3,
+    which books exactly the calls the run must make. One rank exchanges
+    nothing (the gather is a copy); the multi-rank exchanges are held by
+    the gloo tests alone (tests/test_torch_mesh_fl.py)."""
+    from repro_torch.core import topology
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import multichip
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    x = stacked_params(cfg, K_POP, gen)
+    n = sum(v[0].numel() for v in x.values())
+    topo = topology.small_world(K_POP, k=4, seed=1)
+    chunk, rounds = MESH_FL["chunk"], MESH_FL["max_rounds"]
+
+    def run(eng, thr):
+        zero_counts()
+        out = multichip.fl_run(eng, x, thr, chunk=chunk, device=DEVICE,
+                               max_rounds=rounds)
+        return dict(out, n=launch_counts())
+
+    store = Path(__file__).resolve().parent / "build" / "nccl_store_fl"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    counts, report = {}, {}
+    mesh_lib.init_local_group(0, 1, str(store), backend="nccl")
+    try:
+        mesh = mesh_lib.make_agent_mesh()
+        # NCCL sets a communicator up at a group's first collective: do it
+        # here, outside the timed runs
+        torch.distributed.all_reduce(torch.zeros(1, device=DEVICE))
+        for spec in ("int8", None):
+            kernel = ("quant_consensus_pop" if spec == "int8"
+                      else "consensus_update_pop")
+            on_mesh, alone = multichip.mesh_pair(topo, "sharded", spec, mesh)
+            if on_mesh.local_rows != slice(0, K_POP):
+                fail(f"(g) mesh engine holds rows {on_mesh.local_rows}")
+            thr = multichip.fl_threshold(
+                multichip.masked_engine(topo, "sharded", spec, num_blocks=1),
+                x, device=DEVICE)
+            want = run(alone, thr)
+            got = run(on_mesh, thr)
+            r = multichip.fl_compare(got, want, slice(0, K_POP), "sharded")
+            computed = multichip.rounds_computed(got["rounds"], chunk, rounds)
+            expect = {k: (len(x) * computed if k == kernel else 0)
+                      for k in KERNELS}
+            if not 1 < got["rounds"] < chunk:
+                fail(f"(g) {spec}: t_i {got['rounds']} is not mid-chunk")
+            if not (r["ok"] and r["bit_equal"] and r["history_equal"]
+                    and r["generator_equal"] and r["rows_equal"]
+                    and r["n_rows"] == got["rounds"]):
+                fail(f"(g) {spec}: the mesh run differs from the run "
+                     f"without a mesh: {r}")
+            if got["n"] != expect or want["n"] != expect:
+                fail(f"(g) {spec}: launches mesh {got['n']}, without "
+                     f"{want['n']}, expected {expect} ({computed} rounds)")
+            counts[f"mesh_fl_{spec}"] = got["n"]
+            recorded = multichip.fl_run(
+                on_mesh, x, -1.0, chunk=MESH_FL["recorded_rounds"],
+                device=DEVICE, max_rounds=MESH_FL["recorded_rounds"],
+                record=True)
+            ledger, c3 = multichip.fl_ledger(recorded,
+                                             f"smoke:mesh_fl/{spec}")
+            obs = {o["quantity"]: o["bytes"]
+                   for o in recorded["meta"]["observer_collectives"]}
+            if c3 or ledger.observer_calls != recorded["observer_calls"]:
+                fail(f"(g) {spec}: collectives {ledger} vs observers {obs}: "
+                     f"{[f.message for f in c3]}")
+            report[spec or "f32"] = dict(
+                t_i=got["rounds"], rounds_computed=computed,
+                launches=got["n"][kernel], wall_mesh_s=got["wall"],
+                wall_alone_s=want["wall"],
+                wall_ratio=got["wall"] / want["wall"],
+                disagreement_of_tol=r["disagreement_of_tol"],
+                observer_bytes_per_call=obs,
+                wire_bytes_per_round=ledger.wire_bytes
+                / MESH_FL["recorded_rounds"])
+            print(f"(g) {smi}: run_fl_until_scan K={K_POP} paper-dqn "
+                  f"({n} params) small_world sharded 1 block, fading, "
+                  f"codec={spec}, a generator: mesh == without a mesh "
+                  f"(params, t_i {got['rounds']}, history, generator, "
+                  f"{r['n_rows']} rows; disagreement "
+                  f"{r['disagreement_of_tol']:.3g} of its tolerance); "
+                  f"{kernel} {got['n'][kernel]} = 10 x {computed} rounds "
+                  f"on both; wall mesh {got['wall']} s, without "
+                  f"{want['wall']} s; per call: population gather "
+                  f"{obs['population for target_fn']} B, all-reduces "
+                  f"{obs['disagreement column sums']} + "
+                  f"{obs['disagreement distances']} B", flush=True)
+            del got, want, recorded
+            torch.cuda.empty_cache()
+    finally:
+        mesh_lib.destroy_local_group()
+    print(f"(g) numbers {json.dumps(report)}", flush=True)
+    return counts
 
 
 def check_h1():
@@ -3884,7 +4012,8 @@ def main():
                             ("(c) distributed", check_distributed, (cfg,)),
                             ("(d) NCCL mesh", check_nccl_mesh, ()),
                             ("(e) memory", check_h1, ()),
-                            ("(f) scale smoke", run_scale_smoke, ())):
+                            ("(f) scale smoke", run_scale_smoke, ()),
+                            ("(g) FL on a mesh", check_mesh_fl, (cfg, smi))):
         t = time.perf_counter()
         by_path.update(fn(*args) or {})
         torch.cuda.empty_cache()

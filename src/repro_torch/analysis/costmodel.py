@@ -24,7 +24,13 @@ C2  one dense-plan round's FLOPs, counted by
     audits the dense plan only: the JAX package's audit does the same
     (its Pallas calls report no flops either).
 C3  every c10d op a round dispatches is the plan's priced wire
-    (``engine.audit_meta()['priced_collectives']``), control plane
+    (``engine.audit_meta()['priced_collectives']``), one of a meshed
+    engine's observer collectives (``audit_meta()['observer_collectives']``:
+    the drivers' population gather for ``target_fn`` and telemetry's
+    disagreement all-reduces, matched by op AND bytes and booked only up
+    to the calls the audited run makes, :func:`observer_calls`, on a
+    ledger line of their own and never in the Eq.-(11) bill; a call past
+    that count, or a count not reached, is a finding), control plane
     (integer or bool payload, or at most ``CONTROL_BYTES_PER_AGENT`` x K
     bytes), or a finding: unbilled payload movement.
 
@@ -133,6 +139,10 @@ class StaticLedger:
     plan: Optional[str] = None
     codec: Optional[str] = None
     priced_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    #: bytes and calls of the observer collectives, by quantity (never
+    #: billed)
+    observer_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
+    observer_calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     control_bytes: int = 0
     unpriced_bytes: int = 0
 
@@ -147,21 +157,57 @@ class StaticLedger:
 # -- pure helpers ------------------------------------------------------------------
 
 
-def collective_ledger(meta: dict, records, label: str
+def observer_calls(evaluated: int, rows: int) -> Dict[str, int]:
+    """The observer calls a meshed driver run makes, by the quantities
+    ``ConsensusEngine.audit_meta()`` names: one population gather per
+    round ``target_fn`` evaluated, and the disagreement's two all-reduces
+    per telemetry row. A bare round makes none (``{}``)."""
+    return {"population for target_fn": evaluated,
+            "disagreement column sums": rows,
+            "disagreement distances": rows}
+
+
+def collective_ledger(meta: dict, records, label: str,
+                      observer_calls: Optional[Dict[str, int]] = None
                       ) -> Tuple[StaticLedger, List[Finding]]:
-    """C3 over one round's records: classify each collective as priced
-    (the plan's wire), control plane, or a finding. ``meta`` is
-    ``engine.audit_meta()``, or ``{}`` for a driver that prices no
-    collective."""
+    """C3 over one round's (or one driver run's) records: classify each
+    collective as priced (the plan's wire), an observer collective, control
+    plane, or a finding. ``meta`` is ``engine.audit_meta()``, or ``{}``
+    for a driver that prices no collective. ``observer_calls`` maps each
+    quantity of ``meta["observer_collectives"]`` to the calls the audited
+    run makes of it (:func:`observer_calls`; default none): a collective
+    of an observer's op and bytes is booked while its quantity has calls
+    left, one past them is a finding, and so is a quantity whose calls the
+    records do not reach."""
     priced = meta.get("priced_collectives") or {}
+    observers = list(meta.get("observer_collectives") or ())
+    left = dict(observer_calls or {})
     k = meta.get("K") or 0
     ledger = StaticLedger(label=label, plan=meta.get("plan"),
                           codec=meta.get("codec"))
     findings: List[Finding] = []
     for kind, shape, nbytes, dtypes in records:
+        named = [o["quantity"] for o in observers
+                 if (o["op"], o["bytes"]) == (kind, nbytes)]
+        quantity = next((q for q in named if left.get(q, 0) > 0), None)
         if kind in priced:
             ledger.priced_bytes[kind] = (
                 ledger.priced_bytes.get(kind, 0) + nbytes)
+        elif quantity is not None:
+            left[quantity] -= 1
+            ledger.observer_bytes[quantity] = (
+                ledger.observer_bytes.get(quantity, 0) + nbytes)
+            ledger.observer_calls[quantity] = (
+                ledger.observer_calls.get(quantity, 0) + 1)
+        elif named:
+            ledger.unpriced_bytes += nbytes
+            findings.append(Finding(
+                "C3", label, 0,
+                f"{kind} ships {nbytes} B of {shape}, the bytes of the "
+                f"observer collective {named[0]!r}, past the "
+                f"{(observer_calls or {}).get(named[0], 0)} call(s) the "
+                "audited run makes of it: data movement outside the "
+                "Eq.-(11) ledger"))
         elif dtypes <= CONTROL_DTYPES or nbytes <= CONTROL_BYTES_PER_AGENT * k:
             ledger.control_bytes += nbytes
         else:
@@ -173,6 +219,14 @@ def collective_ledger(meta: dict, records, label: str
                 f"{sorted(priced) or 'no collectives'}; map this "
                 "transfer to a link class in audit_meta() or allowlist "
                 "it with a note"))
+    for quantity, n in left.items():
+        if n:
+            findings.append(Finding(
+                "C3", label, 0,
+                f"observer collective {quantity!r}: "
+                f"{observer_calls[quantity]} call(s) expected, "
+                f"{observer_calls[quantity] - n} recorded — the driver "
+                "does not issue what audit_meta() describes"))
     return ledger, findings
 
 
@@ -396,12 +450,21 @@ MESH_CASES = tuple((plan, codec) for plan in ("sharded", "distributed")
                    for codec in (None, "int8"))
 
 
+#: rounds of each rank's meshed driver run (:func:`_mesh_rows`)
+MESH_DRIVER_ROUNDS = 2
+
+
 def _mesh_rows(rank: int, world: int, n: int) -> List[dict]:
-    """One rank's masked round of each pair of :data:`MESH_CASES` on the
-    initialised group (K = ``world``: one agent per position), recorded."""
+    """One rank's masked round and meshed driver run of each pair of
+    :data:`MESH_CASES` on the initialised group (K = ``world``: one agent
+    per position), each recorded with the observer calls it must make
+    (row key ``driver``: None for the round, which makes none). The
+    driver run is ``multichip.fl_run``: ``run_fl_until_scan`` at chunk 2
+    for :data:`MESH_DRIVER_ROUNDS` rounds, buffered telemetry, a
+    generator, a target never reached (every round evaluated)."""
     from repro_torch.core import topology as topo_lib
     from repro_torch.core.engine import ConsensusEngine
-    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import mesh as mesh_lib, multichip
 
     mesh = mesh_lib.make_agent_mesh(device_type="cpu")
     topo = topo_lib.ring(world)
@@ -414,14 +477,23 @@ def _mesh_rows(rank: int, world: int, n: int) -> List[dict]:
             num_blocks=world if plan == "sharded" else None,
             graph=topo_lib.GraphProcess.dropout(DROPOUT_P, seed=0))
         mine = {k: v[eng.local_rows].contiguous() for k, v in pop.items()}
+        agent = {k: v[0] for k, v in mine.items()}
+        per_round = expected_wire_bytes(eng, agent, rank)
         state = eng.init_state(mine)
         with CollectiveRecorder() as rec:
             eng.step(mine, state, t=0)
         rows.append(dict(
-            rank=rank, plan=plan, codec=codec, meta=eng.audit_meta(),
-            records=list(rec.records),
-            expected=expected_wire_bytes(
-                eng, {k: v[0] for k, v in mine.items()}, rank)))
+            rank=rank, plan=plan, codec=codec, driver=None,
+            meta=eng.audit_meta(agent), records=list(rec.records),
+            observer_calls={}, expected=per_round))
+        run = multichip.fl_run(eng, mine, -1.0, chunk=MESH_DRIVER_ROUNDS,
+                               device="cpu", max_rounds=MESH_DRIVER_ROUNDS,
+                               record=True)
+        rows.append(dict(
+            rank=rank, plan=plan, codec=codec, driver="run_fl_until_scan",
+            meta=run["meta"], records=run["records"],
+            observer_calls=run["observer_calls"],
+            expected=MESH_DRIVER_ROUNDS * per_round))
     return rows
 
 
@@ -429,9 +501,11 @@ def run_mesh_rounds(world: int = MESH_WORLD, n: int = 64, *,
                     timeout_s: float = 120.0) -> List[dict]:
     """Spawn a gloo group of ``world`` processes on this host
     (:func:`repro_torch.launch.mesh.run_on_group`: a file store, no
-    network) and record one masked round of each pair of
+    network) and record one masked round and the meshed
+    ``run_fl_until_scan`` (:func:`_mesh_rows`) of each pair of
     :data:`MESH_CASES` in every rank. Returns every rank's rows (meta,
-    records, expected bytes); raises if a rank failed or hung."""
+    records, observer calls, expected bytes); raises if a rank failed or
+    hung."""
     from repro_torch.launch import mesh as mesh_lib
 
     got = mesh_lib.run_on_group(world, _mesh_rows, n, timeout_s=timeout_s)
@@ -439,15 +513,19 @@ def run_mesh_rounds(world: int = MESH_WORLD, n: int = 64, *,
 
 
 def audit_mesh_ledgers(rows) -> List[Finding]:
-    """C1a + C3 on a real process group: each rank's recorded round of
-    each plan x codec (``rows``, from :func:`run_mesh_rounds`), its
-    :func:`collective_ledger`, and its shipped priced bytes against
-    :func:`expected_wire_bytes`."""
+    """C1a + C3 on a real process group: each rank's recorded round or
+    driver run of each plan x codec (``rows``, from
+    :func:`run_mesh_rounds`), its :func:`collective_ledger` with the
+    observer calls the row must make (none when the row names none), and
+    its shipped priced bytes against :func:`expected_wire_bytes` (times
+    the rounds a driver ran)."""
     findings: List[Finding] = []
     for row in rows:
-        label = (f"engine:{row['plan']}/{row['codec'] or 'f32'}/"
-                 f"p={DROPOUT_P}")
-        ledger, c3 = collective_ledger(row["meta"], row["records"], label)
+        label = (f"{'engine' if row.get('driver') is None else 'driver'}:"
+                 f"{row['plan']}/{row['codec'] or 'f32'}/p={DROPOUT_P}"
+                 + (f"/{row['driver']}" if row.get("driver") else ""))
+        ledger, c3 = collective_ledger(row["meta"], row["records"], label,
+                                       row.get("observer_calls"))
         findings += c3
         findings += check_wire_bytes(
             ledger.wire_bytes, row["expected"], label,
@@ -456,9 +534,11 @@ def audit_mesh_ledgers(rows) -> List[Finding]:
 
 
 def _tiny_drivers(device="cpu") -> List[Tuple[str, list]]:
-    """The chunked drivers tiny, each under the recorder: (name, records)
-    of ``engine.scan_rounds`` (async, telemetry), ``run_fl_until_scan``
-    (int8, chunk 2) and ``maml_train_scan``."""
+    """The chunked drivers tiny, in one process (engines without a mesh),
+    each under the recorder: (name, records) of ``engine.scan_rounds``
+    (async, telemetry), ``run_fl_until_scan`` (int8, chunk 2) and
+    ``maml_train_scan``. The meshed drivers run on the spawned group
+    (:func:`run_mesh_rounds`)."""
     from repro_torch import telemetry as telemetry_lib
     from repro_torch.core import federated, maml, topology as topo_lib
     from repro_torch.core.engine import ConsensusEngine
@@ -514,8 +594,10 @@ def audit_registered_collectives(drivers) -> List[Finding]:
     """C3 over the chunked drivers: the port has no program cache to
     recompile, so it runs each driver tiny in this process under the
     recorder (``drivers``: :func:`_tiny_drivers`' records) and demands
-    no payload collective — the drivers run in one process; any payload
-    collective here is data movement no ledger bills."""
+    no payload collective — without a mesh the drivers run in one
+    process; any payload collective here is data movement no ledger
+    bills. (On a mesh they add the observer collectives, which
+    :func:`audit_mesh_ledgers` books.)"""
     findings: List[Finding] = []
     for name, records in drivers:
         findings += collective_ledger({}, records, name)[1]
@@ -582,7 +664,8 @@ def audit_paper_width(k: int = 256, rounds: int = 3,
 
 def run_cost_audit(device="cpu") -> List[Finding]:
     """The full C-layer pass: C2, C1a + C3 on a spawned gloo group of
-    :data:`MESH_WORLD` ranks, C3 over the drivers and the C1b matrix, the
+    :data:`MESH_WORLD` ranks (a round and the meshed FL driver of each
+    plan x codec), C3 over the one-process drivers and the C1b matrix, the
     engine's rounds on ``device``; on the card also
     :func:`audit_paper_width`."""
     findings = audit_round_flops(device=device)

@@ -35,7 +35,7 @@ import re
 from typing import Iterable, List, Tuple
 
 #: the PR this tree is at: bump when a PR lands new allowlist entries
-CURRENT_PR = 22
+CURRENT_PR = 24
 
 #: an allowlist entry this many PRs old is stale: ``--strict`` warns (the
 #: debt stays allowlisted; expiry nags, it does not break)

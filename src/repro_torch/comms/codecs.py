@@ -35,9 +35,13 @@ IDX_BITS = 32.0          # int32 index per kept top-k entry
 
 
 def _stochastic_round(y: torch.Tensor,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[torch.Tensor] = None):
     """floor(y + u), u ~ U[0, 1): unbiased rounding; round half to even
-    without a generator."""
+    without a generator. ``noise``: u already drawn (y's shape), in place
+    of a draw from ``generator``."""
+    if noise is not None:
+        return torch.floor(y + noise.reshape(y.shape))
     if generator is None:
         return torch.round(y)
     u = torch.rand(y.shape, generator=generator, dtype=torch.float32,
@@ -54,19 +58,25 @@ class Codec:
     #: top-k) — drives the consensus auto dense-vs-sparse heuristic.
     bits_per_param: Optional[float] = None
 
-    def encode_leaf(self, rows, generator=None) -> dict:
+    def encode_leaf(self, rows, generator=None, noise=None) -> dict:
         raise NotImplementedError
+
+    def noise_shape(self, rows: int, n: int):
+        """Shape of the U[0, 1) tensor :meth:`encode_leaf` draws from a
+        generator for ``rows`` rows of width ``n`` (the tensor its
+        ``noise=`` takes instead), or None when it draws nothing."""
+        return None
 
     def decode_leaf(self, payload: dict, n: int) -> torch.Tensor:
         """(K, n) f32 rows from a payload."""
         raise NotImplementedError
 
-    def transmit(self, rows, residual=None, generator=None):
+    def transmit(self, rows, residual=None, generator=None, noise=None):
         """One agent-stacked leaf over the wire: ``(payload, x̂, residual)``,
         x̂ the decoded (K, n) f32 rows the receivers see, ``residual`` the
         new error-feedback state (None for a stateless codec). The wire is
         billed per round by ``Topology.round_comm_joules(codec=...)``."""
-        payload = self.encode_leaf(rows, generator)
+        payload = self.encode_leaf(rows, generator, noise)
         return payload, self.decode_leaf(payload, rows.shape[1]), None
 
     def leaf_bits(self, shape) -> float:
@@ -95,7 +105,7 @@ class IdentityCodec(Codec):
     name = "none"
     bits_per_param = F32_BITS
 
-    def encode_leaf(self, rows, generator=None):
+    def encode_leaf(self, rows, generator=None, noise=None):
         return {"v": rows.to(torch.float32)}
 
     def decode_leaf(self, payload, n):
@@ -114,7 +124,7 @@ class Bf16Codec(Codec):
     name = "bf16"
     bits_per_param = 16.0
 
-    def encode_leaf(self, rows, generator=None):
+    def encode_leaf(self, rows, generator=None, noise=None):
         return {"v": rows.to(torch.bfloat16)}
 
     def decode_leaf(self, payload, n):
@@ -156,19 +166,24 @@ class IntCodec(Codec):
             rows = torch.nn.functional.pad(rows, (0, pad))
         return rows.reshape(K, nb, self.block)
 
-    def encode_leaf(self, rows, generator=None):
+    def noise_shape(self, rows, n):
+        if self.block is None:
+            return (rows, n)
+        return (rows, -(-n // self.block), self.block)
+
+    def encode_leaf(self, rows, generator=None, noise=None):
         xf = rows.to(torch.float32)
         if self.block is None:
             absmax = xf.abs().amax(dim=1)
             scale = absmax.clamp_min(1e-12) / self.qmax
-            q = _stochastic_round(xf / scale[:, None], generator)
+            q = _stochastic_round(xf / scale[:, None], generator, noise)
             q = q.clamp(-self.qmax, self.qmax).to(torch.int8)
             return {"q": q, "scale": scale}
         n = xf.shape[1]
         blocks = self._blocked(xf)
         absmax = blocks.abs().amax(dim=2)
         scale = absmax.clamp_min(1e-12) / self.qmax
-        q = _stochastic_round(blocks / scale[:, :, None], generator)
+        q = _stochastic_round(blocks / scale[:, :, None], generator, noise)
         q = q.clamp(-self.qmax, self.qmax).to(torch.int8)
         return {"q": q.reshape(xf.shape[0], -1)[:, :n].contiguous(),
                 "scale": scale}
@@ -216,7 +231,7 @@ class TopKCodec(Codec):
             return max(1, int(round(self.k * n)))
         return min(int(self.k), n)
 
-    def encode_leaf(self, rows, generator=None):
+    def encode_leaf(self, rows, generator=None, noise=None):
         flat = rows.to(torch.float32)
         k = self._k_of(flat.shape[1])
         idx = torch.topk(flat.abs(), k, dim=1).indices
@@ -262,16 +277,19 @@ class ErrorFeedback(Codec):
                                   device=x.device)
                 for name, x in tree.items()}
 
-    def transmit(self, rows, residual=None, generator=None):
+    def transmit(self, rows, residual=None, generator=None, noise=None):
         """(payload, decoded x̂ rows as f32, new residual rows); the JAX
         package's ``encode_leaf_stateful``."""
         m = rows.to(torch.float32) + residual
-        payload = self.inner.encode_leaf(m, generator)
+        payload = self.inner.encode_leaf(m, generator, noise)
         xhat = self.inner.decode_leaf(payload, m.shape[1])
         return payload, xhat, m - xhat
 
-    def encode_leaf(self, rows, generator=None):
-        return self.inner.encode_leaf(rows, generator)
+    def encode_leaf(self, rows, generator=None, noise=None):
+        return self.inner.encode_leaf(rows, generator, noise)
+
+    def noise_shape(self, rows, n):
+        return self.inner.noise_shape(rows, n)
 
     def decode_leaf(self, payload, n):
         return self.inner.decode_leaf(payload, n)

@@ -459,12 +459,69 @@ def mesh_axis_size(mesh, axis_name: str):
     return int(mesh.size(names.index(axis_name)))
 
 
-def _encode_rows(codec, xf, residual, generator):
+def _encode_rows(codec, xf, residual, generator, noise=None):
     """One leaf's rows onto the wire: ``(payload, x̂, residual')``. Without
-    a codec the payload is the f32 rows themselves."""
+    a codec the payload is the f32 rows themselves. ``noise``: the rows'
+    rounding noise already drawn (:func:`_emulation_noise`)."""
     if codec is None:
         return {"v": xf}, xf, None
-    return codec.transmit(xf, residual, generator)
+    return codec.transmit(xf, residual, generator, noise)
+
+
+def _emulation_noise(codec, generator, n: int, draws: int, rows: int,
+                     keep: slice, device):
+    """The stochastic-rounding noise of the population rows ``keep`` of
+    one leaf of width ``n``, as the one-process emulation draws it: that
+    run encodes ``draws`` groups of ``rows`` rows in turn (the sharded
+    plan's blocks, or the distributed plan's one (K, n) draw), each
+    drawing ``codec.noise_shape(rows, n)`` from ``generator``. A process
+    on the mesh makes the same draws in the same shapes and order (a
+    single larger draw would not give the same numbers on the card) and
+    keeps its own rows, so its rows get the emulation's noise and the
+    generator ends in the emulation's state. None without a generator or
+    for a codec that draws nothing."""
+    shape = None if codec is None else codec.noise_shape(rows, n)
+    if generator is None or shape is None:
+        return None
+    kept = []
+    for d in range(draws):
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        lo = d * rows
+        a, b = max(lo, keep.start), min(lo + rows, keep.stop)
+        if a < b:
+            kept.append(u[a - lo:b - lo])
+    return kept[0] if len(kept) == 1 else torch.cat(kept)
+
+
+def gather_population(stacked_params, mesh, axis_name: str = "agents"):
+    """The whole (K, ...) population from each position's rows on
+    ``mesh``, the same bits on every process: every leaf's rows viewed
+    as bytes and packed into one buffer, ONE ``all_gather`` over the
+    agent axis, unpacked in position order. It moves K x (one agent's
+    bytes) per call, the quantity ``ConsensusEngine.audit_meta()`` names
+    as the population gather (an observer collective: what the drivers'
+    ``target_fn`` evaluates, never a model exchange, so Eq. (11) does not
+    bill it). Only the evaluated rounds call it."""
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis_name)
+    names = list(stacked_params)
+    rows = next(iter(stacked_params.values())).shape[0]
+    parts = [stacked_params[k].contiguous().reshape(rows, -1)
+             .view(torch.uint8) for k in names]
+    mine = torch.cat(parts, dim=1)
+    bufs = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(bufs, mine, group=group)
+    whole = bufs[0] if len(bufs) == 1 else torch.cat(bufs)
+    out, at = {}, 0
+    for k, part in zip(names, parts):
+        x = stacked_params[k]
+        width = part.shape[1]
+        out[k] = whole[:, at:at + width].contiguous().view(x.dtype).reshape(
+            (whole.shape[0],) + tuple(x.shape[1:]))
+        at += width
+    return out
 
 
 def _int_wire(codec):
@@ -537,7 +594,11 @@ def sharded_consensus_step(stacked_params, mix, *, num_blocks: int,
     in turn in this process, the same per-block functions with the
     all_gather replaced by the concatenation of the block wires. With
     round-to-nearest (``generator=None``) either is bit-identical to the
-    sparse plan at any ``num_blocks`` that divides K.
+    sparse plan at any ``num_blocks`` that divides K. With a generator the
+    one-process run draws each block's rounding noise in turn; a process
+    on the mesh draws every block's the same way and keeps its own
+    (:func:`_emulation_noise`), so the two agree bit for bit and leave the
+    generator in the same state.
 
     ``structure``: a round's ``(idx, sig)`` lanes over the whole
     population ((K, H), e.g. σ renormalised on surviving lanes; faded lanes
@@ -583,10 +644,14 @@ def sharded_consensus_step(stacked_params, mix, *, num_blocks: int,
         xf = x.to(torch.float32).reshape(rows, -1)
         rf = None if state is None else state[name].reshape(rows, -1)
         r_out = None if state is None else torch.empty_like(rf)
+        # on the mesh: every block's draws, this block's noise kept
+        noise = (_emulation_noise(codec, generator, xf.shape[1], num_blocks,
+                                  B, blocks[0], device) if use_mesh else None)
         payloads = []
         for lb in local:
             payload, _xhat, r_new = _encode_rows(
-                codec, xf[lb], None if rf is None else rf[lb], generator)
+                codec, xf[lb], None if rf is None else rf[lb], generator,
+                noise)
             if r_out is not None:
                 r_out[lb] = r_new
             payloads.append(payload)
@@ -635,7 +700,9 @@ def distributed_consensus_step(stacked_params, mix, *,
     payloads as the source). Without it the schedule becomes kernel lanes
     over the whole (K, ...) population, ``idx = srcs.T`` and ``sig`` the
     (K, M) slot weights, one launch per leaf; completion slots carry σ = 0.
-    Both sum the slots in schedule order, so they agree bit for bit.
+    Both sum the slots in schedule order, so they agree bit for bit. With
+    a generator each position draws the one-process run's (K, ·) rounding
+    noise and keeps its own row (:func:`_emulation_noise`).
 
     ``sig_override``: (K, M) per-slot weights replacing the schedule's
     γ·σ for this round (σ renormalised on surviving slots). ``sources``:
@@ -688,7 +755,11 @@ def distributed_consensus_step(stacked_params, mix, *,
     for name, x in stacked_params.items():
         xf = x.to(torch.float32).reshape(rows, -1)
         rf = None if state is None else state[name].reshape(rows, -1)
-        payload, xhat, r_new = _encode_rows(codec, xf, rf, generator)
+        # on the mesh: the emulation's one (K, n) draw, this agent's row kept
+        noise = (_emulation_noise(codec, generator, xf.shape[1], 1, K,
+                                  slice(r, r + 1), device)
+                 if use_mesh else None)
+        payload, xhat, r_new = _encode_rows(codec, xf, rf, generator, noise)
         wire = (_exchange_slots(mesh, axis_name, payload, schedule)
                 if use_mesh else payload)
         y = _mix_rows(codec, xf, payload, xhat,

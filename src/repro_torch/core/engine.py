@@ -61,8 +61,11 @@ whatever the codec.
 
 ``scan_rounds(telemetry=)`` records one row per round
 (:mod:`repro_torch.telemetry`) from the same survival or delivered tensor
-the round mixed with; on a mesh of more than one position it is refused
-(each process holds only its own rows).
+the round mixed with. On a mesh each process draws every round's
+survival and availability for all K agents, so every count of a row is
+the one-process count on every rank with no communication; only the
+disagreement needs the population, which two observer all-reduces give
+(:func:`repro_torch.telemetry.buffer.mesh_disagreement`).
 """
 from __future__ import annotations
 
@@ -800,20 +803,15 @@ class ConsensusEngine:
         mixed with (on async rounds ``AsyncRound.delivered``, activity and
         ages; never a second draw), read from the device in one copy at
         the end (streaming mode: one per round). Params and state are
-        bit-identical with telemetry off, buffered or streaming."""
+        bit-identical with telemetry off, buffered or streaming. On a mesh
+        ``stacked_params`` is this process's rows and every rank records
+        the same rows (:meth:`audit_meta` names the disagreement's
+        all-reduces)."""
         if rounds is None:
             raise ValueError(
                 f"scan_rounds got rounds={rounds!r} — pass rounds= (a "
                 "round count); stochastic rounding takes one generator= "
                 "for all of them")
-        if telemetry is not None and self.mesh_positions > 1:
-            raise ValueError(
-                f"telemetry= on the {self.plan.kind!r} plan over a "
-                f"{self.mesh_positions}-position mesh: each process holds "
-                "only its own rows, so a row's disagreement and per-agent "
-                "counts would be partial; record telemetry on the same "
-                "engine built without mesh= (the one-process path), or "
-                "drop telemetry=")
         if codec_state is None:
             codec_state = self.init_state(stacked_params)
         device = next(iter(stacked_params.values())).device
@@ -864,7 +862,7 @@ class ConsensusEngine:
             energy_params, model_bits=model_bits, codec=self.codec)
 
     # -- audit metadata ---------------------------------------------------------
-    def audit_meta(self) -> dict:
+    def audit_meta(self, per_agent=None) -> dict:
         """Resolved facts :mod:`repro_torch.analysis.costmodel` keys its
         checks on: the plan's :data:`PLAN_AUDIT_EXPECTATIONS` entry, the
         plan kind, K, blocks, the mesh axis size (None without a mesh), the
@@ -872,7 +870,18 @@ class ConsensusEngine:
         topology's per-class directed message counts (``link_classes``,
         None for a raw mix) and ``priced_collectives``: each c10d op that
         carries the Eq.-(11)-billed wire, mapped to those counts. Every
-        other collective a round runs must be control plane (rule C3)."""
+        other collective a round runs must be control plane (rule C3).
+
+        On a mesh (``local_rows`` not None) also ``observer_collectives``:
+        the collectives the drivers and telemetry add to read the whole
+        population, none of them a model exchange, each ``{"op",
+        "quantity", "bytes"}`` with the bytes one call carries for agents
+        shaped like ``per_agent`` (one agent's tensors; None without it):
+        the gather that hands ``target_fn`` the population (K agents'
+        bytes, once per evaluated round) and the disagreement's two
+        all-reduces (every leaf's f32 column sums, and the (K,) f32
+        distances; once per telemetry row). C3 books them on a line of
+        their own and never in the Eq.-(11) bill."""
         base = (getattr(self.codec, "inner", self.codec)
                 if self.codec is not None else None)
         meta = dict(PLAN_AUDIT_EXPECTATIONS[self.plan.kind])
@@ -891,6 +900,20 @@ class ConsensusEngine:
             priced_collectives={op: link_classes
                                 for op in meta["wire_collective"] or ()},
         )
+        if self.local_rows is not None:
+            def size(f):
+                return (None if per_agent is None else
+                        sum(f(x) for x in per_agent.values()))
+            agent_bytes = size(lambda x: x.numel() * x.element_size())
+            n = size(lambda x: x.numel())
+            meta["observer_collectives"] = [
+                dict(op="allgather_", quantity="population for target_fn",
+                     bytes=None if n is None else self.K * agent_bytes),
+                dict(op="allreduce_", quantity="disagreement column sums",
+                     bytes=None if n is None else 4 * n),
+                dict(op="allreduce_", quantity="disagreement distances",
+                     bytes=4 * self.K),
+            ]
         return meta
 
     @classmethod

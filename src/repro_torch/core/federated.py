@@ -11,6 +11,19 @@ in one copy to recover t_i with ``first_hit``. So params, t_i, history
 and codec state are the same bits at every chunk size; a chunk ending
 after the hit only costs the discarded rounds' compute (and their kernel
 launches).
+
+On an engine whose agents are spread over the ranks of a process group
+(``engine.local_rows`` is not None: the sharded plan with a block a rank,
+the distributed plan with one agent a rank) every rank runs the driver on
+its own rows: ``stacked_params`` and the returned params and codec state
+are the rank's rows, ``sample_batches`` still returns the whole
+population's batches (drawn as in one process, so the generator stays in
+step with the one-process run) and the driver keeps its rows of them.
+``target_fn`` is called on the whole population: on each round the
+``eval_every`` grid evaluates, ONE gather over the agent axis
+(:func:`repro_torch.core.consensus.gather_population`) gives every rank the
+one-process run's bits, so every rank reaches the same verdict in the
+same round without a vote; rounds the grid skips issue no collective.
 """
 from __future__ import annotations
 
@@ -21,7 +34,7 @@ import torch
 from torch.func import grad, vmap
 from torch.utils._pytree import tree_leaves, tree_map
 
-from repro_torch.core import scanloop
+from repro_torch.core import consensus, scanloop
 from repro_torch.core.engine import AsyncState, ConsensusEngine, where_active
 
 
@@ -53,8 +66,25 @@ def decentralized_fl_round(loss_fn, stacked_params, stacked_batches,
     round's (K,) activity from ``engine.async_round`` — inactive agents
     keep their pre-round params (their local SGD is discarded bit for
     bit) and their post-mix params and codec residuals hold too; pass
-    the matching ``survival=round.weights`` alongside it."""
+    the matching ``survival=round.weights`` alongside it.
+
+    On a meshed engine (``engine.local_rows`` not None) ``stacked_params``
+    and ``codec_state`` are this rank's rows, while ``stacked_batches``
+    and ``active`` cover the whole population (every rank draws them
+    alike): the round keeps the rank's rows of both."""
     engine = ConsensusEngine.wrap(engine, codec=codec)
+    rows = engine.local_rows
+    if rows is not None:
+        n = tree_leaves(stacked_batches)[0].shape[0]
+        if n != engine.K:
+            raise ValueError(
+                f"on the {engine.plan.kind!r} plan over a mesh the round "
+                f"takes the whole population's batches (leading axis "
+                f"K={engine.K}) and keeps rows {rows.start}:{rows.stop}, "
+                f"got a leading axis of {n}")
+        stacked_batches = tree_map(lambda b: b[rows], stacked_batches)
+        if active is not None:
+            active = active[rows]
     new_params = vmap(lambda p, b: local_steps(loss_fn, p, b, lr))(
         stacked_params, stacked_batches)
     if active is not None:
@@ -207,6 +237,7 @@ def _run_fl_chunked(loss_fn, stacked_params, sample_batches, engine, lr, *,
     engine = ConsensusEngine.wrap(engine, codec=codec)
     has_codec = engine.codec is not None
     device = next(iter(stacked_params.values())).device
+    meshed = engine.local_rows is not None
 
     def fl_round(t, p, st, sv, act):
         out = decentralized_fl_round(
@@ -215,7 +246,9 @@ def _run_fl_chunked(loss_fn, stacked_params, sample_batches, engine, lr, *,
             survival=sv, active=act)
         new, new_st = out if has_codec else (out, None)
         if eval_every == 1 or (t + 1) % eval_every == 0:
-            r, metric = target_fn(new)
+            # target_fn sees the whole population, on a mesh too
+            r, metric = target_fn(consensus.gather_population(
+                new, engine.mesh, engine.plan.axis_name) if meshed else new)
             return (new, new_st,
                     torch.as_tensor(r, device=device).to(torch.bool),
                     torch.as_tensor(metric, device=device).reshape(()),

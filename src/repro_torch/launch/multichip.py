@@ -1,19 +1,32 @@
 """Mesh checks of the consensus engine's sharded and distributed plans.
 
-Two checks, both on a MASKED round (links fading with p = 0.3, the round
-the per-edge survival convention draws; a static round would miss what
-masking changes):
+Three checks, on MASKED rounds (links fading with p = 0.3, the round the
+per-edge survival convention draws; a static round would miss what
+masking changes) unless a case names another process:
 
 * **mesh vs emulation** — each plan driven on a real process group (each
   process holding its own rows: a block on ``sharded``, one agent on
-  ``distributed``) must agree with the same engine built without a mesh,
-  which runs the whole population in one process through the same
-  per-block and per-slot functions. The sharded plan must agree bit for
-  bit; the distributed plan sums the same slots in the same order, and is
-  held to the sparse-vs-dense gate (1e-5 plus 4 f32 ulps of the largest
-  value) all the same. :func:`run_parity` spawns a gloo group of any size
-  on the CPU; on one card the group is NCCL at world size 1 (NCCL takes
-  one card per process, and gloo carries no CUDA all_gather or send/recv).
+  ``distributed``) for :data:`PARITY_ROUNDS` rounds of ``scan_rounds``
+  with a generator (stochastic rounding on the int wire) and buffered
+  telemetry must agree with the same engine built without a mesh, which
+  runs the whole population in one process through the same per-block
+  and per-slot functions: params, codec state, the generator's final
+  state, every row's exact fields ``==`` and its disagreement within
+  :func:`repro_torch.telemetry.buffer.disagreement_tolerance`, and on
+  async engines the :class:`AsyncState` of as many ``async_step`` rounds.
+  The sharded plan must agree bit for bit; the distributed plan sums the
+  same slots in the same order, and is held to the sparse-vs-dense gate
+  (1e-5 plus 4 f32 ulps of the largest value) all the same. :func:`run_parity` spawns a gloo group
+  of any size on the CPU; on one card the group is NCCL at world size 1
+  (NCCL takes one card per process, and gloo carries no CUDA all_gather
+  or send/recv).
+* **the FL drivers on a mesh** — :func:`run_mesh_checks`:
+  ``run_fl_until_scan`` (chunk 8) and ``run_fl_until`` on a regression
+  pull toward seeded targets, the hit mid-chunk, each rank on its own
+  rows, against the same run without a mesh: every rank's params, codec
+  state, t_i, history, the generator's final state and rows as above;
+  each rank's collectives recorded, one population gather per evaluated
+  round (none on the rounds an ``eval_every`` of 2 skips) and C3 clean.
 * **no (K, K) buffer** (the counterpart of the JAX package's HLO rule H1,
   read from device memory): one masked sharded round at K = 16384, N =
   2048 may add at most 4× the population's f32 bytes to the card's peak
@@ -33,8 +46,9 @@ and runs :func:`lm_mesh_case` on each rank: the tensor- and data-parallel
 transformer's logits, loss, gradient and one Adam step, which the tests
 hold to the one-process port (tests/test_torch_sharding.py).
 
-Run (an NCCL group, one card per process, then the memory bound on card
-0; it refuses by name on a host with fewer cards than ``--world``)::
+Run (an NCCL group, one card per process, the parity and FL rows, then
+the memory bound on card 0; it refuses by name on a host with fewer cards
+than ``--world``)::
 
     PYTHONPATH=src python -m repro_torch.launch.multichip [--world 4]
         [--backend nccl|gloo] [--out build/results/torch_multichip.json]
@@ -45,6 +59,7 @@ the card's memory, does not run: the report and stdout say so.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
@@ -58,6 +73,20 @@ from repro_torch.launch import mesh as mesh_lib
 
 DROPOUT_P, DROPOUT_SEED, ROUND_T = 0.3, 0, 3
 H1_K, H1_N = 16384, 2048
+#: rounds of ``scan_rounds`` in each parity case (the JAX package's 4)
+PARITY_ROUNDS = 4
+#: the generator behind every parity and FL run's stochastic rounding
+GEN_SEED = 1
+#: the FL case: params width, SGD rate, rounds, chunk, and the seed of
+#: the params (the targets' is the next one)
+FL = dict(n=24, lr=0.3, max_rounds=16, chunk=8, seed=5)
+#: each FL case runs ``run_fl_until_scan`` at the chunk and ``run_fl_until``
+FL_CHUNKS = (FL["chunk"], 1)
+#: telemetry fields that read only the round's draws: ``==`` on every
+#: rank, against the one-process rows and the JAX package's
+EXACT = ("round", "n_sl", "n_ul", "n_dl", "edges", "n_active", "max_age",
+         "agent_sl", "agent_ul", "agent_dl", "wire_bits", "joules",
+         "agent_joules")
 
 
 def tolerance(x: np.ndarray) -> float:
@@ -82,91 +111,404 @@ def agent_mesh(n: int = 8, device_type=None):
     return mesh_lib.make_agent_mesh(n, device_type=device_type)
 
 
-def masked_engine(topo, plan, codec, *, mesh=None, num_blocks=None):
-    return ConsensusEngine(
-        topo, codec=codec, plan=plan, mesh=mesh, num_blocks=num_blocks,
-        graph=topo_lib.GraphProcess.dropout(DROPOUT_P, DROPOUT_SEED))
+def process_kw(process: str) -> dict:
+    """Engine keywords of a graph/agent process: ``static``, ``fading``
+    (links fade with p = 0.3) or ``async`` (agents awake with p = 0.7,
+    τ = 2, λ = 0.9)."""
+    if process == "fading":
+        return dict(graph=topo_lib.GraphProcess.dropout(DROPOUT_P,
+                                                        DROPOUT_SEED))
+    if process == "async":
+        return dict(agents=topo_lib.AgentProcess.bernoulli(0.7, seed=2),
+                    tau=2, staleness_decay=0.9)
+    if process != "static":
+        raise ValueError(f"unknown process {process!r}: choose static, "
+                         "fading or async")
+    return {}
 
 
-def parity_case(topo, plan, codec, mesh, device) -> dict:
-    """One masked round of ``plan`` on ``mesh`` against the same engine
-    without a mesh, on this process's rows."""
+def masked_engine(topo, plan, codec, *, mesh=None, num_blocks=None,
+                  process="fading"):
+    return ConsensusEngine(topo, codec=codec, plan=plan, mesh=mesh,
+                           num_blocks=num_blocks, **process_kw(process))
+
+
+def mesh_pair(topo, plan, codec, mesh, process="fading"):
+    """(the engine on ``mesh``, the same engine without it): the sharded
+    plan in as many blocks as the mesh has positions."""
     positions = int(mesh.size(0))
     nb = positions if plan == "sharded" else None
-    on_mesh = masked_engine(topo, plan, codec, mesh=mesh, num_blocks=nb)
-    alone = masked_engine(topo, plan, codec, num_blocks=nb)
+    on_mesh = masked_engine(topo, plan, codec, mesh=mesh, num_blocks=nb,
+                            process=process)
     if on_mesh.local_rows is None:
         raise ValueError(
             f"{plan} on a {positions}-position mesh does not run on the "
             f"mesh for K={topo.K}: use K = {positions} (distributed) or a "
             "multiple of it (sharded)")
+    return on_mesh, masked_engine(topo, plan, codec, num_blocks=nb,
+                                  process=process)
+
+
+def compare_rows(got, want, rows) -> tuple:
+    """(bit_equal, max |d|) of this rank's ``got`` against ``rows`` of the
+    one-process ``want`` (dicts of tensors or arrays, or both None)."""
+    if got is None or want is None:
+        return got is None and want is None, 0.0
+    equal, err = True, 0.0
+    for k in want:
+        a = np.asarray(got[k])
+        b = np.asarray(want[k])[rows]
+        if a.shape == b.shape and np.array_equal(a, b):
+            continue
+        equal = False
+        err = max(err, float(np.abs(a.astype(np.float64) - b).max())
+                  if a.shape == b.shape else float("inf"))
+    return equal, err
+
+
+def compare_events(got, want, K, n, max_abs) -> dict:
+    """This rank's telemetry events against the one-process ones: the
+    :data:`EXACT` fields ``==``, the live flags and metrics ``==`` and the
+    disagreement within its tolerance."""
+    from repro_torch.telemetry.buffer import disagreement_tolerance
+
+    same = len(got) == len(want) and all(
+        all(g[f] == w[f] for f in EXACT + ("live", "reached", "metric"))
+        for g, w in zip(got, want))
+    err = worst = 0.0
+    for g, w in zip(got, want):
+        d = abs(g["disagreement"] - w["disagreement"])
+        err = max(err, d)
+        worst = max(worst, d / disagreement_tolerance(
+            K, n, max_abs, w["disagreement"]))
+    return dict(rows_equal=same, n_rows=len(got), disagreement_err=err,
+                disagreement_of_tol=worst)
+
+
+def _numpy(tree):
+    return None if tree is None else {k: v.detach().cpu().numpy()
+                                      for k, v in tree.items()}
+
+
+def scan_run(eng, x, device) -> dict:
+    """:data:`PARITY_ROUNDS` rounds of ``scan_rounds`` from ``ROUND_T``
+    with a generator and buffered telemetry, and on an async engine as
+    many ``async_step`` rounds from a fresh :class:`AsyncState`."""
+    from repro_torch.telemetry import Telemetry
+
+    gen = torch.Generator(device=device).manual_seed(GEN_SEED)
+    tel = Telemetry()
+    p, st = eng.scan_rounds(x, None, gen, rounds=PARITY_ROUNDS, t0=ROUND_T,
+                            telemetry=tel)
+    ast = None
+    if eng.agents is not None:
+        ast, q, qs = eng.init_async_state(device=device), x, None
+        for i in range(PARITY_ROUNDS):
+            q, qs, ast, _ = eng.async_step(q, qs, gen, t=ROUND_T + i,
+                                           state=ast)
+        ast = {"clock": ast.clock.cpu().numpy(), "age": ast.age.cpu().numpy()}
+    return dict(params=_numpy(p), state=_numpy(st), events=tel.events(),
+                gen=gen.get_state().numpy(), async_state=ast)
+
+
+def parity_case(topo, plan, codec, mesh, device, process="fading") -> dict:
+    """:data:`PARITY_ROUNDS` rounds of ``plan`` on ``mesh`` against the
+    same engine without a mesh (:func:`scan_run`), on this process's
+    rows."""
+    on_mesh, alone = mesh_pair(topo, plan, codec, mesh, process)
+    rows = on_mesh.local_rows
     pop = population(topo.K, 64)
     full = {k: torch.from_numpy(v).to(device) for k, v in pop.items()}
-    mine = {k: v[on_mesh.local_rows].contiguous() for k, v in full.items()}
-    got, st = on_mesh.step(mine, on_mesh.init_state(mine), t=ROUND_T)
-    want, wst = alone.step(full, alone.init_state(full), t=ROUND_T)
-    err, equal = 0.0, True
-    pairs = [(got, want)] + ([(st, wst)] if st is not None else [])
-    for a, b in pairs:
-        for k in a:
-            ref = b[k][on_mesh.local_rows]
-            equal &= bool(torch.equal(a[k], ref))
-            err = max(err, float((a[k] - ref).abs().max()))
+    mine = {k: v[rows].contiguous() for k, v in full.items()}
+    got, want = scan_run(on_mesh, mine, device), scan_run(alone, full,
+                                                          device)
     tol = max(tolerance(v) for v in pop.values())
-    refused = None        # per-round telemetry over several positions
-    if positions > 1:
-        from repro_torch.telemetry import Telemetry
-        try:
-            on_mesh.scan_rounds(mine, rounds=1, t0=ROUND_T,
-                                telemetry=Telemetry())
-            refused = False
-        except ValueError:
-            refused = True
-    return dict(plan=plan, codec=codec, K=topo.K, positions=positions,
-                rows=[on_mesh.local_rows.start, on_mesh.local_rows.stop],
-                bit_equal=equal, max_abs_err=err, tolerance=tol,
-                telemetry_refused=refused,
+    p_eq, p_err = compare_rows(got["params"], want["params"], rows)
+    s_eq, s_err = compare_rows(got["state"], want["state"], rows)
+    equal, err = p_eq and s_eq, max(p_err, s_err)
+    n = sum(v.shape[1] for v in pop.values())
+    tel = compare_events(got["events"], want["events"], topo.K, n,
+                         max(float(np.abs(v).max()) for v in pop.values()))
+    gen_eq = bool(np.array_equal(got["gen"], want["gen"]))
+    ast_eq = (got["async_state"] is None and want["async_state"] is None) \
+        or all(np.array_equal(got["async_state"][k],
+                              want["async_state"][k])
+               for k in ("clock", "age"))
+    return dict(plan=plan, codec=codec, process=process, K=topo.K,
+                positions=int(mesh.size(0)), rows=[rows.start, rows.stop],
+                rounds=PARITY_ROUNDS, bit_equal=equal, max_abs_err=err,
+                tolerance=tol, generator_equal=gen_eq, async_equal=ast_eq,
+                **tel,
                 ok=(equal if plan == "sharded" else err <= tol)
-                and refused is not False)
+                and tel["rows_equal"] and tel["disagreement_of_tol"] <= 1.0
+                and gen_eq and ast_eq)
+
+
+def case_graph(K: int):
+    """The cases' graph of K agents: small_world(k=4) from K = 8, a ring
+    below, one agent with no edge at K = 1."""
+    if K == 1:
+        return topo_lib.full(1)
+    return (topo_lib.small_world(K, k=4, seed=1) if K >= 8
+            else topo_lib.ring(K))
 
 
 def parity_cases(world: int):
     """(topology, plan, codec) cases a ``world``-position mesh runs: the
     sharded plan over 4 agents per position, the distributed plan over
     one agent per position, each with no codec and the int8 wire."""
-    def graph(K):
-        if K == 1:                  # one agent, no edges
-            return topo_lib.full(1)
-        return (topo_lib.small_world(K, k=4, seed=1) if K >= 8
-                else topo_lib.ring(K))
-
-    return [(graph(K), plan, codec) for codec in (None, "int8")
+    return [(case_graph(K), plan, codec) for codec in (None, "int8")
             for K, plan in ((4 * world, "sharded"), (world, "distributed"))]
-
-
-def parity_rows(rank, world, cases, device="cpu"):
-    """One rank of :func:`run_parity` on the initialised group: every
-    case's row."""
-    mesh = agent_mesh(world, device_type=device)
-    return [parity_case(t, p, c, mesh, device) for t, p, c in cases]
 
 
 def run_parity(world: int, cases=None, *, backend: str = "gloo",
                timeout_s: float = 120.0) -> list:
     """Spawn ``world`` processes on this host (a gloo group through a
-    file store) and run :func:`parity_case` for each case in each of
-    them. Returns every rank's rows; raises if a rank failed, hung or
-    disagreed with its emulation."""
-    cases = parity_cases(world) if cases is None else cases
+    file store) and run :func:`parity_case` for each case (topology, plan,
+    codec[, process]; default :func:`parity_cases`) in each of them: the
+    parity half of :func:`run_mesh_checks`. Returns every rank's rows;
+    raises if a rank failed, hung or disagreed with its emulation."""
+    return run_mesh_checks(world, cases, [], backend=backend,
+                           timeout_s=timeout_s)["parity"]
+
+
+def fl_targets(x, device) -> dict:
+    """The FL case's seeded targets, one per leaf of ``x`` in one agent's
+    shape (every agent pulls toward the same), drawn on the host from
+    ``FL["seed"] + 1`` in leaf order."""
+    rng = np.random.default_rng(FL["seed"] + 1)
+    return {k: torch.from_numpy(rng.standard_normal(
+                tuple(v.shape[1:])).astype(np.float32)).to(device)
+            for k, v in x.items()}
+
+
+def rounds_computed(t_i: int, chunk: int, max_rounds: int) -> int:
+    """Rounds a driver at ``chunk`` computed when it stopped after ``t_i``
+    rounds (``max_rounds`` without a hit): the hit's chunk runs to its
+    end."""
+    return min(-(-t_i // chunk) * chunk, max_rounds)
+
+
+def _scale(trees) -> tuple:
+    """(params per agent, largest magnitude) over the stacked ``trees[0]``
+    and every tree after it."""
+    n = sum(int(np.prod(v.shape[1:])) for v in trees[0].values())
+    return n, max(float(abs(v).max()) for t in trees for v in t.values())
+
+
+def fl_run(eng, x, thr, *, chunk, device, max_rounds=FL["max_rounds"],
+           eval_every=1, record=False) -> dict:
+    """One FL run of the case: K agents, one local step a round on
+    ½‖w − w*‖² toward :func:`fl_targets` plus noise
+    the sampler draws from the run's generator (which also drives the int
+    wire's stochastic rounding), ``target_fn`` the mean squared distance
+    of the population below ``thr`` on the ``eval_every`` grid;
+    ``run_fl_until_scan`` at ``chunk`` (``run_fl_until`` at chunk 1),
+    buffered telemetry into an in-memory sink (``emitted``: the events it
+    heard), ``max_rounds`` at most. ``x`` is
+    this process's rows (on a mesh) or the population.
+    ``wall``: seconds of the driver call, the device synchronised on
+    either side; ``scale``: :func:`_scale` of ``x``, the targets and the
+    result. With ``record``, also the c10d ops the driver dispatched
+    (``records``), ``eng.audit_meta()`` and the observer calls the run
+    must make (``observer_calls``), for :func:`fl_ledger`."""
+    from repro_torch.analysis import costmodel
+    from repro_torch.core import federated
+    from repro_torch.telemetry import MemorySink, Telemetry
+
+    target = fl_targets(x, device)
+    K = eng.K
+
+    def sample(gen, _t):
+        return {k: v + 0.1 * torch.randn((K, 1) + tuple(v.shape),
+                                         generator=gen, device=device)
+                for k, v in target.items()}
+
+    def loss(p, b):
+        return sum(0.5 * (p[k] - b[k]).square().sum() for k in p)
+
+    def target_fn(stacked):
+        m = sum((stacked[k] - target[k]).square().mean() for k in stacked)
+        return m < thr, m
+
+    gen = torch.Generator(device=device).manual_seed(GEN_SEED)
+    sink = MemorySink()
+    tel = Telemetry(sinks=(sink,))
+    kw = dict(target_fn=target_fn, max_rounds=max_rounds, generator=gen,
+              eval_every=eval_every, return_state=True, telemetry=tel)
+    if chunk != 1:
+        kw["chunk"] = chunk
+    driver = (federated.run_fl_until if chunk == 1
+              else federated.run_fl_until_scan)
+    rec = (costmodel.CollectiveRecorder() if record
+           else contextlib.nullcontext())
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with rec:
+        p, t_i, hist, st = driver(loss, x, sample, eng, FL["lr"], **kw)
+    if cuda:
+        torch.cuda.synchronize()
+    out = dict(wall=time.perf_counter() - t0, params=_numpy(p),
+               state=_numpy(st), rounds=t_i, history=hist,
+               events=tel.events(),
+               emitted=len(sink.events), gen=gen.get_state().numpy(),
+               scale=_scale([x, target, p]))
+    if record:
+        computed = rounds_computed(t_i, chunk, max_rounds)
+        out.update(records=list(rec.records),
+                   meta=eng.audit_meta({k: v[0] for k, v in x.items()}),
+                   observer_calls=costmodel.observer_calls(
+                       computed // eval_every, computed))
+    return out
+
+
+def fl_ledger(run, label: str):
+    """C3's ledger and findings of a recorded :func:`fl_run`: the plan's
+    wire priced, exactly the observer calls the run must make booked on
+    their own line, anything else control plane or a finding."""
+    from repro_torch.analysis.costmodel import collective_ledger
+    return collective_ledger(run["meta"], run["records"], label,
+                             run["observer_calls"])
+
+
+def fl_threshold(eng, x, *, device) -> float:
+    """A threshold the run of ``eng`` from ``x`` first meets in round 3
+    (t_i = 4, mid-chunk at chunk 8), halfway between that round's metric
+    and the smallest before it, from a 4-round probe that never stops
+    (the chunk changes no bit, so its rounds are the run's)."""
+    h = fl_run(eng, x, -1.0, chunk=4, device=device,
+               max_rounds=4)["history"]
+    if not h[3] < min(h[:3]):
+        raise RuntimeError(f"FL probe {eng.plan.kind}: round 3's metric is "
+                           f"not the first new low ({h})")
+    return (h[3] + min(h[:3])) / 2
+
+
+def fl_case(case) -> tuple:
+    """(topology, plan, codec, process, eval_every) of an FL case given
+    with or without its ``eval_every`` (default 1)."""
+    return tuple(case[:4]) + ((case[4],) if len(case) > 4 else (1,))
+
+
+def fl_cases(world: int) -> list:
+    """The FL cases of a ``world``-rank group: (topology, plan, codec,
+    process, eval_every) for the sharded plan over 4 agents a rank on
+    fading links and the distributed plan over one agent a rank with
+    agents asleep (:func:`case_graph`), codecs None and int8, every round
+    evaluated; and the sharded int8 case evaluated every 2nd round."""
+    return [(case_graph(K), plan, codec, proc, 1)
+            for plan, K, proc in (("sharded", 4 * world, "fading"),
+                                  ("distributed", world, "async"))
+            for codec in (None, "int8")] + [
+        (case_graph(4 * world), "sharded", "int8", "fading", 2)]
+
+
+def check_rows(rank, world, parity, fl, device="cpu"):
+    """One rank of :func:`run_mesh_checks` on the initialised group: each
+    parity case's row (:func:`parity_case`) and each FL case's meshed runs
+    at each of :data:`FL_CHUNKS` on this rank's rows, recorded (an FL case
+    is (topology, plan, codec, process, eval_every, threshold))."""
+    mesh = agent_mesh(world, device_type=device)
+    rows = [parity_case(*c[:3], mesh, device, *c[3:]) for c in parity]
+    runs = []
+    for topo, plan, codec, process, every, thr in fl:
+        eng, _ = mesh_pair(topo, plan, codec, mesh, process)
+        full = population(topo.K, FL["n"], FL["seed"])
+        mine = {k: torch.from_numpy(v[eng.local_rows]).to(device)
+                for k, v in full.items()}
+        runs.append({c: fl_run(eng, mine, thr, chunk=c, device=device,
+                               eval_every=every, record=True)
+                     for c in FL_CHUNKS})
+    return rows, runs
+
+
+def fl_compare(got, want, rows, plan: str) -> dict:
+    """A rank's FL run against the one-process run of the same case: the
+    sharded plan ``==``, the distributed plan within :func:`tolerance` of
+    the one-process run's largest magnitude; t_i, history, the generator
+    and the rows' exact fields ``==``; for a recorded run, the population
+    gathers it issued (``gathers``, c10d ``allgather_``) against the
+    rounds it evaluated and C3 over its collectives (:func:`fl_ledger`)."""
+    n, max_abs = want["scale"]
+    K = next(iter(want["params"].values())).shape[0]
+    tol = tolerance(np.asarray(max_abs))
+    p_eq, p_err = compare_rows(got["params"], want["params"], rows)
+    s_eq, s_err = compare_rows(got["state"], want["state"], rows)
+    tel = compare_events(got["events"], want["events"], K, n, max_abs)
+    same_run = (got["rounds"], got["history"]) == (want["rounds"],
+                                                   want["history"])
+    gen_eq = bool(np.array_equal(got["gen"], want["gen"]))
+    equal = p_eq and s_eq
+    audit = {}
+    if "records" in got:
+        _, c3 = fl_ledger(got, f"fl:{plan}")
+        audit = dict(
+            gathers=sum(r.kind == "allgather_" for r in got["records"]),
+            gathers_expected=got["observer_calls"][
+                "population for target_fn"],
+            c3=[f.message for f in c3])
+    return dict(rounds=got["rounds"], history_equal=same_run,
+                emitted=got["emitted"], bit_equal=equal,
+                max_abs_err=max(p_err, s_err),
+                tolerance=tol, generator_equal=gen_eq, **tel, **audit,
+                ok=same_run and gen_eq and tel["rows_equal"]
+                and tel["disagreement_of_tol"] <= 1.0
+                and not audit.get("c3")
+                and audit.get("gathers") == audit.get("gathers_expected")
+                and (equal if plan == "sharded"
+                     else max(p_err, s_err) <= tol))
+
+
+def run_mesh_checks(world: int, parity=None, fl=None, *,
+                    backend: str = "gloo", timeout_s: float = 180.0) -> dict:
+    """The ``parity`` cases (default :func:`parity_cases`) and the ``fl``
+    cases (default :func:`fl_cases`) on ONE spawned ``world``-rank group. For
+    the FL cases this process first picks each case's threshold from a
+    probe (:func:`fl_threshold`) and runs the case without a mesh at each
+    of :data:`FL_CHUNKS`; the ranks run it on their rows, and each rank's
+    run is held to it (:func:`fl_compare`). Returns ``{"parity": rows,
+    "fl": rows, "cases": the FL cases (:func:`fl_case`) with thresholds,
+    "alone": {case index: {chunk: run}}}``; raises if a rank disagreed."""
+    parity = parity_cases(world) if parity is None else parity
+    fl = fl_cases(world) if fl is None else fl
     device = "cuda" if backend == "nccl" else "cpu"
-    got = mesh_lib.run_on_group(world, parity_rows, cases, device,
-                                backend=backend, timeout_s=timeout_s)
-    rows = [dict(rank=r, **row) for r, rank_rows in enumerate(got)
-            for row in rank_rows]
-    wrong = [row for row in rows if not row["ok"]]
+    full_cases, alone = [], {}
+    for i, case in enumerate(fl):
+        topo, plan, codec, process, every = fl_case(case)
+        nb = world if plan == "sharded" else None
+        x = {k: torch.from_numpy(v).to(device)
+             for k, v in population(topo.K, FL["n"], FL["seed"]).items()}
+        thr = fl_threshold(masked_engine(topo, plan, codec, num_blocks=nb,
+                                         process=process), x, device=device)
+        full_cases.append((topo, plan, codec, process, every, thr))
+        eng = masked_engine(topo, plan, codec, num_blocks=nb,
+                            process=process)
+        alone[i] = {c: fl_run(eng, x, thr, chunk=c, device=device,
+                              eval_every=every)
+                    for c in FL_CHUNKS}
+    got = mesh_lib.run_on_group(world, check_rows, parity, full_cases,
+                                device, backend=backend, timeout_s=timeout_s)
+    parity_rows_ = [dict(rank=r, **row) for r, (rows, _) in enumerate(got)
+                    for row in rows]
+    fl_rows_ = []
+    for rank, (_, runs) in enumerate(got):
+        for i, case in enumerate(full_cases):
+            topo, plan, codec, process, every, thr = case
+            B = topo.K // world
+            local = slice(rank * B, (rank + 1) * B)
+            for c in FL_CHUNKS:
+                fl_rows_.append(dict(
+                    rank=rank, plan=plan, codec=codec, process=process,
+                    eval_every=every, K=topo.K, chunk=c, threshold=thr,
+                    **fl_compare(runs[i][c], alone[i][c], local, plan)))
+    wrong = [r for r in parity_rows_ + fl_rows_ if not r["ok"]]
     if wrong:
-        raise RuntimeError(f"mesh path disagrees with its emulation: {wrong}")
-    return rows
+        raise RuntimeError(f"mesh path disagrees with the one-process "
+                           f"run: {wrong}")
+    return {"parity": parity_rows_, "fl": fl_rows_, "cases": full_cases,
+            "alone": alone}
 
 
 def _masked_round_records(topo, plan, codec, world, n, **kw):
@@ -275,12 +617,14 @@ def parity_mesh_vs_emulation(k: int = 32, *, num_blocks: int = 8,
                              codec: str = "int8", verbose: bool = True,
                              timeout_s: float = 120.0) -> dict:
     """Both multi-rank plans on a gloo group of ``num_blocks`` processes
-    against their emulations without a mesh, on one masked round each:
-    the sharded plan over a ring of ``k`` agents (bit for bit), the
-    distributed plan over a ring of ``num_blocks`` agents (within
-    :func:`tolerance`). The JAX package's ``parity_mesh_vs_emulation``
-    (there over several rounds of ``scan_rounds`` on forced host
-    devices), here :func:`run_parity`. Returns ``{"rows", "violations"}``."""
+    against their emulations without a mesh, over :data:`PARITY_ROUNDS`
+    masked rounds of ``scan_rounds`` with a generator and buffered
+    telemetry (:func:`parity_case`): the sharded plan over a ring of
+    ``k`` agents (bit for bit), the distributed plan over a ring of
+    ``num_blocks`` agents (within :func:`tolerance`). The JAX
+    package's ``parity_mesh_vs_emulation`` (there on forced host
+    devices), here :func:`run_parity`. Returns ``{"rounds", "rows",
+    "violations"}``."""
     cases = [(topo_lib.ring(k), "sharded", codec),
              (topo_lib.ring(num_blocks), "distributed", codec)]
     try:
@@ -292,9 +636,11 @@ def parity_mesh_vs_emulation(k: int = 32, *, num_blocks: int = 8,
         for row in rows:
             if row["rank"] == 0:
                 print(f"== parity {row['plan']} K={row['K']}: mesh vs "
-                      f"emulation max|d|={row['max_abs_err']:.2e} "
-                      f"(bit_equal={row['bit_equal']})")
-    return {"rows": rows, "violations": violations}
+                      f"emulation over {row['rounds']} masked rounds "
+                      f"max|d|={row['max_abs_err']:.2e} "
+                      f"(bit_equal={row['bit_equal']}, rows equal "
+                      f"{row['rows_equal']})")
+    return {"rounds": PARITY_ROUNDS, "rows": rows, "violations": violations}
 
 
 def lm_case_inputs(case: dict):
@@ -474,8 +820,9 @@ def main(argv=None):
             "--backend gloo to run the group on the CPU (H1 then does not "
             "run)")
     t0 = time.perf_counter()
-    rows = run_parity(args.world, backend=args.backend)
-    report = {"backend": args.backend, "parity": rows,
+    checks = run_mesh_checks(args.world, backend=args.backend)
+    rows, fl = checks["parity"], checks["fl"]
+    report = {"backend": args.backend, "parity": rows, "fl": fl,
               "seconds": time.perf_counter() - t0}
     if args.backend == "nccl":
         report["h1"] = [h1_memory(codec=c) for c in (None, "int8")]
@@ -485,8 +832,22 @@ def main(argv=None):
             "round; the gloo group runs on the CPU, so H1 did not run")
     for row in rows:
         print(f"rank {row['rank']} {row['plan']:11s} codec={row['codec']} "
-              f"K={row['K']}: bit_equal={row['bit_equal']} max err "
-              f"{row['max_abs_err']} (tolerance {row['tolerance']:.3g})")
+              f"K={row['K']} {row['rounds']} rounds: bit_equal="
+              f"{row['bit_equal']} max err {row['max_abs_err']} (tolerance "
+              f"{row['tolerance']:.3g}); rows equal {row['rows_equal']}, "
+              f"disagreement {row['disagreement_of_tol']:.3g} of its "
+              f"tolerance; generator equal {row['generator_equal']}")
+    for row in fl:
+        print(f"FL rank {row['rank']} {row['plan']:11s} codec="
+              f"{row['codec']} {row['process']} K={row['K']} chunk "
+              f"{row['chunk']} eval_every {row['eval_every']}: t_i "
+              f"{row['rounds']}, history equal {row['history_equal']}, "
+              f"params bit_equal {row['bit_equal']} (max err "
+              f"{row['max_abs_err']}), {row['n_rows']} rows equal "
+              f"{row['rows_equal']}, generator equal "
+              f"{row['generator_equal']}, population gathers "
+              f"{row['gathers']} (evaluated rounds {row['gathers_expected']})"
+              f", C3 findings {len(row['c3'])}")
     for row in report.get("h1", []):
         print(f"H1 K={row['K']} N={row['n_params']} codec={row['codec']}: "
               f"added {row['added_bytes']} B <= {row['bound_bytes']} B")

@@ -25,7 +25,10 @@ or streaming: rows READ the round state, they never feed back into it.
 
 Sinks (:mod:`~repro_torch.telemetry.sinks`) are pluggable: in-memory for
 tests, a JSONL event log (checked by ``python -m
-repro_torch.telemetry.schema``), console. ``report()`` adds the kernels'
+repro_torch.telemetry.schema``), console. On an engine whose agents are
+spread over a process group every rank's buffer holds the same events,
+and only the agent axis's rank 0 emits them to the sinks, so one log
+exists, as from the JAX package's single controller. ``report()`` adds the kernels'
 launch counters (:func:`~repro_torch.telemetry.report.harness_report`).
 """
 from __future__ import annotations
@@ -50,6 +53,15 @@ __all__ = [
 ]
 
 MODES = ("buffered", "streaming")
+
+
+def _speaks(recorder: RoundRecorder) -> bool:
+    """Whether this process emits ``recorder``'s rounds to the sinks:
+    always without a mesh; on a meshed engine only the agent axis's rank
+    0 (every rank records the same rows)."""
+    eng = recorder.engine
+    return (getattr(eng, "local_rows", None) is None
+            or eng.mesh.get_local_rank(eng.plan.axis_name) == 0)
 
 
 class Telemetry:
@@ -100,11 +112,12 @@ class Telemetry:
         """Finalize one chunk's stacked rows into events: price, append
         to the buffer, and (buffered mode) emit live rounds to sinks —
         streaming mode already emitted them as each round ended, so here
-        it only fills the buffer."""
+        it only fills the buffer. On a mesh only the agent axis's rank 0
+        emits (:func:`_speaks`)."""
         events = recorder.finalize(rows, int(start), driver=driver,
                                    extra=extra)
         self.buffer.extend(events)
-        if not self.streaming:
+        if not self.streaming and _speaks(recorder):
             for e in events:
                 if e["live"]:
                     self._emit(e)
@@ -141,10 +154,13 @@ class Telemetry:
         in streaming mode: reads the row (one device→host copy), prices
         it and emits it to the sinks if it is live. The buffer is NOT
         filled here (the chunk-end :meth:`record_rounds` does that in both
-        modes, keeping buffer contents identical across modes)."""
+        modes, keeping buffer contents identical across modes). On a mesh
+        only the agent axis's rank 0 emits."""
+        speaks = _speaks(recorder)
+
         def cb(t, row):
             e = recorder.event(int(t), row, driver=driver, extra=extra)
-            if e["live"]:
+            if e["live"] and speaks:
                 self._emit(e)
         return cb
 

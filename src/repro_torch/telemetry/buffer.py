@@ -66,6 +66,48 @@ def consensus_disagreement(stacked):
     return sq.sqrt().mean()
 
 
+def mesh_disagreement(stacked, engine):
+    """:func:`consensus_disagreement` of the whole population on a meshed
+    engine, from this rank's rows (``engine.local_rows``): an all-reduce
+    of every leaf's column sums (one f32 vector) gives the population
+    mean, and an all-reduce of the (K,) per-agent distances, each rank
+    filling its own rows and zeros elsewhere, gives every distance, whose
+    mean is taken as in one process. Every rank gets the same value. The
+    mean's sums run in another order than one process's, so the value is
+    held to :func:`disagreement_tolerance` of the one-process value.
+    These are the two observer all-reduces
+    ``ConsensusEngine.audit_meta()`` names; Eq. (11) does not bill them."""
+    import torch.distributed as dist
+
+    group = engine.mesh.get_group(engine.plan.axis_name)
+    rows, K = engine.local_rows, engine.K
+    leaves = [x.to(torch.float32).reshape(x.shape[0], -1)
+              for x in stacked.values()]
+    sums = torch.cat([x.sum(dim=0) for x in leaves])
+    dist.all_reduce(sums, group=group)
+    means = (sums / K).split([x.shape[1] for x in leaves])
+    sq = torch.zeros((leaves[0].shape[0],), dtype=torch.float32,
+                     device=sums.device)
+    for x, m in zip(leaves, means):
+        d = x - m
+        sq = sq + (d * d).sum(dim=1)
+    dists = torch.zeros((K,), dtype=torch.float32, device=sums.device)
+    dists[rows] = sq.sqrt()
+    dist.all_reduce(dists, group=group)
+    return dists.mean()
+
+
+def disagreement_tolerance(K: int, n: int, max_abs: float,
+                           value: float) -> float:
+    """Bound on |mesh - one process| of the disagreement of K agents of
+    ``n`` params each, largest magnitude ``max_abs``: each column mean's
+    f32 sum of K terms in another order moves it by at most K·eps·max|x|,
+    a distance by at most √n times that, and the mean of the distances
+    and their square roots add a few roundings of ``value``."""
+    eps = float(np.finfo(np.float32).eps)
+    return K * eps * max_abs * float(np.sqrt(n)) + 4 * eps * abs(value)
+
+
 def _scalar(value, dtype, device):
     """A 0-d tensor of ``dtype`` on ``device`` (a fill, not a host copy,
     for Python scalars)."""
@@ -172,7 +214,10 @@ class RoundRecorder:
 
     def row(self, stacked, survival, *, metric, reached, live,
             active=None, age=None):
-        """One round's row, tensors on the params' device. ``survival``
+        """One round's row, tensors on the params' device (on a meshed
+        engine ``stacked`` is this rank's rows, and the disagreement comes
+        from :func:`mesh_disagreement`: every other field reads only the
+        round's draws, which every rank holds whole). ``survival``
         is the PLAN-SHAPED surviving-edge tensor the round's mixing
         ACTUALLY used: ``engine.round_survival`` lanes, or on async rounds
         ``AsyncRound.delivered`` (the wires actually shipped — Eq. (11)
@@ -198,7 +243,7 @@ class RoundRecorder:
                 agents[k] = self._per_agent(hit)
         n_active = (_scalar(self.topology.K, i32, device) if active is None
                     else active.sum(dtype=i32))
-        if age is None:
+        if age is None or age.numel() == 0:     # lockstep, or no lane
             max_age = _scalar(0, i32, device)
         else:
             real = self._const("real", self._real_mask, device)
@@ -209,7 +254,10 @@ class RoundRecorder:
             "live": _scalar(live, torch.bool, device),
             "reached": _scalar(reached, torch.bool, device),
             "metric": _scalar(metric, torch.float32, device),
-            "disagreement": consensus_disagreement(stacked),
+            "disagreement": (
+                consensus_disagreement(stacked)
+                if self.engine.local_rows is None
+                else mesh_disagreement(stacked, self.engine)),
             "n_sl": counts["SL"], "n_ul": counts["UL"], "n_dl": counts["DL"],
             "n_active": n_active, "max_age": max_age,
             "agent_sl": agents["SL"], "agent_ul": agents["UL"],

@@ -6,8 +6,11 @@ and unpriced collectives; C1 fires on mispriced bits, its static rows
 replay the chaos convention and equal the JAX package's rows, and every
 plan x codec (async included) reconciles ``==``; C1a brackets the bytes a
 real gloo group of 4 processes ships, where the recorder sees the
-distributed plan's p2p sends; ``audit_meta()`` equals the JAX engine's.
-One gloo spawn (4 ranks)."""
+distributed plan's p2p sends, and the meshed FL driver's observer
+collectives (population gather, disagreement all-reduces) land on their
+own ledger line while a stray f32 gather is still a C3 finding;
+``audit_meta()`` equals the JAX engine's without a mesh. One gloo spawn
+(4 ranks)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -167,12 +170,19 @@ def test_c1a_bracket_fires_both_ways():
     assert cm.check_wire_bytes(0, None, "x", priced) == []
 
 
-def test_mesh_ledgers_on_a_gloo_group_of_4():
+@pytest.fixture(scope="module")
+def mesh_rows():
+    """One spawn of 4 gloo ranks: a masked round and the meshed FL driver
+    of each plan x codec, recorded on every rank."""
+    return cm.run_mesh_rounds(4)
+
+
+def test_mesh_ledgers_on_a_gloo_group_of_4(mesh_rows):
     """C1a + C3 on 4 spawned gloo processes: the recorder sees the
     sharded plan's all-gathers and the distributed plan's p2p sends and
     receives; every rank's shipped priced bytes lie in the bracket; a
     seeded extra payload collective and a seeded mispricing fire."""
-    rows = cm.run_mesh_rounds(4)
+    rows = [r for r in mesh_rows if r["driver"] is None]
     assert len(rows) == 4 * len(cm.MESH_CASES)
     for row in rows:
         kinds = {r.kind for r in row["records"]}
@@ -195,6 +205,119 @@ def test_mesh_ledgers_on_a_gloo_group_of_4():
     assert [f.rule for f in cm.audit_mesh_ledgers([leak])] == ["C3"]
     mispriced = dict(rows[0], expected=2 * rows[0]["expected"])
     assert [f.rule for f in cm.audit_mesh_ledgers([mispriced])] == ["C1"]
+
+
+def test_meshed_drivers_book_their_observer_collectives(mesh_rows):
+    """The meshed ``run_fl_until_scan`` (2 rounds, every round evaluated,
+    buffered telemetry) on 4 gloo ranks: besides the plan's wire, each
+    rank ships exactly the observer collectives ``audit_meta()`` names —
+    one population gather (K agents' bytes) and the disagreement's two
+    all-reduces a round — which C3 books on their own ledger line and not
+    in the priced bytes; the wire bytes are the round's times the rounds
+    (C1a); the audit is clean. A stray f32 gather in a meshed round, by
+    the observer's op or by the wire's, is still a C3 finding."""
+    rows = [r for r in mesh_rows if r["driver"] is not None]
+    assert len(rows) == 4 * len(cm.MESH_CASES)
+    R = cm.MESH_DRIVER_ROUNDS
+    for row in rows:
+        meta = row["meta"]
+        obs = {o["quantity"]: o for o in meta["observer_collectives"]}
+        assert set(obs) == {"population for target_fn",
+                            "disagreement column sums",
+                            "disagreement distances"}
+        assert obs["population for target_fn"]["op"] == "allgather_"
+        # K = 4 agents of one (64,) f32 leaf
+        assert obs["population for target_fn"]["bytes"] == 4 * 64 * 4
+        assert obs["disagreement column sums"]["bytes"] == 64 * 4
+        assert obs["disagreement distances"]["bytes"] == 4 * 4
+        ledger, c3 = cm.collective_ledger(meta, row["records"], "x",
+                                          row["observer_calls"])
+        assert c3 == [] and ledger.unpriced_bytes == 0
+        assert ledger.control_bytes == 0
+        assert ledger.observer_bytes == {q: R * o["bytes"]
+                                         for q, o in obs.items()}
+        assert ledger.observer_calls == {q: R for q in obs}
+        wire = set(meta["priced_collectives"])
+        assert set(ledger.priced_bytes) == wire
+        assert ledger.wire_bytes == row["expected"] > 0
+        kinds = [r.kind for r in row["records"]]
+        assert kinds.count("allgather_") == R
+        assert kinds.count("allreduce_") == 2 * R
+    assert cm.audit_mesh_ledgers(rows) == []
+    assert all(r["observer_calls"] == cm.observer_calls(R, R) for r in rows)
+    for row in rows[:2]:                       # a sharded and its int8 twin
+        for kind in ("allgather_", "_allgather_base_"):
+            stray = _rec(kind, torch.float32, (4, 65))
+            leak = dict(row, records=row["records"] + [stray])
+            hits = cm.audit_mesh_ledgers([leak])
+            if kind == "_allgather_base_":     # the sharded wire's op
+                assert [f.rule for f in hits] == ["C1"]
+            else:
+                assert [f.rule for f in hits] == ["C3"]
+                assert "allgather_" in hits[0].message
+    for row in rows:
+        if row["plan"] == "distributed":
+            stray = _rec("_allgather_base_", torch.float32, (4, 64))
+            hits = cm.audit_mesh_ledgers([dict(row, records=row["records"]
+                                               + [stray])])
+            assert [f.rule for f in hits] == ["C3"]
+            break
+
+
+def test_observer_calls_past_their_count_are_findings(mesh_rows):
+    """C3 books an observer collective only up to the calls the audited run
+    makes of it: an f32 all-reduce of the column sums' 4·N bytes (what a
+    FedAvg-style model average would ship) or a second population gather
+    in a bare meshed round, which makes none, or one past a driver run's
+    count, is a finding; so is an observer call the records lack."""
+    def rules(row, records):
+        return [f.rule for f in cm.audit_mesh_ledgers(
+            [dict(row, records=records)])]
+
+    R = cm.MESH_DRIVER_ROUNDS
+    for row in mesh_rows:
+        obs = {o["quantity"]: o for o in row["meta"]["observer_collectives"]}
+        avg = _rec("allreduce_", torch.float32, (64,))
+        assert avg.nbytes == obs["disagreement column sums"]["bytes"]
+        gather = _rec("allgather_", torch.uint8,
+                      (obs["population for target_fn"]["bytes"],))
+        for stray in (avg, gather):
+            hits = cm.audit_mesh_ledgers([dict(row, records=row["records"]
+                                               + [stray])])
+            assert [f.rule for f in hits] == ["C3"], (row["driver"], hits)
+            assert (f"past the {R if row['driver'] else 0} call(s)"
+                    in hits[0].message), hits
+        if row["driver"] is not None:
+            i = next(j for j, r in enumerate(row["records"])
+                     if r.kind == "allgather_")
+            assert rules(row, row["records"][:i] + row["records"][i + 1:]) \
+                == ["C3"]
+    bare = next(r for r in mesh_rows if r["driver"] is None)
+    assert cm.audit_mesh_ledgers(
+        [dict(bare, observer_calls=cm.observer_calls(1, 0))])[0].rule == "C3"
+
+
+def test_audit_meta_names_observers_only_on_a_mesh(tmp_path):
+    """Without a mesh the drivers ship nothing, so ``audit_meta()`` names
+    no observer collective (and keeps the JAX package's keys); on a
+    1-position gloo mesh it names the three, with bytes for the agents
+    given."""
+    from repro_torch.launch import mesh as mesh_lib
+    assert "observer_collectives" not in ConsensusEngine(
+        topology.ring(8), plan="sharded", num_blocks=2).audit_meta()
+    mesh_lib.init_local_group(0, 1, str(tmp_path / "store"))
+    try:
+        eng = ConsensusEngine(topology.ring(8), plan="sharded",
+                              mesh=mesh_lib.make_agent_mesh())
+        agent = {"w": torch.zeros(5, 3), "b": torch.zeros(2,
+                                                          dtype=torch.bfloat16)}
+        obs = eng.audit_meta(agent)["observer_collectives"]
+        assert [(o["op"], o["bytes"]) for o in obs] == [
+            ("allgather_", 8 * (15 * 4 + 2 * 2)), ("allreduce_", 17 * 4),
+            ("allreduce_", 8 * 4)]
+        assert eng.audit_meta()["observer_collectives"][0]["bytes"] is None
+    finally:
+        mesh_lib.destroy_local_group()
 
 
 # -- audit_meta ------------------------------------------------------------------
