@@ -77,6 +77,31 @@ Phases (any failure exits non-zero; nothing is caught):
                 (median of 7), kernels per meta round and the busy share;
                 (d) the twin of ``examples/async_fleet.py`` (int8, sparse,
                 B1): rows == the host replay, joules == the bill.
+9b. programs  — the compiled round programs (CUDA graphs,
+                ``core/scanloop.py``): (a) the case study's meta and FL
+                programs (dense plan, K = 2) captured == the same runs
+                under ``scanloop.uncaptured()`` on the int8 and f32 wires,
+                static / fading / sleeping, chunks 1 and 8 (meta and FL
+                params, codec state, AsyncState, t_i, history, generators,
+                telemetry rows, delivered masks); (b) ``run_fl_until_scan``
+                at paper-DQN x K = 256 (sparse) the same, B1/B2 10 a round
+                inside the graphs, counted through the replays; every
+                main-path program captured, none eager, some cached; (e)
+                at K = 256 the variants captured mid-run the same:
+                ``eval_every=2`` (skip and evaluate graphs) and a target
+                that reads the host (``update`` / ``commit`` graphs, never
+                cached); (c) captured against eager: wall ms a round
+                (median of 3), kernels a round and busy share
+                (``torch.profiler``), B1/B2 kernels counted by name in the
+                traces == the counters == the eager trace, peak memory,
+                captures, replays, capture s, launches a replay and held
+                bytes of the case-study FL round, the meta round and the
+                K = 256 driver (int8 and f32; with the cache's byte cap
+                lifted, and at the default cap, where each call captures
+                anew); (d) a refused capture raises naming the program
+                and the op. Every phase header prints the device memory,
+                the captured programs alive and the bytes the program
+                cache holds; nothing clears the cache between phases.
 10. mesh      — the sharded and distributed plans: (a) B1/B2 in their
                 source form (a block of owned rows mixing from the
                 gathered population or wire; one agent from M received
@@ -254,6 +279,7 @@ The line before the last is the kernels JSON; the last is the ``ok`` line.
 
 Run:  python3 chip_smoke.py
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -352,9 +378,23 @@ T_START = time.perf_counter()
 
 
 def phase(name):
-    """Print a phase header with the seconds since the script started."""
+    """Print a phase header with the seconds since the script started,
+    then (once the card is in use) the device memory held, the captured
+    round programs alive and the bytes the program cache holds: the
+    earlier phases' programs stay cached, as in a user's process."""
     print(f"\n== {name} == (t = {time.perf_counter() - T_START:.1f} s)",
           flush=True)
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        from repro_torch.core import scanloop
+        live = [r for r in scanloop.registered_programs() if r.captured]
+        stats = scanloop.cache_stats()
+        print(f"memory before {name}: allocated "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, reserved "
+              f"{torch.cuda.memory_reserved() / 1e9:.3f} GB; {len(live)} "
+              f"captured programs alive holding "
+              f"{sum(r.held_bytes for r in live) / 1e9:.3f} GB, "
+              f"{stats['size']} cached holding "
+              f"{stats['held_bytes'] / 1e9:.3f} GB", flush=True)
 
 
 def stamp(what):
@@ -1330,6 +1370,496 @@ def run_protocol():
           f"E_total_kJ {res.summary()['E_total_kJ']}, per-task telemetry "
           f"joules {joules}; wall_s {wall}", flush=True)
     return got
+
+
+
+# -- programs: the compiled chunk program (CUDA graphs) -------------------------
+
+#: the ``programs`` phase: case-study adaptations (one task, 8 FL rounds,
+#: never reaching the target, after 2 meta rounds) at chunks 1 and 8; the
+#: K = 256 ``run_fl_until_scan`` (12 rounds at most, chunk 8, against
+#: ``run_fl_until``); timed rounds per run and runs per mode
+PROG = dict(cs_t0=2, cs_rounds=8, chunks=(1, 8), fl_rounds=12, fl_chunk=8,
+            timed_rounds=4, reps=3)
+#: the dynamics of the == cases: static links and robots, links fading
+#: with p = 0.3, robots awake with p = 0.75 (τ = 2, λ = 0.9)
+PROG_DYN = ("static", "fading", "sleeping")
+
+
+def same(a, b):
+    """Bit equality of two pytrees of tensors (dicts, tuples, None)."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(same(a[k], b[k]) for k in a))
+    if isinstance(a, (tuple, list)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    return a == b
+
+
+def prog_case_study(spec, dyn, **kw):
+    """A case study on its own K = 2 clusters (``auto``: the dense plan)
+    with buffered telemetry, under one of ``PROG_DYN``."""
+    from repro_torch.core import topology
+    from repro_torch.rl.casestudy import CaseStudy
+    from repro_torch.telemetry import Telemetry
+    extra = {"static": {}, "fading": dict(dropout_p=0.3, dropout_seed=3),
+             "sleeping": dict(availability=topology.AgentProcess.bernoulli(
+                 0.75, seed=2), tau=2, staleness_decay=0.9)}[dyn]
+    return CaseStudy(codec=spec, device=DEVICE, telemetry=Telemetry(),
+                     **dict(extra, **kw))
+
+
+def case_study_pass(cs, chunk):
+    """Meta-train ``PROG['cs_t0']`` rounds, then adapt task 0 for
+    ``PROG['cs_rounds']`` rounds at ``chunk``: every result a captured run
+    and an ``uncaptured()`` run must share."""
+    cs.chunk = chunk
+    cs.telemetry.reset()
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    meta, meta_hist = cs.meta_train(g, PROG["cs_t0"])
+    g2 = torch.Generator(device=DEVICE).manual_seed(12)
+    params, t_i, hist = cs.adapt_task(g2, 0, meta,
+                                      max_rounds=PROG["cs_rounds"])
+    torch.cuda.synchronize()
+    return {"meta": meta, "meta_history": meta_hist, "params": params,
+            "t_i": t_i, "history": hist,
+            "codec_state": cs.fl_codec_state[0],
+            "async_state": cs.fl_async_state[0],
+            "delivered": cs.fl_delivered.get(0),
+            "generators": (g.get_state(), g2.get_state()),
+            "rows": cs.telemetry.events(live_only=False)}
+
+
+def check_case_study_programs():
+    """(a) The case study's programs (the meta round and task 0's FL round,
+    held per instance) captured against the same runs under
+    ``scanloop.uncaptured()``: meta params and history, FL params, codec
+    state, ``AsyncState``, t_i, history, both generators' final states,
+    the telemetry rows and the delivered masks ``==``, on the int8 and
+    f32 wires, static / fading / sleeping, at chunks 1 and 8."""
+    from repro_torch.core import scanloop
+    cases = 0
+    for spec in ("int8", None):
+        for dyn in PROG_DYN:
+            cs = prog_case_study(spec, dyn, r_target=1e9)
+            if cs.engine.plan.kind != "dense":
+                fail(f"case study resolved to {cs.engine.plan.kind!r}")
+            for chunk in PROG["chunks"]:
+                got = case_study_pass(cs, chunk)
+                with scanloop.uncaptured():
+                    want = case_study_pass(cs, chunk)
+                bad = [k for k in got if not same(got[k], want[k])]
+                if bad:
+                    fail(f"captured case study (codec={spec}, {dyn}, chunk "
+                         f"{chunk}) differs from uncaptured() in {bad}")
+                cases += 1
+            recs = [cs._meta_program.record, cs._fl_programs[0].record]
+            if not all(r.captured and r.replays for r in recs):
+                fail(f"case study programs not captured: {recs}")
+    print(f"(a) case study, dense plan (K = 2), {cases} cases (int8 / f32 x "
+          f"{', '.join(PROG_DYN)} x chunks {PROG['chunks']}): captured == "
+          "uncaptured() on meta params and history, FL params, codec "
+          "state, AsyncState, t_i, history, generators, telemetry rows and "
+          "delivered masks", flush=True)
+
+
+def prog_fl_setup(x):
+    """The K = 256 regression of the ``programs`` phase on ``x``: each
+    round draws every agent's target from the generator (a sampler that
+    passes the capture probe), so the program is cached and captured.
+    Returns the loss, the sampler, and the device target and the host
+    target (``float(m) < thr``, which fails the probe) for a threshold."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    target = {k: torch.randn(v.shape[1:], generator=g, device=DEVICE)
+              for k, v in x.items()}
+
+    def loss(p, b):
+        return sum(0.5 * (p[k] - b[k]).square().sum() for k in p)
+
+    def sample(generator, _t):
+        return {k: target[k] + 0.1 * torch.randn(
+            (K_POP, 1) + v.shape, generator=generator, device=DEVICE)
+            for k, v in target.items()}
+
+    def dist(sp):
+        return sum((sp[k] - target[k]).square().mean() for k in sp)
+
+    targets = {}
+
+    def target_for(thr, host=False):
+        # one function per threshold: the program cache keys on identity
+        if (thr, host) not in targets:
+            def target_fn(sp):
+                m = dist(sp)
+                return m < thr, m
+
+            def host_target_fn(sp):
+                m = dist(sp)
+                return float(m) < thr, m
+            targets[thr, host] = host_target_fn if host else target_fn
+        return targets[thr, host]
+
+    return loss, sample, target_for
+
+
+def prog_engine(spec, dyn):
+    from repro_torch.core import topology
+    from repro_torch.core.engine import ConsensusEngine
+    kw = {"static": {}, "fading": dynamic_kw("dropout"),
+          "sleeping": dynamic_kw("async")}[dyn]
+    eng = ConsensusEngine(topology.small_world(K_POP, k=4, seed=1),
+                          codec=spec, plan="sparse", **kw)
+    if eng.plan.kind != "sparse":
+        fail(f"programs engine resolved to {eng.plan.kind!r}")
+    return eng
+
+
+def fl_pass(x, fns, eng, thr, chunk, max_rounds, every=1, host=False):
+    """One ``run_fl_until_scan`` (``run_fl_until`` at chunk 1) with buffered
+    telemetry and a generator; its launches counted from 0."""
+    from repro_torch.core import federated
+    from repro_torch.telemetry import Telemetry
+    loss, sample, target_for = fns
+    target_fn = target_for(thr, host)
+    tel = Telemetry()
+    g = torch.Generator(device=DEVICE).manual_seed(21)
+    zero_counts()
+    kw = dict(target_fn=target_fn, max_rounds=max_rounds, generator=g,
+              telemetry=tel, eval_every=every, return_state=True)
+    if chunk == 1:
+        out = federated.run_fl_until(loss, x, sample, eng, DRV_FL["lr"],
+                                     **kw)
+    else:
+        out = federated.run_fl_until_scan(loss, x, sample, eng,
+                                          DRV_FL["lr"], chunk=chunk, **kw)
+    torch.cuda.synchronize()
+    p, t_i, hist, st = out
+    return {"params": p, "t_i": t_i, "history": hist, "codec_state": st,
+            "generator": g.get_state(),
+            "rows": tel.events(live_only=False)}, launch_counts()
+
+
+def fl_case(x, fns, spec, dyn, thr, chunk, every=1, host=False):
+    """One K = 256 case captured and under ``uncaptured()``: fails unless
+    every result is ``==`` and both launch B1 (int8) or B2 (f32) exactly
+    once per leaf per round computed. Returns (t_i, rounds computed,
+    the captured run's launches)."""
+    from repro_torch.core import scanloop
+    eng = prog_engine(spec, dyn)
+    own = "quant_consensus_pop" if spec else "consensus_update_pop"
+    got, n = fl_pass(x, fns, eng, thr, chunk, PROG["fl_rounds"], every, host)
+    with scanloop.uncaptured():
+        want, n_eager = fl_pass(x, fns, eng, thr, chunk, PROG["fl_rounds"],
+                                every, host)
+    bad = [k for k in got if not same(got[k], want[k])]
+    computed = min(-(-got["t_i"] // chunk) * chunk, PROG["fl_rounds"])
+    exp = {k: len(x) * computed if k == own else 0 for k in KERNELS}
+    if bad or n != exp or n_eager != exp:
+        fail(f"run_fl_until_scan codec={spec} {dyn} chunk {chunk} "
+             f"eval_every {every} host target {host}: captured differs "
+             f"from uncaptured() in {bad}, or launches {n} / {n_eager} != "
+             f"{exp}")
+    return got["t_i"], computed, n
+
+
+def check_fl_programs(x, fns, thr):
+    """(b) ``run_fl_until_scan`` at full width (paper-DQN x K = 256,
+    small_world(k=4), the sparse plan) on the f32 (B2) and int8 (B1)
+    wires, static / fading / sleeping, at chunk 8 and as ``run_fl_until``:
+    the cached, captured program ``==`` the same run under
+    ``uncaptured()`` (params, codec state, t_i, history, the generator's
+    final state, telemetry rows), with the hit mid-chunk on the static f32
+    case, and B1/B2 launching inside the graphs at 10 a round computed,
+    counted through the replays. Returns the launches of the captured
+    runs."""
+    total = {n: 0 for n in KERNELS}
+    cases = []
+    for spec in (None, "int8"):
+        for dyn in PROG_DYN:
+            for chunk in (PROG["fl_chunk"], 1):
+                t_i, computed, n = fl_case(x, fns, spec, dyn, thr, chunk)
+                for k in KERNELS:
+                    total[k] += n[k]
+                cases.append((spec, dyn, chunk, t_i, computed))
+    print(f"(b) run_fl_until_scan K={K_POP} sparse, {len(cases)} cases "
+          f"(codec, dynamics, chunk, t_i, rounds computed) {cases}: "
+          "captured == uncaptured() on params, codec state, t_i, history, "
+          "generator and rows; B1/B2 10 a round computed inside the "
+          f"graphs (captured launches {total})", flush=True)
+    return total
+
+
+def check_fl_variants(x, fns, thr):
+    """(e) The variants a run captures in its middle, at K = 256:
+    ``eval_every=2`` (the skip round's graph, then the evaluating one,
+    on the live carry), a target that reads the host (``float(m) <
+    thr``: ``update`` and ``commit`` graphs around the host call, the
+    program built per call and never cached), and both at once —
+    captured ``==`` ``uncaptured()`` on params, codec state, t_i, history,
+    generator and rows, B1/B2 10 a round computed."""
+    from repro_torch.core import scanloop
+    cases = []
+    for spec, dyn, chunk, every, host in (
+            ("int8", "fading", PROG["fl_chunk"], 2, False),
+            (None, "static", PROG["fl_chunk"], 1, True),
+            ("int8", "sleeping", 1, 2, True)):
+        with program_records() as recs:
+            t_i, computed, _ = fl_case(x, fns, spec, dyn, thr, chunk, every,
+                                       host)
+        ran = [r for r in recs if r.replays]
+        want = 2 + host if every == 2 else 2
+        if len(ran) != 1 or ran[0].captures != want or (
+                host != (ran[0].host_fns == ("target_fn",))) or (
+                host != (ran[0].cache_key is None)):
+            fail(f"(e) codec={spec} {dyn} eval_every {every} host target "
+                 f"{host}: programs {ran}")
+        cases.append((spec, dyn, chunk, every, host, t_i, computed,
+                      ran[0].captures))
+    print(f"(e) K={K_POP} variants captured mid-run, {len(cases)} cases "
+          "(codec, dynamics, chunk, eval_every, host target, t_i, rounds "
+          f"computed, graphs captured) {cases}: captured == uncaptured() "
+          "on params, codec state, t_i, history, generator and rows; "
+          "B1/B2 10 a round computed; the host-target programs not cached",
+          flush=True)
+
+
+#: the B1 / B2 kernels' names in a profiler trace (the CUDA functions of
+#: quant_consensus.cu and consensus_update.cu)
+TRACE_NAMES = {"quant_consensus_pop": "quant_consensus_pop_kernel",
+               "consensus_update_pop": "consensus_pop_kernel"}
+
+
+def trace_launches(kernels):
+    """B1 / B2 launches in a trace's kernel events, by wrapper."""
+    out = {}
+    for n, fn in TRACE_NAMES.items():
+        out[n] = sum(1 for e in kernels if fn in e["name"] and not (
+            n == "consensus_update_pop" and "quant_" in e["name"]))
+    return out
+
+
+def per_round(run, rounds, label):
+    """(median wall ms a round over ``PROG['reps']`` runs, device ms a
+    round, kernels a round, peak MB, B1/B2 launches in the trace and on
+    the counters) of ``run()``, which computes ``rounds`` rounds; the
+    kernels, device time and launches from one ``torch.profiler`` trace
+    of one more run."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(PROG["reps"]):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3 / rounds)
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    counted = {n: launch_counts()[n] for n in TRACE_NAMES}
+    _, kernels = trace_kernels(prof, f"programs_{label}")
+    busy = sum(e.get("dur", 0) for e in kernels) / rounds / 1e3
+    return {"wall_ms_per_round": statistics.median(walls),
+            "wall_ms_runs": walls, "kernels_per_round": len(kernels) / rounds,
+            "device_ms_per_round": busy,
+            "busy_share": busy / statistics.median(walls),
+            "peak_allocated_mb": peak,
+            "reserved_mb": torch.cuda.memory_reserved() / 1e6,
+            "trace_launches": trace_launches(kernels),
+            "counted_launches": counted}
+
+
+def side_by_side(label, run, rounds, records):
+    """Captured and eager (``uncaptured()``) ``run`` side by side, with the
+    programs' captures, replays, capture seconds, launches a replay and
+    held bytes. Fails unless the B1/B2 kernels the captured trace shows,
+    by name, equal the launches the replays added to the counters and
+    the eager trace's."""
+    from repro_torch.core import scanloop
+    run()                                 # captures, outside the timing
+    cap = per_round(run, rounds, f"{label}_captured")
+    with scanloop.uncaptured():
+        run()
+        eager = per_round(run, rounds, f"{label}_eager")
+    recs = records()
+    out = {"captured": cap, "eager": eager,
+           "captures": sum(r.captures for r in recs),
+           "replays": sum(r.replays for r in recs),
+           "capture_s": sum(r.capture_seconds for r in recs),
+           "launches_per_replay": [r.launches_per_replay for r in recs],
+           "held_bytes": [r.held_bytes for r in recs]}
+    if not (cap["trace_launches"] == cap["counted_launches"]
+            == eager["trace_launches"] == eager["counted_launches"]):
+        fail(f"{label}: B1/B2 in the captured trace "
+             f"{cap['trace_launches']}, on the counters "
+             f"{cap['counted_launches']}, in the eager trace "
+             f"{eager['trace_launches']} (counters "
+             f"{eager['counted_launches']}) differ")
+    print(f"{label}: captured {cap['wall_ms_per_round']:.3f} ms a round "
+          f"({cap['kernels_per_round']} kernels, busy "
+          f"{cap['busy_share']:.3f}, peak {cap['peak_allocated_mb']:.0f} MB)"
+          f"; eager {eager['wall_ms_per_round']:.3f} ms "
+          f"({eager['kernels_per_round']} kernels, busy "
+          f"{eager['busy_share']:.3f}, peak {eager['peak_allocated_mb']:.0f}"
+          f" MB); B1/B2 in the captured trace {cap['trace_launches']} == "
+          f"counters {cap['counted_launches']} == eager trace "
+          f"{eager['trace_launches']}; {json.dumps(out)}", flush=True)
+    return out
+
+
+def time_programs(x, fns):
+    """(c) Captured against eager: the case-study FL round of the
+    ``profile`` phase (2 robots, int8, sparse), the meta round of
+    ``paper`` (c), and the K = 256 ``run_fl_until_scan`` (int8 and f32,
+    static) with the cache's byte cap lifted, so its program is kept
+    across calls; then the int8 driver at the default cap, where its
+    program (above the cap on its own) is captured anew in every call."""
+    from repro_torch.core import scanloop
+    from repro_torch.rl.casestudy import CaseStudy
+    R = PROG["timed_rounds"]
+    out = {}
+    cs = CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
+                   codec="int8", device=DEVICE, r_target=1e9, chunk=R)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    init = cs.init_params(gen)
+    out["casestudy_fl_round"] = side_by_side(
+        "case-study FL round (2 robots, int8, sparse)",
+        lambda: cs.adapt_task(gen, 0, init, max_rounds=R), R,
+        lambda: [cs._fl_programs[0].record])
+    pc = paper_casestudy()
+    pinit = pc.init_params(gen)
+    out["meta_round"] = side_by_side(
+        "meta round (3 tasks x 10 inner steps, paper-DQN)",
+        lambda: pc.run_meta(gen, pinit, R), R,
+        lambda: [pc._meta_program.record])
+    del cs, init, pc, pinit
+    cap = scanloop.PROGRAM_CACHE_BYTES
+    scanloop.PROGRAM_CACHE_BYTES = None
+    try:
+        for spec in ("int8", None):
+            eng = prog_engine(spec, "static")
+            out[f"fl_k256_{spec or 'f32'}"] = side_by_side(
+                f"run_fl_until_scan K={K_POP} ({spec or 'f32'}, sparse, "
+                "static; byte cap lifted)",
+                lambda: fl_pass(x, fns, eng, -1.0, R, R), R,
+                lambda: [p.record for k, p in
+                         scanloop._program_cache.items() if k[4] is eng])
+    finally:
+        scanloop.PROGRAM_CACHE_BYTES = cap
+        scanloop.trim_program_cache()
+    eng = prog_engine("int8", "static")
+    with program_records() as recs:
+        fl_pass(x, fns, eng, -1.0, R, R)
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(PROG["reps"]):
+            t = time.perf_counter()
+            fl_pass(x, fns, eng, -1.0, R, R)
+            walls.append((time.perf_counter() - t) * 1e3 / R)
+    kept = [k for k in scanloop._program_cache if k[4] is eng]
+    held = [r.held_bytes for r in recs if r.captured]
+    if kept or len(held) != 1 + PROG["reps"]:
+        fail(f"K = {K_POP} at the default byte cap {cap}: {len(kept)} "
+             f"programs kept, {len(held)} captured")
+    out["fl_k256_int8_default_cap"] = {
+        "wall_ms_per_round": statistics.median(walls), "wall_ms_runs": walls,
+        "peak_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
+        "held_bytes": held, "capture_s": [r.capture_seconds for r in recs]}
+    print(f"run_fl_until_scan K={K_POP} (int8) at the default byte cap "
+          f"({cap} B): {statistics.median(walls):.3f} ms a round over calls "
+          f"of {R} rounds, each capturing anew and dropping its program on "
+          f"return; {json.dumps(out['fl_k256_int8_default_cap'])}",
+          flush=True)
+    return out
+
+
+def check_capture_failure():
+    """(d) A capture that meets an op the graph refuses raises, naming the
+    program and the op; nothing falls back to eager."""
+    from repro_torch.core import scanloop
+    prog = scanloop.donating_graph(
+        lambda v: ((v * v.sum().item(),), v.sum()), donate_argnums=(0,),
+        name="refused_capture")
+    try:
+        prog(torch.ones(4, device=DEVICE))
+    except RuntimeError as e:
+        msg = str(e)
+        if "refused_capture" not in msg or "local_scalar_dense" not in msg:
+            fail(f"capture failure did not name the program and op: {msg}")
+        print(f"(d) a refused capture raises by name: {msg[:160]}",
+              flush=True)
+    else:
+        fail("a capture with .item() inside did not raise")
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def program_records():
+    """The records of every round program built inside the block, kept
+    past their programs' lifetimes (a record holds no graph or buffer)."""
+    from repro_torch.core import scanloop
+    recs, build = [], scanloop.donating_graph
+
+    def recording(*args, **kw):
+        prog = build(*args, **kw)
+        recs.append(prog.record)
+        return prog
+
+    scanloop.donating_graph = recording
+    try:
+        yield recs
+    finally:
+        scanloop.donating_graph = build
+
+
+def programs_phase(x):
+    """The ``programs`` phase: (a), (b), the audit of the main path's
+    programs (every one that ran outside ``uncaptured()`` captured, none
+    with a host function or streaming, at least one admitted to the
+    cache), (e), (c) and (d)."""
+    from repro_torch.core import scanloop
+    fns = prog_fl_setup(x)
+    with program_records() as main:
+        t = time.perf_counter()
+        check_case_study_programs()
+        print(f"(a) case study: {time.perf_counter() - t:.2f} s", flush=True)
+        t = time.perf_counter()
+        probe, _ = fl_pass(x, fns, prog_engine(None, "static"), -1.0,
+                           PROG["fl_chunk"], PROG["fl_rounds"])
+        thr = probe["history"][2] * 0.999
+        launches = check_fl_programs(x, fns, thr)
+        print(f"(b) K = {K_POP} drivers: {time.perf_counter() - t:.2f} s",
+              flush=True)
+    ran = [r for r in main if r.replays or r.why_uncaptured != "uncaptured()"]
+    bad = [(r.name, r.why_uncaptured, r.host_fns) for r in ran
+           if not r.captured or r.why_uncaptured or r.host_fns
+           or r.streaming]
+    admitted = [r for r in ran if r.cache_key is not None and r.captured]
+    if bad or not admitted:
+        fail(f"main-path programs not all captured ({bad}) or none admitted "
+             f"({len(admitted)})")
+    print(f"main path: {len(ran)} programs ran outside uncaptured(), all "
+          f"captured, none eager or with a host function; {len(admitted)} "
+          f"admitted to the cache; held bytes {[r.held_bytes for r in ran]}"
+          f"; cache {json.dumps(scanloop.cache_stats())}", flush=True)
+    t = time.perf_counter()
+    check_fl_variants(x, fns, thr)
+    print(f"(e) variants: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    numbers = time_programs(x, fns)
+    print(f"(c) timing: {time.perf_counter() - t:.2f} s", flush=True)
+    check_capture_failure()
+    print(f"programs numbers {json.dumps(numbers)}", flush=True)
+    return {"programs_fl": launches}
 
 
 # -- paper: the paper's experiments on the port ---------------------------------
@@ -4003,6 +4533,12 @@ def main():
         t = time.perf_counter()
         by_path.update(fn())
         print(f"{label}: {time.perf_counter() - t:.2f} s", flush=True)
+
+    phase("programs")
+    t = time.perf_counter()
+    by_path.update(programs_phase(stacked_params(cfg, K_POP, gen)))
+    print(f"programs: {time.perf_counter() - t:.2f} s", flush=True)
+    torch.cuda.empty_cache()
 
     phase("mesh")
     check_mesh_kernels(errs)

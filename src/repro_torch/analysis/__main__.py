@@ -1,14 +1,17 @@
 """CLI: ``python -m repro_torch.analysis [--strict] [--layer
-all|lint|cost] [--device cpu|cuda] [--baseline FILE] [--json-out FILE]
-[--format text|json|sarif]``.
+all|lint|cost|programs] [--device cpu|cuda] [--baseline FILE] [--json-out
+FILE] [--format text|json|sarif]``.
 
 ``--layer lint`` runs the source rules (:mod:`.lint`), ``--layer cost``
 the cost model (:mod:`.costmodel`: C2, C1a and C3 on a gloo group of 8
 processes spawned on this host, C3 over the chunked drivers, the C1b
-matrix), ``--layer all`` (default) both. ``--device``
-is where the cost layer's engine rounds run: ``cuda`` (default; there
-also C2 and C1b at the paper-DQN width of K = 256 with B1/B2 launching)
-or ``cpu`` (the gloo group is on the CPU whatever it says).
+matrix), ``--layer programs`` the program rules (:mod:`.programs`: JX1,
+JX4 and JX5 over the cached round programs, JX3 over the captured ones),
+``--layer all`` (default) all three. ``--device`` is where the cost and
+programs layers' rounds run: ``cuda`` (default; there also C2 and C1b at
+the paper-DQN width of K = 256 with B1/B2 launching, and the round
+programs captured as CUDA graphs) or ``cpu`` (the gloo group is on the
+CPU whatever it says).
 
 ``--format text`` (default) prints the human report, ``--format json``
 the findings as a stable JSON array (the artifact), ``--format sarif`` a
@@ -44,7 +47,7 @@ from repro_torch.analysis.findings import (apply_allowlist, dedup_findings,
                                            stale_entries)
 from repro_torch.analysis.lint import run_lint
 
-LAYERS = ("all", "lint", "cost")
+LAYERS = ("all", "lint", "cost", "programs")
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 #: the repository root: two levels above the ``src/`` package
@@ -63,8 +66,8 @@ def main(argv=None) -> int:
                          "it")
     ap.add_argument("--layer", choices=LAYERS, default="all")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda",
-                    help="where the cost layer's engine rounds run (its "
-                         "gloo group runs on the CPU either way)")
+                    help="where the cost and programs layers' rounds run "
+                         "(the gloo group runs on the CPU either way)")
     ap.add_argument("--root", default=REPO_ROOT,
                     help="repository root to lint (default: this "
                          "checkout)")
@@ -92,6 +95,11 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         findings += run_cost_audit(args.device)
         timings.append(("cost", time.monotonic() - t0))
+    if args.layer in ("all", "programs"):
+        from repro_torch.analysis.programs import run_program_audit
+        t0 = time.monotonic()
+        findings += run_program_audit(args.device)
+        timings.append(("programs", time.monotonic() - t0))
     findings = apply_allowlist(dedup_findings(findings), entries)
 
     if args.json_out:

@@ -41,11 +41,12 @@ R6   error paths name the offending input: every ``raise`` in the port's
      f-string piece, a name, an attribute or a call) into its message.
      Bare re-raises and ``raise err`` of a caught variable are exempt.
 
-The JAX package's R5 (donated carries are ``own()``ed) has no
-counterpart: eager PyTorch donates nothing. Nor have its jaxpr, HLO and
-cost-model layers (JX1–5, H1–3, C1–3): the port has no compiled program
-to read. The cost model's counterpart, the Eq.-(11) ledger against the
-collective sizes the torch profiler records, is open work.
+The JAX package's R5 (donated carries are ``own()``ed) is not linted:
+the port's drivers own a caller's pytree themselves before the first
+round (``scanloop.own``). Its program rules JX1, JX3, JX4 and JX5 are
+:mod:`.programs` over the captured round programs, its cost model C1–3 is
+:mod:`.costmodel`; JX2 and H1–3 read a jaxpr or HLO the port does not
+have.
 
 Pure ``ast``: this module imports neither torch nor anything it lints.
 """

@@ -1,0 +1,154 @@
+"""The program layer's audits: the JAX package's program rules, as far as
+they carry over to captured round programs.
+
+Walks :func:`repro_torch.core.scanloop.registered_programs` after driving
+small FL and MAML configurations through the real drivers
+(:func:`_tiny_drivers`), so the registry holds the programs the drivers
+actually build:
+
+JX1  no function that failed the capture probe inside a CACHED program:
+     a sampler or target that runs on the host before each replay
+     (``ProgramRecord.host_fns``) must never be admitted to
+     ``scanloop.cached_program`` — its probe consumed a stateful
+     sampler's element, and a cache hit that skipped the probe would
+     shift the stream between the first and later calls.
+JX4  no streaming telemetry inside a CACHED program: a streaming round's
+     rows are read and emitted to host sinks after each replay, so the
+     drivers build streaming programs per call and never admit them.
+JX3  donation honoured (the card only): the replays of an admitted
+     captured program found every donated buffer at the address its
+     graph writes, and whenever a caller handed back the carry of the
+     last replay, that carry WAS those buffers
+     (``ProgramRecord.in_place``): a carry handed out as a copy is copied
+     back into the buffers every round, two generations of the
+     population alive at once.
+JX5  the async carry donated: an admitted program whose arguments hold
+     the ``AsyncState`` (per-agent clocks and per-lane wire ages,
+     ``ProgramRecord.async_argnums``) lists them in ``donate_argnums``.
+
+The JAX package's JX2 (decode before combine) reads a jaxpr: the port has
+no jaxpr to read, and its int wire reaches the kernel as int8 lanes by
+construction (``consensus._compressed_consensus_step``).
+"""
+from __future__ import annotations
+
+from typing import List
+
+from repro_torch.analysis.findings import Finding
+
+LABEL = "src/repro_torch/core/scanloop.py"
+
+
+def audit_programs(records) -> List[Finding]:
+    """JX1, JX3, JX4 and JX5 over ``records``
+    (:class:`repro_torch.core.scanloop.ProgramRecord`)."""
+    findings: List[Finding] = []
+    for rec in records:
+        if rec.cache_key is None:
+            continue                       # built per call: out of scope
+        family = rec.cache_key[0]
+        if rec.host_fns:
+            findings.append(Finding(
+                "JX1", LABEL, 0,
+                f"program {rec.name!r} (cache key {family!r}) holds "
+                f"{list(rec.host_fns)}, which failed the capture probe, "
+                "yet was admitted to scanloop.cached_program — host round "
+                "functions must be built per call", scope=rec.name))
+        if rec.streaming:
+            findings.append(Finding(
+                "JX4", LABEL, 0,
+                f"streaming-telemetry program {rec.name!r} (cache key "
+                f"{family!r}) was admitted to scanloop.cached_program — "
+                "streaming programs must be built per call",
+                scope=rec.name))
+        if rec.captured and rec.in_place is False:
+            findings.append(Finding(
+                "JX3", LABEL, 0,
+                f"captured program {rec.name!r} (cache key {family!r}): a "
+                "replay found a donated buffer moved, or was handed its "
+                "last carry as a copy of the buffers its graph writes — "
+                "donation not honoured", scope=rec.name))
+        undonated = sorted(set(rec.async_argnums) - set(rec.donate_argnums))
+        if undonated:
+            findings.append(Finding(
+                "JX5", LABEL, 0,
+                f"program {rec.name!r} (cache key {family!r}): arguments "
+                f"{undonated} hold the AsyncState (clock, ages) but "
+                f"donate_argnums={tuple(rec.donate_argnums)} leaves them "
+                "undonated — the async carry must be updated in place like "
+                "the params", scope=rec.name))
+    return findings
+
+
+def _tiny_drivers(device):
+    """Drive small FL and MAML configurations through the real drivers on
+    ``device``: the int8 wire static and on an async engine with fading
+    links, telemetry off, buffered (cached) and streaming (never cached),
+    a host sampler (never cached) and ``maml_train_scan``."""
+    import torch
+
+    from repro_torch import telemetry as telemetry_lib
+    from repro_torch.core import federated, maml
+    from repro_torch.core import topology as topo_lib
+    from repro_torch.core.engine import ConsensusEngine
+
+    K, D = 4, 8
+
+    def loss_fn(p, batch):
+        pred = batch["x"] @ p["w"] + p["b"]
+        return ((pred - batch["y"]) ** 2).mean()
+
+    def sample_batches(generator, _t):
+        x = torch.randn((K, 1, 4, D), generator=generator, device=device)
+        return {"x": x, "y": x.sum(-1, keepdim=True)}
+
+    host_x = torch.randn((K, 1, 4, D), generator=torch.Generator(
+        device=device).manual_seed(3), device=device)
+
+    def host_sampler(_generator, _t):
+        return {"x": host_x, "y": host_x.sum(-1, keepdim=True)}
+
+    def target_fn(stacked):
+        # input-dependent on purpose: a constant target fails the probe,
+        # and its program would never reach the cache this audit reads
+        d = stacked["w"].mean()
+        return d < -1e9, d
+
+    stacked = {"w": torch.zeros((K, D, 1), device=device),
+               "b": torch.zeros((K, 1), device=device)}
+    engine = ConsensusEngine(topo_lib.ring(K), codec="int8", plan="sparse")
+    async_engine = ConsensusEngine(
+        topo_lib.ring(K), codec="int8", plan="sparse",
+        graph=topo_lib.GraphProcess.dropout(0.3, seed=0),
+        agents=topo_lib.AgentProcess.bernoulli(0.6, seed=0), tau=2)
+    runs = ((engine, sample_batches, None),
+            (async_engine, sample_batches, telemetry_lib.Telemetry()),
+            (engine, sample_batches, telemetry_lib.Telemetry()),
+            (engine, sample_batches,
+             telemetry_lib.Telemetry(mode="streaming")),
+            (engine, host_sampler, None))
+    for eng, sampler, tel in runs:
+        federated.run_fl_until_scan(
+            loss_fn, stacked, sampler, eng, 0.1, target_fn=target_fn,
+            max_rounds=2, chunk=2, telemetry=tel,
+            generator=torch.Generator(device=device).manual_seed(0))
+
+    def sample_tasks(generator, _t):
+        x = torch.randn((2, 3, 4, D), generator=generator, device=device)
+        q = torch.randn((2, 4, D), generator=generator, device=device)
+        return ({"x": x, "y": x.sum(-1, keepdim=True)},
+                {"x": q, "y": q.sum(-1, keepdim=True)})
+
+    maml.maml_train_scan(
+        loss_fn, {"w": torch.zeros((D, 1), device=device),
+                  "b": torch.zeros((1,), device=device)},
+        sample_tasks, rounds=2, inner_lr=0.1, outer_lr=0.1, inner_steps=3,
+        chunk=2, generator=torch.Generator(device=device).manual_seed(0))
+
+
+def run_program_audit(device="cpu") -> List[Finding]:
+    """The programs layer: :func:`_tiny_drivers` on ``device``, then
+    :func:`audit_programs` over every live program."""
+    from repro_torch.core import scanloop
+    _tiny_drivers(device)
+    return audit_programs(scanloop.registered_programs())

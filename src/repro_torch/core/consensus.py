@@ -279,7 +279,7 @@ def _structure(mix, structure, device):
 def consensus_step(stacked_params, mix, *, impl: str = "dense",
                    codec=None, codec_state=None, generator=None,
                    error_feedback: bool = True, gamma: float = 1.0,
-                   structure=None):
+                   structure=None, dense_operator=None):
     """Eq. (6) on agent-stacked params (a dict of (K, ...) tensors).
     ``mix``: (K, K) σ or a Topology (uniform paper weights).
 
@@ -296,7 +296,11 @@ def consensus_step(stacked_params, mix, *, impl: str = "dense",
     layout (numpy or tensors on the params' device) for the sparse path,
     e.g. a round's σ renormalised on its surviving lanes (any H; σ = 0
     lanes are exact no-ops). On the dense path ``mix`` may be a (K, K)
-    tensor, a round's σ rebuilt on the card.
+    tensor, a round's σ rebuilt on the card, and ``dense_operator`` the
+    (K, K) f32 matrix the dense path multiplies by, already on the
+    params' device (``_effective_mix(mix)`` without a codec, ``mix``
+    itself with one): the engine keeps its static σ there, so a captured
+    round copies nothing from the host.
     """
     mix = resolve_mix(mix)
     if impl not in ("dense", "sparse", "auto"):
@@ -311,13 +315,14 @@ def consensus_step(stacked_params, mix, *, impl: str = "dense",
         codec = codecs.resolve_codec(codec, error_feedback)
         return _compressed_consensus_step(
             stacked_params, mix, codec, codec_state, generator, impl=impl,
-            gamma=gamma, structure=structure)
+            gamma=gamma, structure=structure, dense_operator=dense_operator)
     if impl == "auto":
         impl = auto_path(mix)
     device = _device_of(stacked_params)
     out = {}
     if impl == "dense":
-        M = torch.as_tensor(_effective_mix(mix), device=device)
+        M = (dense_operator if dense_operator is not None
+             else torch.as_tensor(_effective_mix(mix), device=device))
         for name, x in stacked_params.items():
             xf = x.to(torch.float32).reshape(x.shape[0], -1)
             out[name] = (M @ xf).reshape(x.shape).to(x.dtype)
@@ -334,7 +339,7 @@ def consensus_step(stacked_params, mix, *, impl: str = "dense",
 
 def _compressed_consensus_step(stacked_params, mix, codec, codec_state,
                                generator, *, impl: str, gamma: float = 1.0,
-                               structure=None):
+                               structure=None, dense_operator=None):
     """Eq. (6) over codec'd exchanges (see :func:`consensus_step`).
 
     Per leaf: each agent encodes m_k = W_k + r_k and decodes x̂_k; the
@@ -358,7 +363,9 @@ def _compressed_consensus_step(stacked_params, mix, codec, codec_state,
         idx, sig = _structure(mix, structure, device)
         sig = gamma * sig
     else:
-        M = (mix.to(device, torch.float32) if isinstance(mix, torch.Tensor)
+        M = (dense_operator if dense_operator is not None
+             else mix.to(device, torch.float32)
+             if isinstance(mix, torch.Tensor)
              else torch.as_tensor(np.asarray(mix, np.float32), device=device))
         off = gamma * (M - torch.diag(torch.diag(M)))
         rowsum = off.sum(dim=1)

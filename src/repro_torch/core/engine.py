@@ -615,9 +615,9 @@ class ConsensusEngine:
         if self.staleness_decay == 1.0:
             stale_w = one
         else:
-            stale_w = torch.pow(
-                torch.tensor(self.staleness_decay, dtype=torch.float32,
-                             device=dev), new_age.to(torch.float32))
+            decay = self._on("staleness_decay",
+                             lambda: np.float32(self.staleness_decay), dev)
+            stale_w = torch.pow(decay, new_age.to(torch.float32))
         weights = torch.where(delivered, one,
                               torch.where(stale, stale_w, zero))
         return AsyncRound(act, weights, delivered, new_age)
@@ -779,14 +779,26 @@ class ConsensusEngine:
                 generator=generator, gamma=self.gamma, error_feedback=False,
                 schedule=self.schedule(), sig_override=slot_sig,
                 sources=self._senders(device))
+        dense_op = None
+        if kind == "dense" and survival is None:
+            # the static σ on the device, copied from the host once
+            dense_op = (self._on("dense_effective",
+                                 lambda: consensus._effective_mix(self.mix),
+                                 device)
+                        if self.codec is None else
+                        self._on("dense_mix",
+                                 lambda: np.asarray(self.mix, np.float32),
+                                 device))
         if self.codec is None:
             return consensus.consensus_step(
-                stacked_params, mix, impl=kind, structure=structure), None
+                stacked_params, mix, impl=kind, structure=structure,
+                dense_operator=dense_op), None
         # error_feedback=False: self.codec is already resolved
         return consensus.consensus_step(
             stacked_params, mix, impl=kind, codec=self.codec,
             codec_state=codec_state, generator=generator, gamma=self.gamma,
-            error_feedback=False, structure=structure)
+            error_feedback=False, structure=structure,
+            dense_operator=dense_op)
 
     def scan_rounds(self, stacked_params, codec_state=None, generator=None,
                     *, rounds: Optional[int] = None, t0: int = 0,

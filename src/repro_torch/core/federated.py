@@ -12,6 +12,13 @@ and codec state are the same bits at every chunk size; a chunk ending
 after the hit only costs the discarded rounds' compute (and their kernel
 launches).
 
+Each round is one replay of a round program (:func:`fl_round_program`,
+a :func:`repro_torch.core.scanloop.donating_graph`): on the card the
+round's launches are captured once into a CUDA graph and replayed with
+one host call a round, the carry (params, codec state, async clock and
+ages, reached flag) updated in place. :func:`run_fl_until` and
+:func:`run_fl_until_scan` fetch their program from the program cache.
+
 On an engine whose agents are spread over the ranks of a process group
 (``engine.local_rows`` is not None: the sharded plan with a block a rank,
 the distributed plan with one agent a rank) every rank runs the driver on
@@ -27,6 +34,7 @@ same round without a vote; rounds the grid skips issue no collective.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import numpy as np
@@ -117,101 +125,193 @@ def fedavg_round(loss_fn, global_params, stacked_batches, weights,
                             ).to(x.dtype) for k, x in locals_.items()}
 
 
-def run_chunked_rounds(engine, round_fn, params, *, max_rounds: int,
-                       chunk: int, telemetry=None, telemetry_extra=None,
-                       keep_delivered: bool = False):
+def fl_round_program(engine, update, evaluate, *, recorder=None,
+                     keep_delivered: bool = False,
+                     host_fns=(), streaming: bool = False):
+    """One FL round as a :func:`repro_torch.core.scanloop.donating_graph`
+    program: the round the chunked loop (:func:`run_chunked_rounds`)
+    replays, one CUDA graph per variant on the card.
+
+    ``update(t, params, state, survival, active, generator, batches) ->
+    (new_params, new_state)`` computes round ``t``'s local SGD and
+    consensus from the carried params and codec state (``None`` without
+    a stateful codec), given the round's plan-shaped link survival or
+    staleness weights, on async engines the (K,) activity, and
+    ``batches`` when the sampler runs on the host (else ``None``).
+    ``evaluate(new_params, generator) -> (hit, metric)`` (0-d tensors)
+    checks the target inside the round; ``None`` when the target runs on
+    the host between the ``update`` and ``commit`` variants.
+
+    The program is ``fl_round(carry, xs, generator, variant)`` with
+    ``carry = (params, state, clock, age, reached)`` donated (the
+    :class:`AsyncState` clock and ages are ``None`` on lockstep engines),
+    ``xs`` the round's inputs (``t``, ``link``, ``act``, ``batches``; and
+    ``new``, ``new_st``, ``hit``, ``metric`` for ``commit``) and
+    ``variant`` one of ``"eval"`` (a round the ``eval_every`` grid
+    evaluates), ``"skip"`` (one it skips: no evaluation, metric 0),
+    ``"update"`` (the round up to its new params, carry untouched) and
+    ``"commit"`` (the rest, from the host target's verdict). It returns
+    ``((carry,), ys)``: ``ys`` one float64 row, the reached flag, the
+    evaluated flag and the metric, then the delivered lanes
+    (``keep_delivered`` on fading or async engines) and the packed
+    telemetry row (``recorder``). A round after the hit is computed and
+    discarded with ``torch.where`` on the live flag (params, codec state,
+    clock and ages; its telemetry row becomes
+    :meth:`RoundRecorder.frozen_row`).
+
+    On a meshed engine (``engine.local_rows`` set) the round is returned as
+    a plain function, run eagerly every round: the program layer does not
+    capture collectives yet."""
+    is_async = engine.agents is not None
+    keep = keep_delivered and (is_async or engine.graph.kind != "static")
+    f64 = torch.float64
+
+    def fl_round(carry, xs, generator, variant):
+        params, st, clock, age, reached = carry
+        t, link, act = xs["t"], xs["link"], xs["act"]
+        if is_async:
+            # one availability draw per round, shared between the
+            # staleness weights, the per-agent freeze and the row (which
+            # bills only DELIVERED wires)
+            ar = engine.async_round(t, age, act=act, link=link)
+            sv, a, deliv = ar.weights, ar.act, ar.delivered
+        else:
+            sv, a, deliv = link, None, link
+        if variant == "commit":
+            new, new_st = xs["new"], xs["new_st"]
+            hit, metric = xs["hit"], xs["metric"]
+        else:
+            new, new_st = update(t, params, st, sv, a, generator,
+                                 xs["batches"])
+            if variant == "update":
+                return (carry,), {"new": new, "new_st": new_st}
+            if variant == "eval":
+                hit, metric = evaluate(new, generator)
+            else:
+                # off-grid rounds skip the evaluation entirely
+                hit = torch.zeros((), dtype=torch.bool, device=reached.device)
+                metric = torch.zeros((), dtype=torch.float32,
+                                     device=reached.device)
+        evaluated = variant != "skip"
+        live = ~reached
+        row = None
+        if recorder is not None:
+            row = recorder.live_row(live, recorder.row(
+                new, deliv, metric=metric, reached=hit, live=True,
+                active=a, age=ar.age if is_async else None))
+        params = where_active(live, new, params)
+        if new_st is not None:
+            st = where_active(live, new_st, st)
+        if is_async:
+            clock = torch.where(live, clock + a.to(clock.dtype), clock)
+            age = torch.where(live, ar.age, age)
+        reached = reached | (live & hit)
+        # a discarded round reports the carried reached flag (True), is
+        # not evaluated and has metric 0, as the JAX freeze does
+        cols = [torch.stack([reached.to(f64), (live & evaluated).to(f64),
+                             torch.where(live, metric.to(f64), 0.0)])]
+        if keep:
+            cols.append(deliv.flatten().to(f64))
+        if row is not None:
+            cols.append(recorder.pack([row])[0])
+        return ((params, st, clock, age, reached),), torch.cat(cols)
+
+    if engine.local_rows is not None:
+        return fl_round
+    prog = scanloop.donating_graph(fl_round, donate_argnums=(0,),
+                                   name="fl_chunk")
+    prog.record.host_fns = tuple(host_fns)
+    prog.record.streaming = bool(streaming)
+    # the carry (argument 0) holds the AsyncState's clock and ages
+    prog.record.async_argnums = (0,) if is_async else ()
+    return prog
+
+
+def run_chunked_rounds(engine, program, params, *, max_rounds: int,
+                       chunk: int, generator=None, sampler=None,
+                       target=None, evaluates=None, telemetry=None,
+                       telemetry_extra=None, keep_delivered: bool = False):
     """The chunked loop every FL driver runs (:func:`run_fl_until`,
-    :func:`run_fl_until_scan` and the case study's adaptation).
+    :func:`run_fl_until_scan` and the case study's adaptation): round
+    ``t`` replays ``program`` (:func:`fl_round_program`).
 
-    ``round_fn(t, params, state, survival, active) -> (new_params,
-    new_state, hit, metric, evaluated)`` computes round ``t`` from the
-    carried params and codec state (``None`` without a stateful codec),
-    given the round's plan-shaped link survival or staleness weights and,
-    on async engines, the (K,) activity. ``hit`` is a 0-d bool tensor,
-    ``metric`` a 0-d tensor and ``evaluated`` a Python bool: the history
-    keeps the metrics of the live rounds that evaluated.
+    ``sampler(generator, t)`` (a sampler that failed the capture probe)
+    runs on the host before each round, its batches copied into the
+    round's inputs; ``target(new_params) -> (reached, metric)`` (a target
+    that failed it) runs between the round's ``update`` and ``commit``
+    variants. ``evaluates(t)`` says which rounds the ``eval_every`` grid
+    evaluates (default: all).
 
-    Per chunk: the engine's draws in one vectorised call each, then ONE
-    device→host read of the reached flags, the evaluated mask, the
-    metrics, the delivered lanes (``keep_delivered``) and the telemetry
-    rows, in one ``torch.cat``; the loop ends after the chunk in which a
-    round hit. Rounds after the hit are computed and discarded with
-    ``torch.where`` on the device-side live flag (params, codec state,
-    :class:`AsyncState`; their rows become :meth:`RoundRecorder.frozen_row`),
-    so every chunk size gives the same bits. Rounds past ``max_rounds``
-    are never computed: the last chunk is cut short instead.
+    Per chunk: the engine's draws in one vectorised call each, one replay
+    a round (plus the host functions), each round's row copied into the
+    chunk's buffer, then ONE device→host read of the reached flags, the
+    evaluated mask, the metrics, the delivered lanes (``keep_delivered``)
+    and the telemetry rows; the loop ends after the chunk in which a round
+    hit. Rounds after the hit are computed and discarded with
+    ``torch.where`` on the device-side live flag, so every chunk size
+    gives the same bits. Rounds past ``max_rounds`` are never computed:
+    the last chunk is cut short instead.
 
-    Returns ``(params, state, rounds_used, history, delivered)``;
-    ``delivered`` is a host bool array ``(rounds_used,) + lane shape`` of
-    the wires the device delivered when ``keep_delivered`` is set and
-    links fade or agents sleep, else ``None``."""
+    Returns ``(params, state, rounds_used, history, delivered,
+    async_state)``; ``delivered`` is a host bool array ``(rounds_used,) +
+    lane shape`` of the wires the device delivered when ``keep_delivered``
+    is set and links fade or agents sleep, else ``None``;
+    ``async_state`` the final :class:`AsyncState` on async engines, else
+    ``None``."""
+    params = scanloop.own(params)
     device = next(iter(params.values())).device
-    st = engine.init_state(params)
     is_async = engine.agents is not None
     fading = engine.graph.kind != "static"
     keep = keep_delivered and (is_async or fading)
-    ast = engine.init_async_state(device=device) if is_async else None
+    clock, age = (engine.init_async_state(device=device) if is_async
+                  else (None, None))
+    reached = torch.zeros((), dtype=torch.bool, device=device)
+    carry = (params, engine.init_state(params), clock, age, reached)
     recorder = (telemetry.recorder_for(engine) if telemetry is not None
                 else None)
     stream = (telemetry.stream_cb(recorder, "fl", telemetry_extra)
               if telemetry is not None and telemetry.streaming else None)
     chunk = max(1, min(int(chunk), max_rounds))
-    f64 = torch.float64
-    reached = torch.zeros((), dtype=torch.bool, device=device)
     history, delivered, rounds_used = [], [], max_rounds
+    lane_shape = ()
     for start in range(0, max_rounds, chunk):
         n = min(chunk, max_rounds - start)
         # the chunk's draws, one vectorised call each on the device
         ts = torch.arange(start, start + n, device=device)
         links = engine.round_survival(ts) if fading else None
         acts = engine.availability(ts) if is_async else None
-        flags, delivs, rows = [], [], []
+        if keep:
+            lane_shape = tuple(age.shape if is_async else links.shape[1:])
+        lanes = math.prod(lane_shape) if keep else 0
+        out = None
         for i in range(n):
             t = start + i
-            link = None if links is None else links[i]
-            if is_async:
-                # one availability draw per round, shared between the
-                # staleness weights, the per-agent freeze and the row
-                # (which bills only DELIVERED wires)
-                ar = engine.async_round(t, ast.age, act=acts[i], link=link)
-                sv, act, deliv = ar.weights, ar.act, ar.delivered
+            xs = {"t": ts[i], "link": None if links is None else links[i],
+                  "act": None if acts is None else acts[i],
+                  "batches": (None if sampler is None
+                              else sampler(generator, t))}
+            if evaluates is not None and not evaluates(t):
+                (carry,), ys = program(carry, xs, generator, "skip")
+            elif target is None:
+                (carry,), ys = program(carry, xs, generator, "eval")
             else:
-                sv, act, deliv = link, None, link
-            new, new_st, hit, metric, evaluated = round_fn(t, params, st,
-                                                           sv, act)
-            live = ~reached
-            if recorder is not None:
-                row = recorder.live_row(live, recorder.row(
-                    new, deliv, metric=metric, reached=hit, live=True,
-                    active=act, age=ar.age if is_async else None))
-                if stream is not None:
-                    stream(t, row)
-                rows.append(row)
-            params = where_active(live, new, params)
-            if new_st is not None:
-                st = where_active(live, new_st, st)
-            if is_async:
-                ast = AsyncState(
-                    torch.where(live, ast.clock + act.to(ast.clock.dtype),
-                                ast.clock),
-                    torch.where(live, ar.age, ast.age))
-            reached = reached | (live & hit)
-            # a discarded round reports the carried reached flag (True),
-            # is not evaluated and has metric 0, as the JAX freeze does
-            flags.append(torch.stack([
-                reached.to(f64), (live & evaluated).to(f64),
-                torch.where(live, metric.to(f64), 0.0)]))
-            if keep:
-                delivs.append(deliv.flatten().to(f64))
-        cols = [torch.stack(flags)]
+                (carry,), staged = program(carry, xs, generator, "update")
+                r, metric = target(staged["new"])
+                xs = dict(xs, batches=None, new=staged["new"],
+                          new_st=staged["new_st"],
+                          hit=torch.as_tensor(r, device=device).to(
+                              torch.bool),
+                          metric=torch.as_tensor(metric, device=device
+                                                 ).reshape(()))
+                (carry,), ys = program(carry, xs, generator, "commit")
+            if out is None:
+                out = torch.empty((n, ys.shape[0]), dtype=torch.float64,
+                                  device=device)
+            out[i].copy_(ys)
+            if stream is not None:
+                stream(t, out[i, 3 + lanes:])
+        host = scanloop.to_host(out)                        # one read
         if keep:
-            cols.append(torch.stack(delivs))
-        if recorder is not None:
-            cols.append(recorder.pack(rows))
-        host = scanloop.to_host(torch.cat(cols, 1))          # one read
-        lanes = deliv.numel() if keep else 0
-        if keep:
-            lane_shape = tuple(deliv.shape)
             delivered.extend(host[:, 3:3 + lanes] > 0)
         if recorder is not None:
             telemetry.record_rounds(
@@ -222,9 +322,37 @@ def run_chunked_rounds(engine, round_fn, params, *, max_rounds: int,
         if h is not None:
             rounds_used = start + h + 1
             break
+    params, st, clock, age = scanloop.own(carry[:4])
     delivered = (np.stack(delivered[:rounds_used]).reshape(
         (rounds_used,) + lane_shape) if keep else None)
-    return params, st, rounds_used, history, delivered
+    return (params, st, rounds_used, history, delivered,
+            AsyncState(clock, age) if is_async else None)
+
+
+def _fl_program(loss_fn, sample_batches, target_fn, engine, lr, *,
+                has_codec, recorder, host_fns, streaming):
+    """The FL round of Eq. (6) as a program (:func:`fl_round_program`):
+    ``sample_batches`` inside the round unless it is None (it then runs
+    on the host), :func:`decentralized_fl_round`, and ``target_fn``
+    inside the round unless it is None."""
+    def update(t, p, st, sv, act, generator, batches):
+        if batches is None:
+            batches = sample_batches(generator, t)
+        out = decentralized_fl_round(
+            loss_fn, p, batches, engine, lr, codec_state=st,
+            generator=generator if has_codec else None, survival=sv,
+            active=act)
+        return out if has_codec else (out, None)
+
+    def evaluate(new, _generator):
+        r, metric = target_fn(new)
+        device = next(iter(new.values())).device
+        return (torch.as_tensor(r, device=device).to(torch.bool),
+                torch.as_tensor(metric, device=device).reshape(()))
+
+    return fl_round_program(
+        engine, update, None if target_fn is None else evaluate,
+        recorder=recorder, host_fns=host_fns, streaming=streaming)
 
 
 def _run_fl_chunked(loss_fn, stacked_params, sample_batches, engine, lr, *,
@@ -233,33 +361,78 @@ def _run_fl_chunked(loss_fn, stacked_params, sample_batches, engine, lr, *,
                     telemetry_extra=None):
     """:func:`run_chunked_rounds` with the round of Eq. (6):
     ``sample_batches``, :func:`decentralized_fl_round` and ``target_fn``
-    on the ``eval_every`` grid."""
+    on the ``eval_every`` grid.
+
+    The round program comes from the program cache
+    (:func:`repro_torch.core.scanloop.cached_program`), keyed on the JAX
+    package's key: the loss, sampler and target by identity, the engine
+    (its plan, codec, graph and agent processes), ``lr``, ``max_rounds``,
+    ``eval_every`` and the params' tree signature, plus
+    ``telemetry.trace_signature()`` when telemetry is on, so Monte-Carlo
+    repetitions of one configuration replay ONE captured graph. A hit
+    skips the capture probes. A sampler or target that fails the probe
+    (:func:`repro_torch.core.scanloop.traceable`) runs on the host each
+    round, and its program is built per call and never admitted to the
+    cache; so is a streaming-telemetry program. On a meshed engine
+    (``engine.local_rows`` is not None) both functions run on the host and
+    the round runs eagerly, uncached (:func:`fl_round_program`)."""
     engine = ConsensusEngine.wrap(engine, codec=codec)
     has_codec = engine.codec is not None
-    device = next(iter(stacked_params.values())).device
+    streaming = telemetry is not None and telemetry.streaming
+    recorder = (telemetry.recorder_for(engine) if telemetry is not None
+                else None)
     meshed = engine.local_rows is not None
+    program = None
+    if meshed:
+        s_ok = t_ok = False
+        program = _fl_program(loss_fn, None, None, engine, lr,
+                              has_codec=has_codec, recorder=recorder,
+                              host_fns=("sample_batches", "target_fn"),
+                              streaming=streaming)
+    else:
+        key = ("fl_chunk", loss_fn, sample_batches, target_fn, engine,
+               float(lr), int(max_rounds), int(eval_every),
+               scanloop.tree_signature(stacked_params))
+        if telemetry is not None:
+            key = key + (telemetry.trace_signature(),)
+        if not streaming:
+            program = scanloop.get_cached_program(key)
+        s_ok = t_ok = program is not None      # hit: the probes passed
+    if program is None:
+        device = next(iter(stacked_params.values())).device
+        _, s_ok = scanloop.traceable(
+            sample_batches, generator,
+            torch.zeros((), dtype=torch.int64, device=device),
+            name="sample_batches")
+        _, t_ok = scanloop.traceable(target_fn, stacked_params,
+                                     name="target_fn")
+        host = tuple(n for n, ok in (("sample_batches", s_ok),
+                                     ("target_fn", t_ok)) if not ok)
 
-    def fl_round(t, p, st, sv, act):
-        out = decentralized_fl_round(
-            loss_fn, p, sample_batches(generator, t), engine, lr,
-            codec_state=st, generator=generator if has_codec else None,
-            survival=sv, active=act)
-        new, new_st = out if has_codec else (out, None)
-        if eval_every == 1 or (t + 1) % eval_every == 0:
-            # target_fn sees the whole population, on a mesh too
-            r, metric = target_fn(consensus.gather_population(
-                new, engine.mesh, engine.plan.axis_name) if meshed else new)
-            return (new, new_st,
-                    torch.as_tensor(r, device=device).to(torch.bool),
-                    torch.as_tensor(metric, device=device).reshape(()),
-                    True)
-        # off-grid rounds skip the evaluation entirely
-        return (new, new_st, torch.zeros((), dtype=torch.bool, device=device),
-                torch.zeros((), dtype=torch.float32, device=device), False)
+        def build():
+            return _fl_program(
+                loss_fn, sample_batches if s_ok else None,
+                target_fn if t_ok else None, engine, lr,
+                has_codec=has_codec, recorder=recorder, host_fns=host,
+                streaming=streaming)
 
-    p, st, rounds_used, history, _ = run_chunked_rounds(
-        engine, fl_round, stacked_params, max_rounds=max_rounds,
-        chunk=chunk, telemetry=telemetry, telemetry_extra=telemetry_extra)
+        # streaming telemetry and host round functions: built per call,
+        # never cached (the JAX package's JX1/JX4 domain)
+        program = (build() if streaming or host
+                   else scanloop.cached_program(key, build))
+
+    def host_target(new):
+        # target_fn sees the whole population, on a mesh too
+        return target_fn(consensus.gather_population(
+            new, engine.mesh, engine.plan.axis_name) if meshed else new)
+
+    p, st, rounds_used, history, _, _ = run_chunked_rounds(
+        engine, program, stacked_params, max_rounds=max_rounds,
+        chunk=chunk, generator=generator,
+        sampler=None if s_ok else sample_batches,
+        target=None if t_ok else host_target,
+        evaluates=lambda t: eval_every == 1 or (t + 1) % eval_every == 0,
+        telemetry=telemetry, telemetry_extra=telemetry_extra)
     if return_state:
         return p, rounds_used, history, st
     return p, rounds_used, history

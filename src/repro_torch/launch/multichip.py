@@ -38,8 +38,9 @@ C3. :func:`dry_run_sharded` and :func:`dry_run_distributed` are the JAX
 harness's compile-and-inspect checks on a fake process group (rank 0 of
 8 or K ranks, nothing moved): no (K, K) buffer among the shapes a masked
 round produces, the wire collective present, an int8 wire carrying int8,
-the C3 ledger clean. Its donation check (JX3) has no counterpart: eager
-PyTorch donates no buffer.
+the C3 ledger clean. Its donation check (JX3) has no counterpart: a
+meshed round runs eagerly and donates no buffer (the one-process round
+programs' JX3 is ``python -m repro_torch.analysis --layer programs``).
 
 For the LM zoo, :func:`run_lm_parity` spawns a data x model gloo group
 and runs :func:`lm_mesh_case` on each rank: the tensor- and data-parallel
@@ -574,7 +575,7 @@ def dry_run_sharded(k: int = 4096, *, num_blocks: int = 8,
     (:func:`repro_torch.launch.hlo_analysis.square_buffers`); the wire
     collective present and an int8 wire carrying int8; the C3 ledger
     clean. The JAX harness's donation check (JX3) has no counterpart:
-    eager PyTorch does not donate buffers."""
+    a meshed round runs eagerly and donates no buffer."""
     from repro_torch.launch.hlo_analysis import square_buffers
 
     eng, rec, secs = _masked_round_records(

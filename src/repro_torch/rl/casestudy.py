@@ -13,7 +13,10 @@ cluster then runs one consensus round through its engine.
 Rounds run in a host loop that syncs once per ``chunk`` rounds: each
 round's reached flag stays on the device, a round after the hit leaves
 params and codec state frozen (``torch.where`` on the flag), and the host
-reads the chunk's flags once to recover t_i with ``first_hit``.
+reads the chunk's flags once to recover t_i with ``first_hit``. Each
+round is one replay of a round program held by the instance (the meta
+round, and one FL round per task: on the card each is captured once as a
+CUDA graph and replayed with one host call a round).
 
 Links may fade each round (``dropout_p``) and robots may sleep
 (``availability``, ``tau``, ``staleness_decay``): each task's engine then
@@ -33,6 +36,7 @@ Run:  PYTHONPATH=src python -m repro_torch.rl.casestudy --t0 60
 from __future__ import annotations
 
 import argparse
+import weakref
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -168,6 +172,11 @@ class CaseStudy:
         self.engine = self._engines[0]
         self.fl_delivered = {}
         self.fl_params = {}
+        self.fl_codec_state = {}
+        self.fl_async_state = {}
+        # the round programs, built on first use and held per instance
+        self._meta_program = None
+        self._fl_programs = {}
         if self.telemetry is not None:
             # recorders carry THIS case study's billing constants so the
             # stream reconciles exactly with the post-hoc replay
@@ -209,12 +218,23 @@ class CaseStudy:
             inner_steps=self.inner_steps, first_order=self.first_order)
 
     def meta_train(self, generator, t0: int):
-        """Stage 1: t0 meta rounds, losses (and meta-gradient norms)
-        synced once per chunk."""
+        """Stage 1: t0 meta rounds from ``init_params(generator)``, losses
+        (and meta-gradient norms) synced once per chunk."""
+        return self.run_meta(generator, self.init_params(generator), t0)
+
+    def run_meta(self, generator, params, rounds: int):
+        """``rounds`` meta rounds from ``params`` through this instance's
+        meta-round program (captured once per instance on the card, the
+        JAX package's ``_meta_chunk``). Returns (params, history)."""
+        if self._meta_program is None:
+            me = weakref.ref(self)       # no cycle: the graph dies with us
+            self._meta_program = maml.maml_round_program(
+                lambda _t, p, g, _b: me().meta_round(p, g),
+                streaming=self.telemetry is not None
+                and self.telemetry.streaming)
         return maml.run_meta_rounds(
-            lambda t, p: self.meta_round(p, generator),
-            self.init_params(generator), rounds=t0, chunk=self.chunk,
-            telemetry=self.telemetry)
+            self._meta_program, params, rounds=rounds, chunk=self.chunk,
+            generator=generator, telemetry=self.telemetry)
 
     # -- stage 2 -----------------------------------------------------------------
     def fl_round(self, task_id, stacked, codec_state, generator,
@@ -224,6 +244,13 @@ class CaseStudy:
         ``survival``: the round's plan-shaped link survival or staleness
         weights; ``active``: (C,) robot availability (sleeping robots skip
         SGD and neither mix nor update their residuals)."""
+        new, codec_state = self._fl_update(task_id, stacked, codec_state,
+                                           generator, survival, active)
+        return new, codec_state, self._fl_reward(task_id, new, generator)
+
+    def _fl_update(self, task_id, stacked, codec_state, generator,
+                   survival=None, active=None):
+        """:meth:`fl_round` up to the mixed params and codec state."""
         C = self.network.devices_per_cluster
         agents = [{k: v[c] for k, v in stacked.items()} for c in range(C)]
         batches = [sample_episode_batches(
@@ -246,10 +273,42 @@ class CaseStudy:
                 old = (codec_state if codec_state is not None
                        else engine.init_state(new))
                 new_state = where_active(active, new_state, old)
-        new, codec_state = mixed, new_state
-        R = dqnrl.evaluate(generator, {k: v[0] for k, v in new.items()},
-                           self.cfg, task_id, episodes=4)
-        return new, codec_state, R
+        return mixed, new_state
+
+    def _fl_reward(self, task_id, stacked, generator):
+        """The greedy running reward R of robot 0 (the round's target)."""
+        return dqnrl.evaluate(generator, {k: v[0] for k, v in stacked.items()},
+                              self.cfg, task_id, episodes=4)
+
+    def _fl_program(self, task_id):
+        """Task ``task_id``'s FL-round program, built once per instance
+        (the JAX package's ``_fl_chunks[tid]``): its round closes over this
+        instance and takes the generator as an argument, so every
+        adaptation of the task replays one captured graph. The round holds
+        the instance weakly, so its graph and memory go when the instance
+        does, not at the next garbage collection."""
+        prog = self._fl_programs.get(task_id)
+        if prog is None:
+            me = weakref.ref(self)
+
+            def update(_t, p, codec_state, survival, active, generator,
+                       _batches):
+                return me()._fl_update(task_id, p, codec_state, generator,
+                                       survival, active)
+
+            def evaluate(new, generator):
+                R = me()._fl_reward(task_id, new, generator)
+                return R >= me().r_target, R
+
+            tel = self.telemetry
+            prog = federated.fl_round_program(
+                self._engines[task_id], update, evaluate,
+                recorder=(tel.recorder_for(self._engines[task_id])
+                          if tel is not None else None),
+                keep_delivered=True,
+                streaming=tel is not None and tel.streaming)
+            self._fl_programs[task_id] = prog
+        return prog
 
     def adapt_task(self, generator, task_id: int, init_params, *,
                    max_rounds: int = 400):
@@ -257,24 +316,22 @@ class CaseStudy:
         reward history). Bills ``self.last_adapt_comm_joules`` over
         exactly the rounds used; on fading links or sleeping robots
         ``self.fl_delivered[task_id]`` keeps the wires the device
-        delivered in those rounds ((t_i,) + the plan's lane shape), and
-        ``self.fl_params[task_id]`` the adapted params."""
+        delivered in those rounds ((t_i,) + the plan's lane shape),
+        ``self.fl_params[task_id]`` the adapted params, and
+        ``self.fl_codec_state[task_id]`` / ``self.fl_async_state[task_id]``
+        the final codec state and ``AsyncState`` (None where there is
+        none)."""
         C = self.network.devices_per_cluster
         eng = self._engines[task_id]
         stacked = {k: v.unsqueeze(0).expand((C,) + v.shape).clone()
                    for k, v in init_params.items()}
         dynamic = eng.agents is not None or self.dropout_p > 0
-
-        def round_fn(t, p, codec_state, survival, active):
-            new, new_state, R = self.fl_round(
-                task_id, p, codec_state, generator, survival=survival,
-                active=active)
-            return new, new_state, R >= self.r_target, R, True
-
-        stacked, _, rounds, hist, delivered = federated.run_chunked_rounds(
-            eng, round_fn, stacked, max_rounds=max_rounds, chunk=self.chunk,
-            telemetry=self.telemetry, telemetry_extra={"task_id": task_id},
-            keep_delivered=True)
+        stacked, codec_state, rounds, hist, delivered, ast = \
+            federated.run_chunked_rounds(
+                eng, self._fl_program(task_id), stacked,
+                max_rounds=max_rounds, chunk=self.chunk, generator=generator,
+                telemetry=self.telemetry, telemetry_extra={"task_id": task_id},
+                keep_delivered=True)
         # Eq.-(11) bill over exactly the rounds used: static lockstep runs
         # price rounds × the full graph; fading or sleeping runs replay the
         # host streams (bit-identical to the device's draws) and price
@@ -297,6 +354,8 @@ class CaseStudy:
             self.last_adapt_comm_joules = rounds * float(
                 base.round_comm_joules(self.energy_params, codec=self.codec))
         self.fl_params[task_id] = stacked
+        self.fl_codec_state[task_id] = codec_state
+        self.fl_async_state[task_id] = ast
         return stacked, rounds, hist
 
     def run(self, generator, t0: int, *, max_rounds: int = 400

@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import energy, maml
+from repro_torch.core import energy
 from repro_torch.rl.casestudy import CaseStudy
 
 T0_GRID = (0, 42, 66, 90, 132, 210, 240)
@@ -93,17 +93,15 @@ def adapt_generator(seed: int, t0: int, task_id: int, device):
 
 def meta_trajectory(cs: CaseStudy, generator, t0_grid):
     """One meta-training trajectory of ``max(t0_grid)`` rounds through
-    ``cs.meta_round``, from ``cs.init_params(generator)``. Returns
-    ({t0: detached clone of the params after t0 rounds}, meta-loss
-    history); the losses stay on the card and are read once per
-    ``cs.chunk`` rounds."""
+    ``cs.run_meta`` (the instance's meta-round program), from
+    ``cs.init_params(generator)``. Returns ({t0: detached clone of the
+    params after t0 rounds}, meta-loss history); the losses stay on the
+    card and are read once per ``cs.chunk`` rounds."""
     params = cs.init_params(generator)
     snaps = {0: {k: v.detach().clone() for k, v in params.items()}}
     history, done = [], 0
     for t0 in sorted(set(t0_grid) - {0}):
-        params, h = maml.run_meta_rounds(
-            lambda _t, p: cs.meta_round(p, generator), params,
-            rounds=t0 - done, chunk=cs.chunk)
+        params, h = cs.run_meta(generator, params, t0 - done)
         history.extend(h)
         done = t0
         snaps[t0] = {k: v.detach().clone() for k, v in params.items()}

@@ -63,8 +63,12 @@ REWARD_TABLES = np.stack([reward_table(i) for i in range(NUM_TASKS)])
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(device: str):
+    """The reward tables, the moves and the entry point on ``device``,
+    copied from the host once: a captured round copies nothing from the
+    host."""
     return (torch.as_tensor(REWARD_TABLES, device=device),
-            torch.as_tensor(MOVES, dtype=torch.int64, device=device))
+            torch.as_tensor(MOVES, dtype=torch.int64, device=device),
+            torch.tensor(ENTRY, device=device))
 
 
 def cell_index(pos):
@@ -79,7 +83,7 @@ def one_hot_state(pos):
 
 def step(pos, action, task_id: int):
     """pos (..., 2) int, action (...,) int → (new_pos, reward)."""
-    tables, moves = _device_tables(str(pos.device))
+    tables, moves, _ = _device_tables(str(pos.device))
     new = pos.long() + moves[action.long()]
     new = torch.stack([new[..., 0].clamp(0, GRID_W - 1),
                        new[..., 1].clamp(0, GRID_H - 1)], dim=-1)
@@ -92,7 +96,8 @@ def rollout(generator, qnet_fn, task_id: int, *, steps: int = 20,
 
     qnet_fn: state (B, 40) → q-values (B, 4). Returns a dict of
     (B, steps, ...) tensors: state, action, reward, next_state."""
-    pos = torch.tensor(ENTRY, device=device).expand(batch, 2).long()
+    entry = _device_tables(str(torch.device(device)))[2]
+    pos = entry.expand(batch, 2).long()
     out = {"state": [], "action": [], "reward": [], "next_state": []}
     for _ in range(steps):
         s = one_hot_state(pos)

@@ -13,11 +13,13 @@ wire bits, per-agent joules) in float64 and appended to the
 **buffered** (default) — one device→host read per chunk, as without
 telemetry; live rounds reach the sinks at the chunk's end.
 
-**streaming** — each round's row is read as soon as the round ends (one
-device→host read per round computed) and a live round goes to the sinks
-then, while the chunk is still running. The JAX package emits from
-inside a compiled chunk with ``jax.debug.callback``; eager PyTorch has no
-compiled chunk, so the read per round is the price of liveness here.
+**streaming** — each round's row is read as soon as the round's replay
+ends (one device→host read per round computed) and a live round goes to
+the sinks then, while the chunk is still running. The JAX package emits
+from inside its compiled chunk with ``jax.debug.callback``; here the row
+is a static output of the round's CUDA graph, read after each replay, so
+the read per round is the price of liveness. Streaming round programs
+are built per call and never cached, as in the JAX package.
 
 In both modes the buffer is filled once per chunk and holds the same
 events, and round results are bit-identical with telemetry off, buffered
@@ -29,7 +31,8 @@ repro_torch.telemetry.schema``), console. On an engine whose agents are
 spread over a process group every rank's buffer holds the same events,
 and only the agent axis's rank 0 emits them to the sinks, so one log
 exists, as from the JAX package's single controller. ``report()`` adds the kernels'
-launch counters (:func:`~repro_torch.telemetry.report.harness_report`).
+launch counters and the program cache
+(:func:`~repro_torch.telemetry.report.harness_report`).
 """
 from __future__ import annotations
 
@@ -88,6 +91,14 @@ class Telemetry:
     @property
     def streaming(self) -> bool:
         return self.mode == "streaming"
+
+    def trace_signature(self) -> tuple:
+        """What this instance bakes into a driver's captured round
+        program: part of the ``cached_program`` key for buffered programs
+        (their row outputs change the round, so they must not collide
+        with telemetry-off entries). Streaming programs never reach a
+        cache key: the drivers build them per call, uncached."""
+        return ("telemetry", self.mode)
 
     # -- recorders ------------------------------------------------------
 
@@ -200,8 +211,8 @@ class Telemetry:
                    if task_id is None or e.get("task_id") == task_id)
 
     def report(self) -> dict:
-        """Run summary + the kernels' launch counters (see
-        :func:`repro_torch.telemetry.report.harness_report`)."""
+        """Run summary + the kernels' launch counters and the program
+        cache (see :func:`repro_torch.telemetry.report.harness_report`)."""
         live = self.buffer.rows(live_only=True)
         out = {
             "mode": self.mode,

@@ -388,9 +388,12 @@ class RoundRecorder:
     def event(self, t: int, row, driver: str = "fl",
               extra: Optional[dict] = None) -> dict:
         """One round's event, read from the device in one copy (the
-        streaming path)."""
-        return self.finalize(self.collect([row]), start=int(t),
-                             driver=driver, extra=extra)[0]
+        streaming path). ``row`` is a row dict or its packed (:attr:`width`,)
+        tensor."""
+        fields = (self.unpack(scanloop.to_host(row[None]))
+                  if isinstance(row, torch.Tensor) else self.collect([row]))
+        return self.finalize(fields, start=int(t), driver=driver,
+                             extra=extra)[0]
 
 
 class MetricBuffer:
