@@ -53,7 +53,12 @@ Phases (any failure exits non-zero; nothing is caught):
                 telemetry-off rounds bit for bit, every row's link and
                 per-agent counts and the summed joules equal the host replay
                 (``==``), B1 launches 10 × 8 either way; off / buffered /
-                streaming walls and the kernels a row adds; (b)
+                streaming walls and the kernels a row adds; at the default
+                byte cap these programs run eagerly under the byte rule
+                (asserted); with the cap lifted the engine's captured round
+                program, off and buffered, two calls each, == the same
+                rounds under ``scanloop.uncaptured()`` (params, EF state,
+                rows, B1 10 × 8 inside the graphs); (b)
                 ``run_fl_until_scan`` at chunk 8 against ``run_fl_until``
                 (f32 wire, B2) on a regression pull toward seeded targets,
                 the hit mid-chunk: params, t_i, history and the live rows bit
@@ -76,7 +81,10 @@ Phases (any failure exits non-zero; nothing is caught):
                 at t0 = 4; (c) the MAML stage alone: ms per meta round
                 (median of 7), kernels per meta round and the busy share;
                 (d) the twin of ``examples/async_fleet.py`` (int8, sparse,
-                B1): rows == the host replay, joules == the bill.
+                B1): rows == the host replay, joules == the bill; each
+                fleet's ``scan_rounds`` replays its captured round program,
+                == the same fleets under ``uncaptured()`` (params, rows,
+                launches).
 9b. programs  — the compiled round programs (CUDA graphs,
                 ``core/scanloop.py``): (a) the case study's meta and FL
                 programs (dense plan, K = 2) captured == the same runs
@@ -84,24 +92,31 @@ Phases (any failure exits non-zero; nothing is caught):
                 static / fading / sleeping, chunks 1 and 8 (meta and FL
                 params, codec state, AsyncState, t_i, history, generators,
                 telemetry rows, delivered masks); (b) ``run_fl_until_scan``
-                at paper-DQN x K = 256 (sparse) the same, B1/B2 10 a round
-                inside the graphs, counted through the replays; every
-                main-path program captured, none eager, some cached; (e)
-                at K = 256 the variants captured mid-run the same:
-                ``eval_every=2`` (skip and evaluate graphs) and a target
-                that reads the host (``update`` / ``commit`` graphs, never
-                cached); (c) captured against eager: wall ms a round
+                at paper-DQN x K = 256 (sparse) the same, with the byte cap
+                lifted (each case's program dropped after it), B1/B2 10 a
+                round inside the graphs, counted through the replays; every
+                main-path program captured or eager under the byte rule
+                (and saying so), none with a host function, some cached;
+                (e) at K = 256 (cap lifted) the variants captured mid-run
+                the same: ``eval_every=2`` (skip and evaluate graphs) and a
+                target that reads the host (``update`` / ``commit`` graphs,
+                never cached); (c) captured against eager: wall ms a round
                 (median of 3), kernels a round and busy share
                 (``torch.profiler``), B1/B2 kernels counted by name in the
                 traces == the counters == the eager trace, peak memory,
                 captures, replays, capture s, launches a replay and held
-                bytes of the case-study FL round, the meta round and the
-                K = 256 driver (int8 and f32; with the cache's byte cap
-                lifted, and at the default cap, where each call captures
-                anew); (d) a refused capture raises naming the program
-                and the op. Every phase header prints the device memory,
-                the captured programs alive and the bytes the program
-                cache holds; nothing clears the cache between phases.
+                bytes of the case-study FL round, the meta round, the
+                K = 256 driver (int8 and f32) and ``scan_rounds`` (int8)
+                with the cache's byte cap lifted, and the async fleet's
+                ``scan_rounds`` (K = 8); then the int8 driver at the default
+                cap, whose program must stay cached under the byte rule,
+                never captured, every timed call a hit, its ms a round
+                printed beside the eager row's; (d) a refused capture
+                raises naming the program and the op. Every phase header
+                prints the device memory, the captured programs alive, the
+                bytes the program cache and the engines' ``scan_rounds``
+                programs hold, and how many programs are eager under the
+                byte rule; nothing clears the cache between phases.
 10. mesh      — the sharded and distributed plans: (a) B1/B2 in their
                 source form (a block of owned rows mixing from the
                 gathered population or wire; one agent from M received
@@ -375,6 +390,9 @@ ZOO_DECODE_CHECK = {WHISPER: dict(layers=4, batch=2, prompt=64,
 
 
 T_START = time.perf_counter()
+#: the card's name and power limit (``nvidia-smi``), printed beside the
+#: numbers of the phases that read it
+SMI = "card not read yet"
 
 
 def phase(name):
@@ -394,7 +412,10 @@ def phase(name):
               f"captured programs alive holding "
               f"{sum(r.held_bytes for r in live) / 1e9:.3f} GB, "
               f"{stats['size']} cached holding "
-              f"{stats['held_bytes'] / 1e9:.3f} GB", flush=True)
+              f"{stats['held_bytes'] / 1e9:.3f} GB, engines' scan_rounds "
+              f"programs holding {stats['scan_rounds_held_bytes'] / 1e9:.3f}"
+              f" GB, {stats['eager_by_byte_rule']} eager by the byte rule",
+              flush=True)
 
 
 def stamp(what):
@@ -1163,7 +1184,79 @@ def check_scan_rounds_telemetry(x):
           f"{max(stream_cost)}); runs {walls}", flush=True)
     print(f"(a) kernels per round off {k_off / R}, buffered {k_on / R} (a "
           f"row adds {(k_on - k_off) / R})", flush=True)
+    from repro_torch.core import scanloop
+    recs = eng.program_records()
+    if not recs or any(r.why_uncaptured != scanloop.OVER_BYTE_CAP
+                       or r.captures for r in recs):
+        fail(f"(a) K = {K_POP} int8 scan_rounds at the default byte cap: "
+             f"programs {recs}, expected eager under the byte rule with no "
+             "capture")
+    print(f"(a) at the default byte cap ({scanloop.PROGRAM_CACHE_BYTES} B) "
+          f"the {len(recs)} scan_rounds programs run eagerly under the byte "
+          f"rule, none captured (carry + static inputs "
+          f"{[r.over_cap_bytes for r in recs]} B); the walls above are "
+          f"eager ({SMI})", flush=True)
+    del eng
+    check_scan_rounds_captured(x, want)
     return on_n
+
+
+@contextlib.contextmanager
+def cap_lifted():
+    """The program layer's byte cap lifted (``PROGRAM_CACHE_BYTES =
+    None``) inside the block; restored and applied on exit."""
+    from repro_torch.core import scanloop
+    cap = scanloop.PROGRAM_CACHE_BYTES
+    scanloop.PROGRAM_CACHE_BYTES = None
+    try:
+        yield
+    finally:
+        scanloop.PROGRAM_CACHE_BYTES = cap
+        scanloop.trim_program_cache()
+
+
+def check_scan_rounds_captured(x, want):
+    """(a) With the byte cap lifted, the same 8 K = 256 rounds replaying
+    the engine's captured round program, twice (capture, then a replay
+    of the held program), ``==`` ``uncaptured()``: params, EF state, every
+    telemetry row and the B1 launches (10 × 8 inside the graphs), off and
+    buffered."""
+    from repro_torch.core import scanloop
+    from repro_torch.telemetry import Telemetry
+
+    R = DRV_ROUNDS
+    with cap_lifted():
+        eng = driver_engine("int8")
+
+        def run(mode):
+            tel = None if mode is None else Telemetry()
+            zero_counts()
+            p, st = eng.scan_rounds(x, rounds=R, telemetry=tel)
+            torch.cuda.synchronize()
+            return (p, st, None if tel is None else tel.events(
+                live_only=False)), launch_counts()
+
+        for mode in (None, "buffered"):
+            runs = [run(mode), run(mode)]
+            with scanloop.uncaptured():
+                eager = run(mode)
+            if not all(same(r[0], eager[0]) for r in runs) or any(
+                    r[1] != want or eager[1] != want for r in runs):
+                fail(f"(a) scan_rounds captured (telemetry {mode}) differs "
+                     f"from uncaptured(), or launches {[r[1] for r in runs]}"
+                     f" / {eager[1]} != {want}")
+        recs = eng.program_records()
+        if len(recs) != 2 or not all(r.captured and r.captures == 1
+                                     and r.replays == 2 * R and r.in_place
+                                     for r in recs):
+            fail(f"(a) captured scan_rounds programs: {recs}")
+        held = [r.held_bytes for r in recs]
+        print(f"(a) byte cap lifted: scan_rounds K={K_POP} int8 replaying "
+              f"its captured round program (off and buffered, 2 calls each)"
+              f" == uncaptured() on params, EF state, rows and launches "
+              f"{want}; held bytes {held}, capture s "
+              f"{[r.capture_seconds for r in recs]} ({SMI})", flush=True)
+        del eng, recs
 
 
 def check_fl_drivers(x):
@@ -1577,12 +1670,19 @@ def check_fl_programs(x, fns, thr):
     case, and B1/B2 launching inside the graphs at 10 a round computed,
     counted through the replays. Returns the launches of the captured
     runs."""
+    from repro_torch.core import scanloop
     total = {n: 0 for n in KERNELS}
     cases = []
     for spec in (None, "int8"):
         for dyn in PROG_DYN:
             for chunk in (PROG["fl_chunk"], 1):
-                t_i, computed, n = fl_case(x, fns, spec, dyn, thr, chunk)
+                # a K = 256 program is above the default byte cap (eager
+                # under the byte rule): lifted, so the graphs are held to
+                # uncaptured(), and each case's program dropped after it,
+                # before the cap returns
+                with cap_lifted():
+                    t_i, computed, n = fl_case(x, fns, spec, dyn, thr, chunk)
+                    scanloop.clear_program_cache()
                 for k in KERNELS:
                     total[k] += n[k]
                 cases.append((spec, dyn, chunk, t_i, computed))
@@ -1601,16 +1701,18 @@ def check_fl_variants(x, fns, thr):
     thr``: ``update`` and ``commit`` graphs around the host call, the
     program built per call and never cached), and both at once —
     captured ``==`` ``uncaptured()`` on params, codec state, t_i, history,
-    generator and rows, B1/B2 10 a round computed."""
+    generator and rows, B1/B2 10 a round computed. The byte cap is
+    lifted, as in (b)."""
     from repro_torch.core import scanloop
     cases = []
     for spec, dyn, chunk, every, host in (
             ("int8", "fading", PROG["fl_chunk"], 2, False),
             (None, "static", PROG["fl_chunk"], 1, True),
             ("int8", "sleeping", 1, 2, True)):
-        with program_records() as recs:
+        with program_records() as recs, cap_lifted():
             t_i, computed, _ = fl_case(x, fns, spec, dyn, thr, chunk, every,
                                        host)
+            scanloop.clear_program_cache()
         ran = [r for r in recs if r.replays]
         want = 2 + host if every == 2 else 2
         if len(ran) != 1 or ran[0].captures != want or (
@@ -1712,19 +1814,26 @@ def side_by_side(label, run, rounds, records):
           f"{eager['busy_share']:.3f}, peak {eager['peak_allocated_mb']:.0f}"
           f" MB); B1/B2 in the captured trace {cap['trace_launches']} == "
           f"counters {cap['counted_launches']} == eager trace "
-          f"{eager['trace_launches']}; {json.dumps(out)}", flush=True)
+          f"{eager['trace_launches']} ({SMI}); {json.dumps(out)}",
+          flush=True)
     return out
 
 
 def time_programs(x, fns):
     """(c) Captured against eager: the case-study FL round of the
     ``profile`` phase (2 robots, int8, sparse), the meta round of
-    ``paper`` (c), and the K = 256 ``run_fl_until_scan`` (int8 and f32,
-    static) with the cache's byte cap lifted, so its program is kept
-    across calls; then the int8 driver at the default cap, where its
-    program (above the cap on its own) is captured anew in every call."""
-    from repro_torch.core import scanloop
+    ``paper`` (c), the K = 256 ``run_fl_until_scan`` (int8 and f32,
+    static) and ``scan_rounds`` (int8, sparse, static) with the cache's
+    byte cap lifted, so their programs are kept across calls, and the
+    async fleet's ``scan_rounds`` (K = 8, int8, sparse, agents awake with
+    p = 0.6, τ = 3, λ = 0.9, buffered telemetry); then the int8 driver at
+    the default cap, whose program is above the cap: it must stay cached
+    under the byte rule, never captured, every timed call a hit."""
+    from repro_torch.core import scanloop, topology
+    from repro_torch.core.engine import ConsensusEngine
+    from repro_torch.launch import async_fleet
     from repro_torch.rl.casestudy import CaseStudy
+    from repro_torch.telemetry import Telemetry
     R = PROG["timed_rounds"]
     out = {}
     cs = CaseStudy(plan="sparse-pallas", inner_steps=10, outer_lr=0.01,
@@ -1742,9 +1851,7 @@ def time_programs(x, fns):
         lambda: pc.run_meta(gen, pinit, R), R,
         lambda: [pc._meta_program.record])
     del cs, init, pc, pinit
-    cap = scanloop.PROGRAM_CACHE_BYTES
-    scanloop.PROGRAM_CACHE_BYTES = None
-    try:
+    with cap_lifted():
         for spec in ("int8", None):
             eng = prog_engine(spec, "static")
             out[f"fl_k256_{spec or 'f32'}"] = side_by_side(
@@ -1753,32 +1860,64 @@ def time_programs(x, fns):
                 lambda: fl_pass(x, fns, eng, -1.0, R, R), R,
                 lambda: [p.record for k, p in
                          scanloop._program_cache.items() if k[4] is eng])
-    finally:
-        scanloop.PROGRAM_CACHE_BYTES = cap
-        scanloop.trim_program_cache()
+        scanloop.clear_program_cache()
+        eng = prog_engine("int8", "static")
+        out["scan_rounds_k256_int8"] = side_by_side(
+            f"scan_rounds K={K_POP} (int8, sparse, static; byte cap lifted)",
+            lambda: eng.scan_rounds(x, rounds=R), R, eng.program_records)
+        del eng
+    fleet = ConsensusEngine(
+        topology.ring(async_fleet.K), codec="int8", plan="sparse",
+        agents=topology.AgentProcess.bernoulli(0.6, seed=1), tau=3,
+        staleness_decay=0.9)
+    fx = async_fleet.fleet_params(DEVICE)
+    out["scan_rounds_fleet_k8"] = side_by_side(
+        f"scan_rounds async fleet K={async_fleet.K} (int8, sparse, p_active "
+        "0.6, buffered telemetry)",
+        lambda: fleet.scan_rounds(fx, rounds=async_fleet.ROUNDS,
+                                  telemetry=Telemetry()),
+        async_fleet.ROUNDS, fleet.program_records)
+    del fleet, fx
+    cap = scanloop.PROGRAM_CACHE_BYTES
     eng = prog_engine("int8", "static")
     with program_records() as recs:
         fl_pass(x, fns, eng, -1.0, R, R)
+        hits0 = scanloop.cache_stats()["hits"]
         torch.cuda.reset_peak_memory_stats()
         walls = []
         for _ in range(PROG["reps"]):
             t = time.perf_counter()
             fl_pass(x, fns, eng, -1.0, R, R)
             walls.append((time.perf_counter() - t) * 1e3 / R)
-    kept = [k for k in scanloop._program_cache if k[4] is eng]
-    held = [r.held_bytes for r in recs if r.captured]
-    if kept or len(held) != 1 + PROG["reps"]:
-        fail(f"K = {K_POP} at the default byte cap {cap}: {len(kept)} "
-             f"programs kept, {len(held)} captured")
+        hits = scanloop.cache_stats()["hits"] - hits0
+    kept = [p.record for k, p in scanloop._program_cache.items()
+            if k[4] is eng]
+    captures = sum(r.captures for r in recs)
+    if (len(recs) != 1 or len(kept) != 1 or kept[0] is not recs[0]
+            or captures or hits != PROG["reps"]
+            or kept[0].why_uncaptured != scanloop.OVER_BYTE_CAP):
+        fail(f"K = {K_POP} at the default byte cap {cap}: {len(recs)} "
+             f"programs built, {len(kept)} kept, {captures} captures, "
+             f"{hits} hits over {PROG['reps']} timed calls; expected one "
+             "program, kept under the byte rule, never captured, every "
+             "timed call a hit")
+    eager_ms = out["fl_k256_int8"]["eager"]["wall_ms_per_round"]
+    med = statistics.median(walls)
     out["fl_k256_int8_default_cap"] = {
-        "wall_ms_per_round": statistics.median(walls), "wall_ms_runs": walls,
+        "wall_ms_per_round": med, "wall_ms_runs": walls,
+        "eager_ms_per_round": eager_ms, "ratio_to_eager": med / eager_ms,
         "peak_allocated_mb": torch.cuda.max_memory_allocated() / 1e6,
-        "held_bytes": held, "capture_s": [r.capture_seconds for r in recs]}
+        "captures": captures, "hits": hits,
+        "why_uncaptured": kept[0].why_uncaptured,
+        "over_cap_bytes": kept[0].over_cap_bytes,
+        "held_bytes": kept[0].held_bytes}
     print(f"run_fl_until_scan K={K_POP} (int8) at the default byte cap "
-          f"({cap} B): {statistics.median(walls):.3f} ms a round over calls "
-          f"of {R} rounds, each capturing anew and dropping its program on "
-          f"return; {json.dumps(out['fl_k256_int8_default_cap'])}",
-          flush=True)
+          f"({cap} B): {med:.3f} ms a round over calls of {R} rounds, "
+          f"{med / eager_ms:.4f} x the eager row's {eager_ms:.3f}; its "
+          f"program kept under the byte rule ({kept[0].over_cap_bytes} B "
+          f"above the cap before capture), {captures} captures, {hits} hits "
+          f"in {PROG['reps']} timed calls ({SMI}); "
+          f"{json.dumps(out['fl_k256_int8_default_cap'])}", flush=True)
     return out
 
 
@@ -1840,17 +1979,22 @@ def programs_phase(x):
         print(f"(b) K = {K_POP} drivers: {time.perf_counter() - t:.2f} s",
               flush=True)
     ran = [r for r in main if r.replays or r.why_uncaptured != "uncaptured()"]
+    # a program may run eagerly only under the byte rule, and say so
+    by_rule = [r for r in ran if r.why_uncaptured == scanloop.OVER_BYTE_CAP]
     bad = [(r.name, r.why_uncaptured, r.host_fns) for r in ran
-           if not r.captured or r.why_uncaptured or r.host_fns
-           or r.streaming]
+           if (r.why_uncaptured != scanloop.OVER_BYTE_CAP
+               and (not r.captured or r.why_uncaptured))
+           or r.host_fns or r.streaming]
     admitted = [r for r in ran if r.cache_key is not None and r.captured]
     if bad or not admitted:
         fail(f"main-path programs not all captured ({bad}) or none admitted "
              f"({len(admitted)})")
-    print(f"main path: {len(ran)} programs ran outside uncaptured(), all "
-          f"captured, none eager or with a host function; {len(admitted)} "
+    print(f"main path: {len(ran)} programs ran outside uncaptured(), "
+          f"{len(ran) - len(by_rule)} captured, {len(by_rule)} eager under "
+          f"the byte rule, none with a host function; {len(admitted)} "
           f"admitted to the cache; held bytes {[r.held_bytes for r in ran]}"
-          f"; cache {json.dumps(scanloop.cache_stats())}", flush=True)
+          f"; cache {json.dumps(scanloop.cache_stats())} ({SMI})",
+          flush=True)
     t = time.perf_counter()
     check_fl_variants(x, fns, thr)
     print(f"(e) variants: {time.perf_counter() - t:.2f} s", flush=True)
@@ -2034,9 +2178,11 @@ def check_fleet():
     the sparse plan (B1 carries every int8 combine): each fleet's rows'
     link and per-agent counts, n_active and joules equal the host replay
     round by round, and the summed joules the replayed bill (``==``); B1
-    launches 5 × 12 × 1 leaf."""
+    launches 5 × 12 × 1 leaf. Each fleet's ``scan_rounds`` replays its
+    captured round program; the same fleets under ``uncaptured()`` give
+    ``==`` params, rows and launches."""
     import numpy as np
-    from repro_torch.core import topology
+    from repro_torch.core import scanloop, topology
     from repro_torch.launch import async_fleet
     from repro_torch.rl.casestudy import delivered_comm_joules
 
@@ -2044,9 +2190,15 @@ def check_fleet():
     stacked = async_fleet.fleet_params(DEVICE)
     zero_counts()
     fleets = async_fleet.processes()
+    captured = []
     for label, agents in fleets:
         eng, mixed, tel = async_fleet.run(agents, label, stacked,
                                           plan="sparse")
+        captured.append((mixed, tel.events(live_only=False)))
+        if not all(r.captured and r.replays == R
+                   for r in eng.program_records()):
+            fail(f"fleet {label!r}: scan_rounds programs "
+                 f"{eng.program_records()} not captured")
         if eng.plan.kind != "sparse" or not torch.isfinite(mixed["w"]).all():
             fail(f"fleet {label!r}: plan {eng.plan.kind}, params not finite")
         topo = eng.topology
@@ -2084,6 +2236,20 @@ def check_fleet():
           flush=True)
     if got != want:
         fail(f"fleets launched {got}, expected {want}")
+    zero_counts()
+    with scanloop.uncaptured():
+        for (label, agents), (mixed, rows) in zip(fleets, captured):
+            _, e_mixed, e_tel = async_fleet.run(agents, label, stacked,
+                                                plan="sparse")
+            if not same((mixed, rows), (e_mixed,
+                                        e_tel.events(live_only=False))):
+                fail(f"fleet {label!r}: captured scan_rounds differs from "
+                     "uncaptured()")
+    if launch_counts() != want:
+        fail(f"fleets under uncaptured() launched {launch_counts()}, "
+             f"expected {want}")
+    print(f"(d) the {len(fleets)} fleets' captured scan_rounds == "
+          f"uncaptured() on params, rows and launches ({SMI})", flush=True)
     return {"paper_fleet_int8": got}
 
 
@@ -4469,6 +4635,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global SMI
+    SMI = smi
 
     phase("build")
     secs = build.build()

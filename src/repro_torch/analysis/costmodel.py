@@ -373,7 +373,8 @@ def reconcile_engine_run(engine, *, rounds: int, label: str,
     counts and ``n_active`` as ints, ``wire_bits`` and joules as float64,
     ``==`` (both sides evaluate the same expression on the same draws).
     ``params``: agent-stacked params to run (default (K, 16) seeded
-    normals on ``device``)."""
+    normals on ``device``). On the card the rounds replay the engine's
+    captured round program, so the rows reconciled are the graph's."""
     from repro_torch import telemetry as telemetry_lib
     from repro_torch.core import energy
 
@@ -537,10 +538,14 @@ def _tiny_drivers(device="cpu") -> List[Tuple[str, list]]:
     """The chunked drivers tiny, in one process (engines without a mesh),
     each under the recorder: (name, records) of ``engine.scan_rounds``
     (async, telemetry), ``run_fl_until_scan`` (int8, chunk 2) and
-    ``maml_train_scan``. The meshed drivers run on the spawned group
-    (:func:`run_mesh_rounds`)."""
+    ``maml_train_scan``. They run under ``scanloop.uncaptured()``: the
+    recorder reads the ops each round dispatches, and a replayed CUDA
+    graph dispatches none, so on the card captured rounds would show it
+    the first round's capture only. The meshed drivers run on the spawned
+    group (:func:`run_mesh_rounds`)."""
     from repro_torch import telemetry as telemetry_lib
-    from repro_torch.core import federated, maml, topology as topo_lib
+    from repro_torch.core import federated, maml, scanloop
+    from repro_torch.core import topology as topo_lib
     from repro_torch.core.engine import ConsensusEngine
 
     K, D = 4, 8
@@ -572,21 +577,22 @@ def _tiny_drivers(device="cpu") -> List[Tuple[str, list]]:
         agents=topo_lib.AgentProcess.bernoulli(0.6, seed=1), tau=2,
         staleness_decay=0.9)
     gen = torch.Generator(device=device).manual_seed(0)
-    with CollectiveRecorder() as rec:
-        eng.scan_rounds({"w": stacked["w"][:, :, 0]}, generator=gen,
-                        rounds=2, telemetry=telemetry_lib.Telemetry())
-    out.append(("driver:scan_rounds", rec.records))
-    with CollectiveRecorder() as rec:
-        federated.run_fl_until_scan(
-            loss_fn, stacked, sample_batches,
-            ConsensusEngine(topo_lib.ring(K), codec="int8"), 0.1,
-            target_fn=target_fn, max_rounds=2, generator=gen, chunk=2)
-    out.append(("driver:run_fl_until_scan", rec.records))
-    with CollectiveRecorder() as rec:
-        maml.maml_train_scan(
-            loss_fn, {"w": stacked["w"][0], "b": stacked["b"][0]},
-            sample_tasks, rounds=2, inner_lr=0.1, outer_lr=0.1, chunk=2)
-    out.append(("driver:maml_train_scan", rec.records))
+    with scanloop.uncaptured():
+        with CollectiveRecorder() as rec:
+            eng.scan_rounds({"w": stacked["w"][:, :, 0]}, generator=gen,
+                            rounds=2, telemetry=telemetry_lib.Telemetry())
+        out.append(("driver:scan_rounds", rec.records))
+        with CollectiveRecorder() as rec:
+            federated.run_fl_until_scan(
+                loss_fn, stacked, sample_batches,
+                ConsensusEngine(topo_lib.ring(K), codec="int8"), 0.1,
+                target_fn=target_fn, max_rounds=2, generator=gen, chunk=2)
+        out.append(("driver:run_fl_until_scan", rec.records))
+        with CollectiveRecorder() as rec:
+            maml.maml_train_scan(
+                loss_fn, {"w": stacked["w"][0], "b": stacked["b"][0]},
+                sample_tasks, rounds=2, inner_lr=0.1, outer_lr=0.1, chunk=2)
+        out.append(("driver:maml_train_scan", rec.records))
     return out
 
 

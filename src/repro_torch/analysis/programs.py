@@ -2,9 +2,12 @@
 they carry over to captured round programs.
 
 Walks :func:`repro_torch.core.scanloop.registered_programs` after driving
-small FL and MAML configurations through the real drivers
-(:func:`_tiny_drivers`), so the registry holds the programs the drivers
-actually build:
+small FL and MAML configurations through the real drivers and
+``ConsensusEngine.scan_rounds`` (:func:`_tiny_drivers`), so the registry
+holds the programs the drivers and engines actually build. A program is
+CACHED when it is kept across calls: admitted to
+``scanloop.cached_program`` (the drivers), or held by its engine
+(``scan_rounds``; its ``cache_key`` family is ``"scan_rounds"``):
 
 JX1  no function that failed the capture probe inside a CACHED program:
      a sampler or target that runs on the host before each replay
@@ -14,7 +17,8 @@ JX1  no function that failed the capture probe inside a CACHED program:
      shift the stream between the first and later calls.
 JX4  no streaming telemetry inside a CACHED program: a streaming round's
      rows are read and emitted to host sinks after each replay, so the
-     drivers build streaming programs per call and never admit them.
+     drivers and engines build streaming programs per call and never
+     keep them.
 JX3  donation honoured (the card only): the replays of an admitted
      captured program found every donated buffer at the address its
      graph writes, and whenever a caller handed back the carry of the
@@ -47,20 +51,21 @@ def audit_programs(records) -> List[Finding]:
         if rec.cache_key is None:
             continue                       # built per call: out of scope
         family = rec.cache_key[0]
+        kept = ("held by its engine" if family == "scan_rounds"
+                else "admitted to scanloop.cached_program")
         if rec.host_fns:
             findings.append(Finding(
                 "JX1", LABEL, 0,
                 f"program {rec.name!r} (cache key {family!r}) holds "
                 f"{list(rec.host_fns)}, which failed the capture probe, "
-                "yet was admitted to scanloop.cached_program — host round "
-                "functions must be built per call", scope=rec.name))
+                f"yet was {kept} — host round functions must be built per "
+                "call", scope=rec.name))
         if rec.streaming:
             findings.append(Finding(
                 "JX4", LABEL, 0,
                 f"streaming-telemetry program {rec.name!r} (cache key "
-                f"{family!r}) was admitted to scanloop.cached_program — "
-                "streaming programs must be built per call",
-                scope=rec.name))
+                f"{family!r}) was {kept} — streaming programs must be "
+                "built per call", scope=rec.name))
         if rec.captured and rec.in_place is False:
             findings.append(Finding(
                 "JX3", LABEL, 0,
@@ -84,7 +89,11 @@ def _tiny_drivers(device):
     """Drive small FL and MAML configurations through the real drivers on
     ``device``: the int8 wire static and on an async engine with fading
     links, telemetry off, buffered (cached) and streaming (never cached),
-    a host sampler (never cached) and ``maml_train_scan``."""
+    a host sampler (never cached) and ``maml_train_scan``; then
+    ``scan_rounds`` on the same two engines, telemetry off, buffered and
+    streaming (held by the engine, except streaming), twice each so the
+    held programs replay from a handed-back carry. Returns the two
+    engines: their programs live as long as they do."""
     import torch
 
     from repro_torch import telemetry as telemetry_lib
@@ -132,6 +141,16 @@ def _tiny_drivers(device):
             loss_fn, stacked, sampler, eng, 0.1, target_fn=target_fn,
             max_rounds=2, chunk=2, telemetry=tel,
             generator=torch.Generator(device=device).manual_seed(0))
+    mixed = {"w": torch.randn((K, D), generator=torch.Generator(
+        device=device).manual_seed(4), device=device)}
+    for eng in (engine, async_engine):
+        for mode in (None, "buffered", "streaming"):
+            for _ in range(2):
+                eng.scan_rounds(
+                    mixed, rounds=2,
+                    generator=torch.Generator(device=device).manual_seed(1),
+                    telemetry=(None if mode is None
+                               else telemetry_lib.Telemetry(mode=mode)))
 
     def sample_tasks(generator, _t):
         x = torch.randn((2, 3, 4, D), generator=generator, device=device)
@@ -144,11 +163,12 @@ def _tiny_drivers(device):
                   "b": torch.zeros((1,), device=device)},
         sample_tasks, rounds=2, inner_lr=0.1, outer_lr=0.1, inner_steps=3,
         chunk=2, generator=torch.Generator(device=device).manual_seed(0))
+    return engine, async_engine
 
 
 def run_program_audit(device="cpu") -> List[Finding]:
     """The programs layer: :func:`_tiny_drivers` on ``device``, then
     :func:`audit_programs` over every live program."""
     from repro_torch.core import scanloop
-    _tiny_drivers(device)
+    engines = _tiny_drivers(device)        # noqa: F841 (keeps programs)
     return audit_programs(scanloop.registered_programs())

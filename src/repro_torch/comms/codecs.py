@@ -11,7 +11,12 @@ payload and back, and prices the wire exactly in bits:
 
 Leaf methods work on agent-stacked rows: row k is agent k's tensor,
 flattened, and is quantized on its own (per-(agent, tensor) scales) —
-what the JAX package gets by ``vmap`` over the agent axis.
+what the JAX package gets by ``vmap`` over the agent axis. The tree API
+codes ONE model's pytree, each leaf one row of the leaf API:
+
+    wire  = codec.encode(tree, generator)          # a Wire
+    tree' = codec.decode(wire)
+    codec.bits(wire)                               # EXACT wire bits
 
 * ``IdentityCodec`` — f32 passthrough (32 bit/param).
 * ``Bf16Codec``     — bf16 cast (16 bit/param).
@@ -25,13 +30,38 @@ what the JAX package gets by ``vmap`` over the agent axis.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any, List, NamedTuple, Optional
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 F32_BITS = 32.0
 SCALE_BITS = 32.0        # one f32 scale per quantized tensor
 IDX_BITS = 32.0          # int32 index per kept top-k entry
+
+
+class LeafMeta(NamedTuple):
+    """Shape and dtype of one coded leaf."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+@dataclass
+class Wire:
+    """A codec'd pytree: one payload per leaf (dicts of tensors, each the
+    leaf's row of :meth:`Codec.encode_leaf` with the row axis dropped:
+    flat values, a 0-d scale per tensor or an (nb,) scale per block) and
+    the tree's structure."""
+
+    codec: str
+    payloads: List[Any]
+    treedef: Any
+    leaves_meta: List[LeafMeta]
+
+    def __iter__(self):                    # allow tuple-unpacking styles
+        return iter((self.codec, self.payloads))
 
 
 def _stochastic_round(y: torch.Tensor,
@@ -82,6 +112,34 @@ class Codec:
     def leaf_bits(self, shape) -> float:
         """EXACT wire bits for one tensor of ``shape``."""
         raise NotImplementedError
+
+    # -- pytree level ---------------------------------------------------------
+    def encode(self, tree, generator=None) -> Wire:
+        """One model's pytree over the wire, each leaf flattened into one
+        row of :meth:`encode_leaf` (its own scales). ``generator`` draws
+        the stochastic rounding of every leaf in turn (None: round to
+        nearest)."""
+        leaves, treedef = tree_flatten(tree)
+        payloads = []
+        for x in leaves:
+            p = self.encode_leaf(x.reshape(1, -1), generator)
+            payloads.append({k: v[0] for k, v in p.items()})
+        return Wire(self.name, payloads, treedef,
+                    [LeafMeta(tuple(x.shape), x.dtype) for x in leaves])
+
+    def decode(self, wire: Wire):
+        """The pytree a :class:`Wire` carries, each leaf in its shape and
+        dtype."""
+        leaves = []
+        for p, m in zip(wire.payloads, wire.leaves_meta):
+            rows = self.decode_leaf({k: v[None] for k, v in p.items()},
+                                    math.prod(m.shape))
+            leaves.append(rows.reshape(m.shape).to(m.dtype))
+        return tree_unflatten(leaves, wire.treedef)
+
+    def bits(self, wire: Wire) -> float:
+        """Exact wire size of one encoded model, in bits."""
+        return float(sum(self.leaf_bits(m.shape) for m in wire.leaves_meta))
 
     def model_bits(self, tree) -> float:
         """Exact wire bits this codec would use for ``tree`` (a dict of

@@ -51,9 +51,14 @@ float lane weights. :class:`AsyncState` carries clocks and ages between
 rounds. ``AgentProcess.always_on()`` with τ = ∞ reduces to the lockstep
 engine bit for bit (weights are exactly {0.0, 1.0}).
 
-:meth:`ConsensusEngine.scan_rounds` runs R rounds as a host loop of
-:meth:`step` / :meth:`async_step`, drawing all R rounds' survival and
-availability in one vectorised call on the params' device first.
+:meth:`ConsensusEngine.scan_rounds` runs R rounds as R replays of ONE
+round program (:meth:`ConsensusEngine.round_program`, a
+:func:`repro_torch.core.scanloop.donating_graph`: on the card a CUDA
+graph of :meth:`step` / :meth:`async_step` and the telemetry row, the
+carry updated in place), drawing all R rounds' survival and availability
+in one vectorised call on the params' device first. The engine holds its
+programs itself, one per argument signature, outside the drivers'
+program cache; they die with the engine.
 
 Every compressed plan recentres each agent on its OWN decoded copy
 (CHOCO), so under doubly-stochastic σ the population mean is exact
@@ -70,17 +75,21 @@ disagreement needs the population, which two observer all-reduces give
 from __future__ import annotations
 
 import difflib
+import weakref
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core import consensus
+from repro_torch.core import consensus, scanloop
 from repro_torch.core import topology as topo_lib
 
 PLAN_KINDS = ("dense", "sparse", "sharded", "distributed")
 PLAN_ALIASES = {"dense-xla": "dense", "sparse-pallas": "sparse"}
+#: plans that accept a per-round survival operand: all four (the
+#: distributed plan masks the slots of its fixed schedule superset)
+MASKABLE_PLANS = PLAN_KINDS
 #: plans whose survival and σ live on the (K, H) neighbour lanes
 LANE_PLANS = ("sparse", "sharded")
 
@@ -292,6 +301,8 @@ class ConsensusEngine:
         self._sched_struct = None      # (srcs, real) of the schedule
         self._sched_keep = None        # schedule masks gathered to lanes
         self._on_device = {}           # (name, device) -> tensor
+        #: scan_rounds' round programs, by argument signature
+        self._round_programs = {}
         self.local_rows = self._local_rows()
         if self.graph.kind != "static":
             if self.topology is None:
@@ -800,24 +811,113 @@ class ConsensusEngine:
             error_feedback=False, structure=structure,
             dense_operator=dense_op)
 
+    def _round_fn(self, recorder, engine):
+        """``consensus_round(carry, xs, generator) -> ((carry,), ys)``: one
+        round of :meth:`scan_rounds` on ``carry = (params, codec_state,
+        clock, age)`` (the :class:`AsyncState` halves None on lockstep
+        engines), ``xs`` the round's ``t`` and its rows of the vectorised
+        ``link`` and ``act`` draws; ``ys`` the packed telemetry row
+        (``recorder``), else None. ``engine`` is this engine or a weak
+        proxy of it, so a program the engine holds does not hold the
+        engine."""
+        is_async = self.agents is not None
+
+        def consensus_round(carry, xs, generator):
+            params, st, clock, age = carry
+            if is_async:
+                ar = engine.async_round(xs["t"], age, act=xs["act"],
+                                        link=xs["link"])
+                params, st, (clock, age), _ = engine.async_step(
+                    params, st, generator, state=AsyncState(clock, age),
+                    round_info=ar)
+                sv, act, row_age = ar.delivered, ar.act, ar.age
+            else:
+                params, st = engine.step(params, st, generator,
+                                         survival=xs["link"])
+                sv, act, row_age = xs["link"], None, None
+            ys = None
+            if recorder is not None:
+                ys = recorder.pack([recorder.row(
+                    params, sv, metric=0.0, reached=False, live=True,
+                    active=act, age=row_age)])[0]
+            return ((params, st, clock, age),), ys
+
+        return consensus_round
+
+    def round_program(self, stacked_params, codec_state=None,
+                      generator=None, telemetry=None):
+        """The round :meth:`scan_rounds` replays for these arguments: a
+        :func:`repro_torch.core.scanloop.donating_graph` (argument 0, the
+        carry, donated; ``async_argnums`` set on async engines) held by
+        this engine and keyed on the params' and codec state's tree
+        signatures, their device, ``telemetry.trace_signature()`` and
+        whether a generator is passed. It obeys the program layer's byte
+        rule; its ``held_bytes`` show in ``scanloop.cache_stats()`` under
+        ``scan_rounds_held_bytes``, never in the drivers' cache (the JAX
+        package's ``scan_rounds`` never touches its program cache).
+        Streaming telemetry builds the program per call and holds none,
+        as the drivers do. On a meshed engine (``local_rows`` set) the
+        round is the plain function, run eagerly every round."""
+        if self.local_rows is not None:
+            rec = (telemetry.recorder_for(self) if telemetry is not None
+                   else None)
+            return self._round_fn(rec, self)
+        streaming = telemetry is not None and telemetry.streaming
+        device = next(iter(stacked_params.values())).device
+        key = ("scan_rounds", str(device),
+               scanloop.tree_signature(stacked_params),
+               scanloop.tree_signature(codec_state),
+               None if telemetry is None else telemetry.trace_signature(),
+               generator is not None)
+        prog = None if streaming else self._round_programs.get(key)
+        if prog is None:
+            from repro_torch.telemetry.buffer import RoundRecorder
+            engine = weakref.proxy(self)
+            # the program's own row maker, on the proxy: the telemetry's
+            # recorder holds the engine, and the rows are the same
+            rec = (None if telemetry is None
+                   else RoundRecorder(engine, telemetry.energy_params))
+            prog = scanloop.donating_graph(
+                self._round_fn(rec, engine), donate_argnums=(0,),
+                name="scan_rounds", count_traces=False)
+            prog.record.streaming = streaming
+            # the carry (argument 0) holds the AsyncState's clock and ages
+            prog.record.async_argnums = ((0,) if self.agents is not None
+                                         else ())
+            if not streaming:
+                prog.record.cache_key = key
+                self._round_programs[key] = prog
+        return prog
+
+    def program_records(self):
+        """The records of the round programs this engine holds."""
+        return [p.record for p in self._round_programs.values()]
+
     def scan_rounds(self, stacked_params, codec_state=None, generator=None,
                     *, rounds: Optional[int] = None, t0: int = 0,
                     telemetry=None):
-        """Run rounds ``t0 .. t0 + rounds - 1`` as a host loop of
-        :meth:`step` (lockstep) or :meth:`async_step` (async, from a
-        fresh :class:`AsyncState`). The rounds' survival and availability
-        are drawn first, in one vectorised call each on the params'
-        device. Returns ``(params, codec_state)``, the same bits as the
-        same calls made one by one.
+        """Run rounds ``t0 .. t0 + rounds - 1`` as ``rounds`` replays of
+        one round program (:meth:`round_program`): :meth:`step`
+        (lockstep) or :meth:`async_step` (async, from a fresh
+        :class:`AsyncState` each call). The rounds' survival and
+        availability are drawn first, in one vectorised call each on the
+        params' device, and each round takes its rows of them as device
+        tensors. The caller's params and codec state are copied before the
+        first round (:func:`repro_torch.core.scanloop.own`), so they stay
+        valid; the returned ones are the program's carry, copied out.
+        Returns ``(params, codec_state)``, the same bits as the same calls
+        made one by one, captured or not (``scanloop.uncaptured()``).
 
         ``telemetry`` (:class:`repro_torch.telemetry.Telemetry`) records
         one ``consensus`` row per round from the survival lanes the round
         mixed with (on async rounds ``AsyncRound.delivered``, activity and
-        ages; never a second draw), read from the device in one copy at
-        the end (streaming mode: one per round). Params and state are
-        bit-identical with telemetry off, buffered or streaming. On a mesh
-        ``stacked_params`` is this process's rows and every rank records
-        the same rows (:meth:`audit_meta` names the disagreement's
+        ages; never a second draw), packed inside the round and copied
+        into an (R, cols) float64 buffer on the device, read from the
+        device in one copy at the end (streaming mode: each row read after
+        its round's replay). Params and state are bit-identical with
+        telemetry off, buffered or streaming. On a mesh ``stacked_params``
+        is this process's rows, the rounds run eagerly, and every rank
+        records the same rows (:meth:`audit_meta` names the disagreement's
         all-reduces)."""
         if rounds is None:
             raise ValueError(
@@ -836,29 +936,28 @@ class ConsensusEngine:
                     else None)
         stream = (telemetry.stream_cb(recorder, "consensus")
                   if telemetry is not None and telemetry.streaming else None)
-        p, st = stacked_params, codec_state
-        ast = self.init_async_state(device=device) if is_async else None
-        rows = []
+        program = self.round_program(stacked_params, codec_state, generator,
+                                     telemetry)
+        clock, age = (self.init_async_state(device=device) if is_async
+                      else (None, None))
+        carry = scanloop.own((stacked_params, codec_state)) + (clock, age)
+        rows = None
         for i in range(R):
-            link = None if links is None else links[i]
-            if is_async:
-                ar = self.async_round(int(t0) + i, ast.age, act=acts[i],
-                                      link=link)
-                p, st, ast, _ = self.async_step(p, st, generator, state=ast,
-                                                round_info=ar)
-                sv_row, act, age = ar.delivered, ar.act, ar.age
-            else:
-                p, st = self.step(p, st, generator, survival=link)
-                sv_row, act, age = link, None, None
+            xs = {"t": ts[i], "link": None if links is None else links[i],
+                  "act": None if acts is None else acts[i]}
+            (carry,), ys = program(carry, xs, generator)
             if recorder is not None:
-                row = recorder.row(p, sv_row, metric=0.0, reached=False,
-                                   live=True, active=act, age=age)
+                if rows is None:
+                    rows = torch.empty((R, ys.shape[0]), dtype=torch.float64,
+                                       device=device)
+                rows[i].copy_(ys)
                 if stream is not None:
-                    stream(int(t0) + i, row)
-                rows.append(row)
-        if recorder is not None and rows:
-            telemetry.record_rounds(recorder, recorder.collect(rows), t0,
-                                    driver="consensus")
+                    stream(int(t0) + i, rows[i])
+        if rows is not None:
+            telemetry.record_rounds(
+                recorder, recorder.unpack(scanloop.to_host(rows)), t0,
+                driver="consensus")
+        p, st = scanloop.own(carry[:2])
         return p, st
 
     # -- Eq.-(11) pricing -------------------------------------------------------

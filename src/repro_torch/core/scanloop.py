@@ -53,6 +53,16 @@ drivers still read the device once per chunk. The pieces:
   (:func:`trim_program_cache`). :data:`TRACE_COUNTS` counts the
   variants built per driver family (``"fl_chunk"``, ``"maml_chunk"``):
   captures on the card, builds on the CPU.
+* THE BYTE RULE. A program whose graphs would hold more than
+  :data:`PROGRAM_CACHE_BYTES` on their own is never replayed: it becomes
+  an EAGER program for good (:data:`OVER_BYTE_CAP`), decided once per
+  program, before its first capture where :func:`held_bytes_lower_bound`
+  (its carry and static inputs, from their shapes) already exceeds the
+  cap, else when its first capture has measured ``held_bytes``, whose
+  graph and pool are then freed. It keeps its place in the cache, so
+  later calls of its key hit, probe nothing, capture nothing and run
+  the round eagerly. The rule is decided on every device (the CPU runs
+  eagerly anyway, but says why), never under :func:`uncaptured`.
 * :func:`first_hit` and :func:`to_host` — t_i from a chunk's reached
   flags, and the drivers' one device→host read of a chunk.
 """
@@ -122,7 +132,8 @@ class ProgramRecord:
     captures: int = 0
     replays: int = 0
     capture_seconds: float = 0.0
-    #: calls that ran ``fn`` eagerly (the CPU, :func:`uncaptured`)
+    #: calls that ran ``fn`` eagerly (the CPU, :func:`uncaptured`, the
+    #: byte rule)
     eager_calls: int = 0
     #: the arguments that hold the async protocol's ``AsyncState`` (the
     #: per-agent clocks and per-lane wire ages)
@@ -131,6 +142,9 @@ class ProgramRecord:
     #: buffers, its static inputs and its graph pool's segments (0 until a
     #: capture, and on the CPU) — what :data:`PROGRAM_CACHE_BYTES` caps
     held_bytes: int = 0
+    #: under the byte rule (``why_uncaptured ==`` :data:`OVER_BYTE_CAP`):
+    #: the bytes that put it above the cap, predicted or measured
+    over_cap_bytes: int = 0
     #: donation honoured so far: False once a replay found a donated
     #: buffer moved from the address its graph writes, or was handed back
     #: its own previous carry as something other than those buffers (a
@@ -143,19 +157,28 @@ class ProgramRecord:
 #: graph's lifetime
 _PROGRAM_REFS: list = []
 
+#: ``ProgramRecord.why_uncaptured`` of a program under the byte rule
+OVER_BYTE_CAP = "held_bytes above PROGRAM_CACHE_BYTES"
 
-def registered_programs():
-    """Live :class:`ProgramRecord`\\ s of every :func:`donating_graph`
-    program still referenced (program cache, drivers, case studies). Dead
+
+def _live_programs():
+    """Every :func:`donating_graph` program still referenced. Dead
     weakrefs are pruned in passing."""
     out, alive = [], []
     for ref in _PROGRAM_REFS:
         p = ref()
         if p is not None:
             alive.append(ref)
-            out.append(p.record)
+            out.append(p)
     _PROGRAM_REFS[:] = alive
     return out
+
+
+def registered_programs():
+    """Live :class:`ProgramRecord`\\ s of every :func:`donating_graph`
+    program still referenced (program cache, drivers, case studies,
+    engines)."""
+    return [p.record for p in _live_programs()]
 
 
 def clear_program_registry():
@@ -376,6 +399,26 @@ def _tensor_bytes(tensors) -> int:
     return sum(seen.values())
 
 
+def held_bytes_lower_bound(args, donate_argnums=()) -> int:
+    """The least device bytes a program capturing one call of ``args``
+    holds between calls, from the tensors' shapes and dtypes alone: the
+    donated carry, which the capture adopts (each tensor once), and a
+    clone of every other tensor argument, its static inputs. The graph
+    pool's segments come on top and are known only once a capture has
+    measured them (``ProgramRecord.held_bytes``)."""
+    total, seen = 0, set()
+    for i, a in enumerate(args):
+        for x in tree_flatten(a)[0]:
+            if not isinstance(x, torch.Tensor):
+                continue
+            if i in donate_argnums:
+                if id(x) in seen:
+                    continue
+                seen.add(id(x))
+            total += x.numel() * x.element_size()
+    return total
+
+
 class _LastOp:
     """Names the last aten op dispatched while a graph is captured, so a
     capture failure says which op the graph refused."""
@@ -417,10 +460,11 @@ class _Variant:
 class Program:
     """A :func:`donating_graph` program (see the module docstring)."""
 
-    def __init__(self, fn, donate_argnums=(), name=None):
+    def __init__(self, fn, donate_argnums=(), name=None, count_traces=True):
         self.fn = fn
         self.donate_argnums = tuple(donate_argnums)
         self.name = name or getattr(fn, "__name__", repr(fn))
+        self.count_traces = count_traces
         self.record = ProgramRecord(self.name, fn, self.donate_argnums)
         self._variants = {}
         self._carry = {}        # donated args' signature -> their buffers
@@ -444,23 +488,64 @@ class Program:
     def __call__(self, *args):
         flat, spec = tree_flatten(args)
         sig = (spec, tuple(_leaf_signature(x) for x in flat))
-        if sig not in self._seen:
+        new = sig not in self._seen
+        if new:
             self._seen.add(sig)
-            TRACE_COUNTS[self.name] += 1
+            if self.count_traces:
+                TRACE_COUNTS[self.name] += 1
+        rec = self.record
+        if rec.why_uncaptured == OVER_BYTE_CAP:
+            return self._eager(OVER_BYTE_CAP, args)
         device = self._device(flat)
-        why = (device.type if device.type != "cuda"
-               else "uncaptured()" if _UNCAPTURED[0] else None)
-        if why is not None:
-            self.record.eager_calls += 1
-            if not self.record.captured:
-                self.record.why_uncaptured = why
-            return self.fn(*args)
+        if _UNCAPTURED[0]:
+            return self._eager("uncaptured()", args)
         variant = self._variants.get(sig)
+        if variant is None and (new or device.type == "cuda"):
+            # the byte rule, before a capture: the carry and static inputs
+            # alone, beside what the program's other variants hold
+            predicted = (held_bytes_lower_bound(args, self.donate_argnums)
+                         + rec.held_bytes)
+            if _above_cap(predicted):
+                self.make_eager(predicted)
+                return self._eager(OVER_BYTE_CAP, args)
+        if device.type != "cuda":
+            return self._eager(device.type, args)
         if variant is None:
             variant = self._capture(args, flat, spec, sig)
+            if _above_cap(rec.held_bytes):
+                # measured by the capture: the graph is never replayed
+                self.make_eager(rec.held_bytes)
+                return self._eager(OVER_BYTE_CAP, args)
             self._variants[sig] = variant
             trim_program_cache()
         return self._replay(variant, args, flat)
+
+    def _eager(self, why, args):
+        self.record.eager_calls += 1
+        if not self.record.captured:
+            self.record.why_uncaptured = why
+        return self.fn(*args)
+
+    def make_eager(self, nbytes: int):
+        """Put the program under the byte rule for good: free its graphs,
+        static inputs, carry buffers and pool, and record why and the
+        ``nbytes`` that put it above :data:`PROGRAM_CACHE_BYTES`. Every
+        later call runs ``fn`` eagerly; a cache entry holding it stays."""
+        rec = self.record
+        had_graphs = bool(self._variants)
+        self._variants.clear()
+        self._carry.clear()
+        self._pool = None
+        self._pool_bytes = self._static_bytes = 0
+        self._handed = None
+        rec.captured = False
+        rec.why_uncaptured = OVER_BYTE_CAP
+        rec.over_cap_bytes = int(nbytes)
+        rec.held_bytes = 0
+        rec.launches_per_replay.clear()
+        if had_graphs or rec.captures:
+            # return the freed pool's segments to the card
+            torch.cuda.empty_cache()
 
     # -- capture ----------------------------------------------------------------
     def _donated_positions(self, args):
@@ -636,13 +721,16 @@ class Program:
 
 
 def donating_graph(fn: Callable, donate_argnums=(), *,
-                   name=None) -> Program:
+                   name=None, count_traces: bool = True) -> Program:
     """A :class:`Program` running ``fn`` as one CUDA graph per argument
     signature (see the module docstring). ``fn(*args) -> (carry, ys)``,
     ``carry`` a tuple with one new value per ``donate_argnums`` entry, in
     order, shaped like that argument. Every program is registered for
-    ``repro_torch.analysis`` (:func:`registered_programs`)."""
-    prog = Program(fn, donate_argnums, name)
+    ``repro_torch.analysis`` (:func:`registered_programs`).
+    ``count_traces=False`` keeps its builds out of :data:`TRACE_COUNTS`
+    (a program the JAX package's counterpart never traces through its
+    program cache: ``ConsensusEngine.scan_rounds``)."""
+    prog = Program(fn, donate_argnums, name, count_traces)
     _PROGRAM_REFS.append(weakref.ref(prog))
     return prog
 
@@ -660,10 +748,11 @@ TRACE_COUNTS: collections.Counter = collections.Counter()
 PROGRAM_CACHE_SIZE = 32
 #: device bytes the cached programs may hold between driver calls (each
 #: one's ``ProgramRecord.held_bytes``: carry buffers, static inputs, graph
-#: pool); None lifts the cap. A program above the cap on its own is
-#: evicted as soon as its capture is measured, so it lives only as long
-#: as the driver call that uses it (the carry of a K = 256 paper-DQN
-#: round alone is 0.83 GB in f32, twice that with error feedback). Set
+#: pool); None lifts the cap. A program above the cap on its own falls
+#: under the byte rule (module docstring): it stays cached and runs
+#: eagerly (the carry of a K = 256 paper-DQN round alone is 0.83 GB in
+#: f32, twice that with error feedback). Programs under the cap are
+#: evicted least recently used first while together they exceed it. Set
 #: it, then call :func:`trim_program_cache`, to change it for a process.
 PROGRAM_CACHE_BYTES: Optional[int] = 1 << 30
 _program_cache: "collections.OrderedDict" = collections.OrderedDict()
@@ -673,13 +762,21 @@ _program_cache: "collections.OrderedDict" = collections.OrderedDict()
 CACHE_STATS: collections.Counter = collections.Counter()
 
 
+def _above_cap(nbytes: int) -> bool:
+    return PROGRAM_CACHE_BYTES is not None and nbytes > PROGRAM_CACHE_BYTES
+
+
 def cache_stats() -> dict:
     """Snapshot of the program cache: ``hits`` / ``misses`` (the drivers'
     :func:`get_cached_program` probes), ``inserts`` / ``evictions``
     (:func:`cached_program`, :func:`trim_program_cache`), ``size`` /
     ``capacity``, ``held_bytes`` / ``byte_capacity``,
     ``registered_programs``, ``trace_counts`` (a dict copy of
-    :data:`TRACE_COUNTS`)."""
+    :data:`TRACE_COUNTS`); and over every live program, cached or not,
+    ``eager_by_byte_rule`` (how many run eagerly under the byte rule)
+    and ``scan_rounds_held_bytes`` (the bytes the engines' own
+    ``scan_rounds`` programs hold, outside the cache)."""
+    live = registered_programs()
     return {
         "hits": CACHE_STATS["hits"],
         "misses": CACHE_STATS["misses"],
@@ -689,8 +786,13 @@ def cache_stats() -> dict:
         "capacity": PROGRAM_CACHE_SIZE,
         "held_bytes": sum(_held(p) for p in _program_cache.values()),
         "byte_capacity": PROGRAM_CACHE_BYTES,
-        "registered_programs": len(registered_programs()),
+        "registered_programs": len(live),
         "trace_counts": dict(TRACE_COUNTS),
+        "eager_by_byte_rule": sum(r.why_uncaptured == OVER_BYTE_CAP
+                                  for r in live),
+        "scan_rounds_held_bytes": sum(
+            r.held_bytes for r in live
+            if r.cache_key is not None and r.cache_key[0] == "scan_rounds"),
     }
 
 
@@ -746,17 +848,17 @@ def _held(program) -> int:
 
 
 def trim_program_cache():
-    """Evict until the cache fits :data:`PROGRAM_CACHE_SIZE` and
-    :data:`PROGRAM_CACHE_BYTES`: first every program above the byte cap on
-    its own, then the least recently used. Runs on every admission and
-    after every capture (when a program's ``held_bytes`` is measured). An
-    evicted program lives on while a driver still runs it."""
+    """Apply the byte rule to every live program above
+    :data:`PROGRAM_CACHE_BYTES` on its own (cached or not: it becomes
+    eager and keeps its cache entry), then evict the least recently used
+    until the cache fits :data:`PROGRAM_CACHE_SIZE` and the byte cap.
+    Runs on every admission and after every capture. An evicted program
+    lives on while a driver still runs it."""
     cap = PROGRAM_CACHE_BYTES
-    doomed = ([k for k, p in _program_cache.items() if _held(p) > cap]
-              if cap is not None else [])
-    for k in doomed:
-        del _program_cache[k]
-        CACHE_STATS["evictions"] += 1
+    if cap is not None:
+        for p in _live_programs():
+            if p.record.held_bytes > cap:
+                p.make_eager(p.record.held_bytes)
     while len(_program_cache) > PROGRAM_CACHE_SIZE or (
             cap is not None and _program_cache
             and sum(_held(p) for p in _program_cache.values()) > cap):
@@ -792,4 +894,5 @@ __all__ = [
     "get_cached_program", "cached_program", "clear_program_cache",
     "PROGRAM_CACHE_BYTES", "trim_program_cache",
     "first_hit", "to_host", "launch_counts", "COUNTED_KERNELS",
+    "OVER_BYTE_CAP", "held_bytes_lower_bound",
 ]

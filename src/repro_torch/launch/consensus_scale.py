@@ -445,6 +445,12 @@ def telemetry_rows(clock, rounds: int = 128, chunk: int = 16):
     return rows
 
 
+def _capture_seconds(engine) -> float:
+    """Seconds the engine's ``scan_rounds`` programs spent capturing (0 on
+    the CPU, where nothing is captured)."""
+    return sum(r.capture_seconds for r in engine.program_records())
+
+
 def dropout_rows(clock, rounds: int = DROPOUT_ROUNDS, p: float = 0.2,
                  seed: int = 0, configs=None):
     """µs per round of a fading-link round loop: ``scan_rounds`` drawing
@@ -471,9 +477,13 @@ def dropout_rows(clock, rounds: int = DROPOUT_ROUNDS, p: float = 0.2,
                 s = e.step(s, mask=torch.as_tensor(rt.adjacency,
                                                    device=dev))[0]
             return s
+        # the first scan_rounds call captures its round program (on the
+        # card): made here, outside the timing, and printed on its own (the
+        # rows keep the reference's keys)
         if not torch.equal(scan()["w"], host()["w"]):
             raise AssertionError(f"dropout rows {fam}: in-scan and "
                                  "host-prefetch rounds disagree")
+        capture_s = _capture_seconds(eng)
         us_scan = clock.median_us(scan, reps=3) / rounds
         us_host = clock.median_us(host, reps=3) / rounds
         for mode, us in (("in-scan", us_scan), ("host-prefetch", us_host)):
@@ -483,7 +493,8 @@ def dropout_rows(clock, rounds: int = DROPOUT_ROUNDS, p: float = 0.2,
                 speedup_vs_host_prefetch=us_host / max(us, 1e-9)))
         print(f"dropout_rows {fam:10s} {plan:7s} in-scan {us_scan:9.1f} "
               f"us/round  host-prefetch {us_host:9.1f} us/round  "
-              f"({us_host / max(us_scan, 1e-9):.2f}x)", flush=True)
+              f"({us_host / max(us_scan, 1e-9):.2f}x; capture "
+              f"{capture_s:.3f} s, untimed)", flush=True)
     return rows
 
 
@@ -551,6 +562,11 @@ def async_rows(clock, rounds: int = 64, configs=None):
             topo, plan=plan,
             agents=topo_lib.AgentProcess.bernoulli(0.6, seed=0),
             tau=3, staleness_decay=0.9)
+        # one untimed call each captures the round programs (on the card)
+        for e in (sync_eng, asyn_eng):
+            e.scan_rounds(x, rounds=rounds)
+        capture_s = {"lockstep": _capture_seconds(sync_eng),
+                     "staleness": _capture_seconds(asyn_eng)}
         us_sync = clock.median_us(
             lambda: sync_eng.scan_rounds(x, rounds=rounds), reps=3) / rounds
         us_asyn = clock.median_us(
@@ -562,7 +578,9 @@ def async_rows(clock, rounds: int = 64, configs=None):
                 overhead_vs_lockstep=us / max(us_sync, 1e-9)))
         print(f"async_rows   {fam:10s} {plan:7s} lockstep {us_sync:9.1f} "
               f"us/round  staleness {us_asyn:9.1f} us/round  "
-              f"({us_asyn / max(us_sync, 1e-9):.2f}x, median of 3)",
+              f"({us_asyn / max(us_sync, 1e-9):.2f}x, median of 3; "
+              f"captures {capture_s['lockstep']:.3f} / "
+              f"{capture_s['staleness']:.3f} s, untimed)",
               flush=True)
     return rows
 

@@ -60,6 +60,40 @@ META_TASKS = (0, 1, 5)        # {τ1, τ2, τ6} of Fig. 2(c)
 R_TARGET = 100.0              # running-reward target (rescaled units)
 
 
+def behaviour_rollout(generator, task_id: int, *, steps: int = 20,
+                      batch: int = 8, device="cuda"):
+    """Random-walk behaviour policy (ε = 1), task-dependent rewards only:
+    ``batch`` episodes of ``steps`` motions from the common entry point,
+    flattened to (steps · batch, ...) transitions, step-major."""
+    pos = torch.as_tensor(gw.ENTRY, device=device).long().expand(batch, 2)
+    out = {"state": [], "action": [], "reward": [], "next_state": []}
+    for _ in range(steps):
+        a = torch.randint(0, gw.NUM_ACTIONS, (batch,), generator=generator,
+                          device=device)
+        s = gw.one_hot_state(pos)
+        pos, r = gw.step(pos, a, task_id)
+        for name, v in zip(out, (s, a, r, gw.one_hot_state(pos))):
+            out[name].append(v)
+    return {"state": torch.stack(out["state"]).reshape(-1, gw.NUM_CELLS),
+            "action": torch.stack(out["action"]).reshape(-1),
+            "reward": torch.stack(out["reward"]).reshape(-1),
+            "next_state": torch.stack(out["next_state"]).reshape(
+                -1, gw.NUM_CELLS)}
+
+
+def sample_td_batches(generator, task_id: int, n_batches: int, *,
+                      batch_size: int = 64, episodes: int = 16,
+                      device="cuda"):
+    """(n_batches, batch_size, ...) TD transitions resampled from
+    :func:`behaviour_rollout`."""
+    data = behaviour_rollout(generator, task_id, batch=episodes,
+                             device=device)
+    N = data["state"].shape[0]
+    idx = torch.randint(0, N, (n_batches, batch_size), generator=generator,
+                        device=device)
+    return {k: v[idx] for k, v in data.items()}
+
+
 def sample_episode_batches(generator, params, cfg, task_id: int,
                            n_batches: int, *, batch_size: int = 16,
                            epsilon: float = 0.1, episodes: int = 1):

@@ -3,8 +3,12 @@
 once replaying CUDA graphs and once eager, must give the same bits:
 params, codec state, t_i, history, the generator's final state, telemetry
 rows; the kernel launches inside the graphs are counted through the
-replays; a capture the graph refuses raises by name. The CPU side of the
-program layer, against the JAX package, is ``tests/test_torch_scanloop.py``.
+replays; a capture the graph refuses raises by name; a K = 256 program
+above the default byte cap is kept and run eagerly, and hit by the next
+call (F4); ``ConsensusEngine.scan_rounds`` replays its own captured round
+program on every plan without a mesh. The CPU side of the program layer,
+against the JAX package, is ``tests/test_torch_scanloop.py`` and
+``tests/test_torch_engine_program.py``.
 
 On the card: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
 tests/test_torch_capture.py``."""
@@ -192,8 +196,9 @@ def test_donation_audit_catches_a_copied_carry_and_a_moved_buffer(
 
 @pytest.mark.gpu
 def test_byte_cap_drops_a_program_after_its_driver_call(cuda):
-    """Under a byte cap below a program's measured ``held_bytes`` the
-    driver still replays it, and the cache lets it go after the call."""
+    """Under a byte cap below a program's carry the program is never
+    captured: its cache entry stays, under the byte rule, and the second
+    driver call hits it and runs the rounds eagerly, with the same bits."""
     loss, sample, target_fn, params = _fl_case(cuda)
     eng = ConsensusEngine(topology.ring(K), codec="int8", plan="sparse")
     scanloop.clear_program_cache()
@@ -208,13 +213,170 @@ def test_byte_cap_drops_a_program_after_its_driver_call(cuda):
                 loss, params, sample, eng, 0.2, target_fn=target_fn,
                 max_rounds=6, chunk=3, generator=g))
         stats = scanloop.cache_stats()
-        assert (stats["size"], stats["inserts"], stats["evictions"],
-                stats["held_bytes"]) == (0, 2, 2, 0)
-        assert stats["trace_counts"]["fl_chunk"] == 2
+        assert (stats["size"], stats["hits"], stats["inserts"],
+                stats["evictions"], stats["held_bytes"],
+                stats["eager_by_byte_rule"]) == (1, 1, 1, 0, 0, 1)
+        assert stats["trace_counts"]["fl_chunk"] == 1
+        (prog,) = scanloop._program_cache.values()
+        assert prog.record.captures == 0
+        assert prog.record.why_uncaptured == scanloop.OVER_BYTE_CAP
         assert _same(outs[0], outs[1])
     finally:
         scanloop.PROGRAM_CACHE_BYTES = cap
         scanloop.clear_program_cache()
+
+
+def _wide_fl_case(device, n):
+    """K = 256 agents of ``n`` params each: a regression pull toward seeded
+    targets, sampled inside the round (the sampler passes the probe)."""
+    KW = 256
+    g = torch.Generator(device=device).manual_seed(5)
+    target = torch.randn((n,), generator=g, device=device)
+
+    def loss(p, b):
+        return 0.5 * (p["w"] - b["w"]).square().sum()
+
+    def sample(generator, _t):
+        return {"w": target + 0.1 * torch.randn(
+            (KW, 1, n), generator=generator, device=device)}
+
+    def target_fn(sp):
+        m = (sp["w"] - target).square().mean()
+        return m < -1.0, m
+
+    return loss, sample, target_fn, {"w": torch.zeros((KW, n),
+                                                      device=device)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_k256_program_above_the_default_cap_is_kept_eager(cuda, codec):
+    """F4: at the default 1 GiB cap a K = 256 program too large to keep
+    (int8 with error feedback: its carry alone, 1.84 GB, is above the
+    cap, so it is never captured; f32: captured once, measured above the
+    cap, then eager) stays cached. The second ``run_fl_until_scan`` call
+    hits it and captures nothing, and both calls are ``==``
+    ``uncaptured()`` on params, codec state, t_i, history and the
+    generator."""
+    assert scanloop.PROGRAM_CACHE_BYTES == 1 << 30
+    loss, sample, target_fn, params = _wide_fl_case(cuda, 900_000)
+    eng = ConsensusEngine(topology.small_world(256, k=4, seed=1),
+                          codec=codec, plan="sparse")
+    scanloop.clear_program_cache()
+    scanloop.reset_cache_stats()
+
+    def run():
+        g = torch.Generator(device=cuda).manual_seed(9)
+        p, t_i, hist, st = federated.run_fl_until_scan(
+            loss, params, sample, eng, 0.3, target_fn=target_fn,
+            max_rounds=3, chunk=3, generator=g, return_state=True)
+        torch.cuda.synchronize()
+        return p, t_i, hist, st, g.get_state()
+
+    try:
+        got = [run()]
+        (prog,) = scanloop._program_cache.values()
+        first = (prog.record.captures, dict(scanloop.TRACE_COUNTS))
+        got.append(run())
+        stats = scanloop.cache_stats()
+        assert (stats["hits"], stats["misses"], stats["inserts"],
+                stats["evictions"]) == (1, 1, 1, 0)
+        assert (prog.record.captures, dict(scanloop.TRACE_COUNTS)) == first
+        assert prog.record.captures == (0 if codec else 1)
+        assert prog.record.why_uncaptured == scanloop.OVER_BYTE_CAP
+        assert prog.record.held_bytes == 0 and stats["held_bytes"] == 0
+        assert prog.record.over_cap_bytes > scanloop.PROGRAM_CACHE_BYTES
+        with scanloop.uncaptured():
+            want = run()
+        assert _same(got[0], want) and _same(got[1], want)
+    finally:
+        scanloop.clear_program_cache()
+
+
+def _scan_case(device, case):
+    kw = {"plan": "sparse"}
+    gen = tel = None
+    if case == "lockstep_int8":
+        kw.update(codec="int8")
+    elif case == "fading_f32_generator":
+        kw.update(graph=topology.GraphProcess.dropout(0.3, seed=1))
+        gen = 7
+    elif case == "fading_int4_sharded_generator":
+        kw.update(codec="int4", plan="sharded", num_blocks=4,
+                  graph=topology.GraphProcess.dropout(0.3, seed=1))
+        gen = 8
+    elif case == "async_int8_tau3":
+        kw.update(codec="int8", agents=topology.AgentProcess.bernoulli(
+            0.7, seed=2), tau=3, staleness_decay=0.9)
+        tel = "buffered"
+    elif case == "streaming_int8_distributed":
+        kw.update(codec="int8", plan="distributed",
+                  graph=topology.GraphProcess.dropout(0.3, seed=1))
+        tel = "streaming"
+    elif case == "dense_int8_fading":
+        kw.update(codec="int8", plan="dense",
+                  graph=topology.GraphProcess.dropout(0.3, seed=1))
+        tel = "buffered"
+    eng = ConsensusEngine(topology.small_world(K, k=4, seed=1), **kw)
+    return eng, gen, tel
+
+
+SCAN_CASES = ["lockstep_int8", "fading_f32_generator",
+              "fading_int4_sharded_generator", "async_int8_tau3",
+              "streaming_int8_distributed", "dense_int8_fading"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_rounds_captured_equals_uncaptured(cuda, case):
+    """``scan_rounds`` replaying its captured round program ``==`` the
+    same rounds under ``uncaptured()``: params, codec state, the
+    generator's final state, every telemetry row and the B1/B2 launches;
+    a second call replays the held program (no capture) from a fresh
+    ``AsyncState``; JX3 and JX5 hold on the replays."""
+    from repro_torch.analysis import programs
+    eng, gen, mode = _scan_case(cuda, case)
+    x = {"w": torch.randn((K, 3, 40), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda),
+        "b": torch.randn((K, 7), device=cuda)}
+    saved = {k: v.clone() for k, v in x.items()}
+
+    def run():
+        tel = None if mode is None else Telemetry(mode=mode)
+        g = (None if gen is None
+             else torch.Generator(device=cuda).manual_seed(gen))
+        before = scanloop.launch_counts()
+        p, st = eng.scan_rounds(x, generator=g, rounds=5, t0=3,
+                                telemetry=tel)
+        torch.cuda.synchronize()
+        after = scanloop.launch_counts()
+        return ((p, st, None if g is None else g.get_state(),
+                 None if tel is None else tel.events(live_only=False)),
+                {n: after[n] - before[n] for n in after})
+
+    got, n = run()
+    again, n2 = run()
+    with scanloop.uncaptured():
+        want, n_eager = run()
+    assert _same(got, want) and _same(again, want)
+    # one launch a leaf a round (a block a leaf a round sharded), of B1
+    # on the int wires and B2 otherwise; none on the dense plan
+    kind = eng.plan.kind
+    per = 0 if kind == "dense" else 2 * 5 * eng.plan.num_blocks
+    own = "quant_consensus_pop" if eng.codec is not None \
+        else "consensus_update_pop"
+    assert n == n2 == n_eager == {k: per if k == own else 0 for k in n}
+    assert all(torch.equal(x[k], saved[k]) for k in x)   # caller's intact
+    recs = eng.program_records()
+    if mode == "streaming":
+        assert recs == []                    # built per call, never held
+        return
+    (rec,) = recs
+    assert rec.captured and rec.captures == 1 and rec.replays == 10
+    assert rec.in_place and programs.audit_programs(recs) == []
+    assert rec.async_argnums == ((0,) if eng.agents is not None else ())
+    assert scanloop.cache_stats()["scan_rounds_held_bytes"] >= \
+        rec.held_bytes > 0
 
 
 @pytest.mark.gpu

@@ -231,8 +231,10 @@ def test_lru_evicts_at_capacity_as_the_jax_package():
 def test_byte_cap_evicts_oversized_programs_first_then_lru():
     """:func:`scanloop.trim_program_cache` against the device bytes the
     cached programs hold (measured at capture on the card, set by hand
-    here): a program above the cap on its own goes first, then the least
-    recently used until the rest fit; ``None`` lifts the cap."""
+    here): a program above the cap on its own falls under the byte rule
+    first (eager for good, its graph freed, its entry kept, no eviction),
+    then the least recently used go until the rest fit; ``None`` lifts
+    the cap."""
     scanloop.clear_program_cache()
     scanloop.reset_cache_stats()
     cap = scanloop.PROGRAM_CACHE_BYTES
@@ -247,17 +249,110 @@ def test_byte_cap_evicts_oversized_programs_first_then_lru():
         progs["c"].record.held_bytes = 150       # c's capture was measured
         scanloop.trim_program_cache()
         assert list(scanloop._program_cache) == [("bytes", "a"),
-                                                 ("bytes", "b")]
+                                                 ("bytes", "b"),
+                                                 ("bytes", "c")]
+        rec = progs["c"].record
+        assert (rec.why_uncaptured, rec.over_cap_bytes, rec.held_bytes) == (
+            scanloop.OVER_BYTE_CAP, 150, 0)
+        assert scanloop.cache_stats()["evictions"] == 0
+        (out,), _ = progs["c"](torch.ones(2))     # eager from now on
+        assert torch.equal(out, torch.ones(2)) and rec.eager_calls == 1
         progs["a"].record.held_bytes = 70        # a, the LRU, goes next
         scanloop.trim_program_cache()
-        assert list(scanloop._program_cache) == [("bytes", "b")]
+        assert list(scanloop._program_cache) == [("bytes", "b"),
+                                                 ("bytes", "c")]
         stats = scanloop.cache_stats()
         assert (stats["evictions"], stats["held_bytes"],
-                stats["byte_capacity"]) == (2, 40, 100)
+                stats["byte_capacity"]) == (1, 40, 100)
+        assert stats["eager_by_byte_rule"] >= 1
         scanloop.PROGRAM_CACHE_BYTES = None
         progs["b"].record.held_bytes = 10 ** 12
         scanloop.trim_program_cache()
-        assert scanloop.cache_stats()["size"] == 1
+        assert scanloop.cache_stats()["size"] == 2
+        assert progs["b"].record.why_uncaptured is None
+    finally:
+        scanloop.PROGRAM_CACHE_BYTES = cap
+        scanloop.clear_program_cache()
+
+
+def test_held_bytes_lower_bound_counts_carry_once_and_clones():
+    """The byte rule's prediction from shapes alone, against hand counts:
+    the donated carry once per tensor (a leaf passed twice is one
+    buffer), every other tensor argument cloned, non-tensors free."""
+    meta = dict(device="meta")
+    w = torch.empty((256, 1000), **meta)                      # 1,024,000 B
+    st = {"w": torch.empty((256, 1000), dtype=torch.float32, **meta)}
+    clock = torch.empty((256,), dtype=torch.int32, **meta)    # 1,024 B
+    link = torch.empty((256, 4), dtype=torch.bool, **meta)    # 1,024 B
+    t = torch.empty((), dtype=torch.int64, **meta)            # 8 B
+    carry = ({"w": w}, st, clock, None)
+    xs = {"t": t, "link": link, "act": None}
+    got = scanloop.held_bytes_lower_bound((carry, xs, "eval"), (0,))
+    assert got == 1_024_000 * 2 + 1_024 + 1_024 + 8
+    assert scanloop.held_bytes_lower_bound(((w, w), xs), (0,)) == \
+        1_024_000 + 1_024 + 8
+    # not donated: each leaf is cloned into its own static input
+    assert scanloop.held_bytes_lower_bound(((w, w), xs), ()) == \
+        2 * 1_024_000 + 1_024 + 8
+    half = torch.empty((4, 3), dtype=torch.bfloat16, **meta)
+    assert scanloop.held_bytes_lower_bound((half, 1.5, None), (0,)) == 24
+
+
+def _two_fl_calls(mod, make_params, sample, gen, **kw):
+    eng = kw.pop("engine")
+    outs = []
+    for _ in range(2):
+        outs.append(mod.run_fl_until_scan(
+            _loss, make_params(), sample, eng, 0.1, target_fn=_target,
+            max_rounds=3, chunk=2, **gen(), **kw))
+    return outs
+
+
+def test_program_above_the_byte_cap_stays_cached_and_eager():
+    """F4 on the CPU: under ``PROGRAM_CACHE_BYTES = 1`` every program is
+    above the cap from its shapes alone. Two ``run_fl_until_scan`` calls
+    leave the JAX package's hits, misses and inserts (its cache has no
+    byte cap and hits at any size); the second call builds nothing, the
+    program stays cached under the byte rule and both calls give the same
+    bits."""
+    for mod in (jscan, scanloop):
+        mod.clear_program_cache()
+        mod.reset_cache_stats()
+    p = _params()
+    _two_fl_calls(jfed, lambda: jax.tree.map(jnp.asarray, p), _jsample,
+                  lambda: {"key": jax.random.PRNGKey(0)},
+                  engine=JEngine(jtopo.ring(K), codec="int8"))
+    cap = scanloop.PROGRAM_CACHE_BYTES
+    try:
+        scanloop.PROGRAM_CACHE_BYTES = 1
+        eng = ConsensusEngine(topology.ring(K), codec="int8")
+        outs = []
+        for i in range(2):
+            before = dict(scanloop.TRACE_COUNTS)
+            outs.append(federated.run_fl_until_scan(
+                _loss, {k: torch.from_numpy(v) for k, v in p.items()},
+                _tsample, eng, 0.1, target_fn=_target, max_rounds=3,
+                chunk=2, generator=torch.Generator().manual_seed(0),
+                return_state=True))
+            if i == 1:
+                assert dict(scanloop.TRACE_COUNTS) == before
+        want, got = jscan.cache_stats(), scanloop.cache_stats()
+        assert {k: got[k] for k in ("hits", "misses", "inserts",
+                                    "evictions")} == \
+            {k: want[k] for k in ("hits", "misses", "inserts", "evictions")}
+        assert (got["hits"], got["size"], got["eager_by_byte_rule"]) == \
+            (1, 1, 1)
+        (prog,) = scanloop._program_cache.values()
+        rec = prog.record
+        assert rec.why_uncaptured == scanloop.OVER_BYTE_CAP
+        tp = {k: torch.from_numpy(v) for k, v in p.items()}
+        ef = {k: torch.zeros_like(v) for k, v in tp.items()}
+        assert rec.over_cap_bytes >= scanloop.held_bytes_lower_bound(
+            ((tp, ef),), (0,)) > 0              # at least params + EF state
+        assert rec.captures == 0 and rec.held_bytes == 0
+        assert rec.eager_calls == 6            # 3 rounds a call
+        assert all(torch.equal(outs[0][0][k], outs[1][0][k]) for k in p)
+        assert outs[0][1:3] == outs[1][1:3]
     finally:
         scanloop.PROGRAM_CACHE_BYTES = cap
         scanloop.clear_program_cache()
