@@ -174,17 +174,28 @@ Phases (any failure exits non-zero; nothing is caught):
 13. serve     — ``repro_torch.launch.serve`` on full-width, full-depth
                 recurrentgemma-9b (random weights): 4 prompts of 4096
                 tokens, 32 greedy tokens; each prefill must launch the scan
-                26 and the attention kernel 12 times, decode neither. Then
-                a profile of one prefill and 4 decode steps (host wall,
-                kernels, device busy share, B3/B4's share of the prefill);
-                prefill + 1 decode step against the full forward at full
-                width and one pattern period (3 layers).
+                26 and the attention kernel 12 times, decode neither. The
+                prefill and decode steps are ``serve``'s two launcher
+                programs, each captured once on its first call (at the
+                default byte cap; the prefill's graph, never replayed in
+                the call, is dropped before the decode's capture) and the
+                decode replayed every later token; the same call under
+                ``scanloop.uncaptured()`` gives the same tokens, last
+                logits and final caches bit for bit and the same launches
+                by phase, its times beside the captured ones. Then a
+                profile of one prefill and 4 decode steps, and of a replay
+                of the prefill program and 4 of the decode program (host
+                wall, kernels, device busy share, B3/B4's share of the
+                prefill; capture seconds, held bytes, peak allocated and
+                reserved); prefill + 1 decode step against the full
+                forward at full width and one pattern period (3 layers).
 14. serve_lm  — the transformer family: (a) h2o-danube-3-4b and
                 qwen2-moe-a2.7b served at full width and depth as in
                 ``serve`` (B4 24 times per prefill, never in decode, B3
                 never; counted params == ``param_count()`` plus the shared
-                gate and q/k norms it leaves out; peak memory), each
-                profiled like ``serve``, and one qwen2-moe MoE layer timed
+                gate and q/k norms it leaves out; peak memory; the
+                programs captured ``==`` uncaptured), each profiled like
+                ``serve``, and one qwen2-moe MoE layer timed
                 alone at the prefill's and a decode step's token counts
                 (the dispatch's share); (b) prefill + 1 decode step against
                 the full forward at full width, 4 layers, a 4200-token
@@ -203,9 +214,12 @@ Phases (any failure exits non-zero; nothing is caught):
                 times (kernel, plain version, SDPA); (b) ``train_standard``
                 on granite-8b at full width and 2 layers (batch 4 x 512, 5
                 Adam steps): finite losses, B4 2·L launches a step (remat),
-                step 1's loss and gradient norm against the same step
-                with the attention's plain version, ms per step, peak
-                memory, a profiled step; (c) ``train_federated`` at the
+                the step program captured once and replayed, the same run
+                under ``uncaptured()`` ``==`` (params, Adam state, losses,
+                grad norms), step 1's loss and gradient norm against the
+                same step with the attention's plain version, ms per step
+                captured and eager, peak memory, a profiled step, eager
+                and replayed; (c) ``train_federated`` at the
                 same width (4 agents, 2 tasks, 2 local steps, batch 2 x
                 256, 3 rounds, sparse plan): B2 12 launches a round with
                 codec None, bf16 consensus and ``auto`` (bf16+ef), B1 12
@@ -213,8 +227,13 @@ Phases (any failure exits non-zero; nothing is caught):
                 feedback); links fading (p 0.3) and agents awake with p
                 0.7 (τ 2): buffered telemetry == off bit for bit, every
                 row's joules == the host replay; the Eq.-(11) estimate ==
-                the host formula; sleeping agents held bit for bit; ms,
-                kernels and busy share per round and peak memory; (d) a
+                the host formula; 2 rounds at chunk 2 with buffered
+                telemetry, codec None and int8+ef, the round program
+                captured once == uncaptured (population, codec state,
+                losses, rows, launches); sleeping agents held bit for bit;
+                ms, kernels and busy share per round of the round
+                program, eager (under ``uncaptured()``) and captured, and
+                peak memory; (d) a
                 ``CheckpointManager`` round trip of the population, bit
                 for bit; (e) ``python -m repro_torch.launch.train
                 --reduced`` federated and standard, exit 0.
@@ -231,8 +250,10 @@ Phases (any failure exits non-zero; nothing is caught):
                 32 layers, 4 x 1500 stub frames, a 64-token prompt, 32
                 tokens): B4 exactly 96 per prefill (32 encoder, 32 decoder
                 self, 32 cross) and 0 per decode step, counted params ==
-                the JAX package's count, peak memory, a profile of the
-                prefill and 4 decode steps (busy share), decode against
+                the JAX package's count, peak memory, the programs
+                captured ``==`` uncaptured, a profile of the prefill and 4
+                decode steps and of the programs' replays (busy share,
+                capture seconds), decode against
                 the full forward at 4 + 4 layers, in f32 per logit and in
                 bf16 within 0.06 (1 + rms of the logits), with the f32
                 forward as the witness of bf16's rounding; (c) the same
@@ -251,8 +272,10 @@ Phases (any failure exits non-zero; nothing is caught):
                 joules == the host replay; (f) recurrentgemma-9b at full
                 width and 3 layers (one pattern period): ``train_standard``
                 (batch 2 x 512, 3 steps) with B3 4 and B4 2 a step
-                (forward and remat recompute), one step profiled, step 1
-                against B3's and B4's plain versions, ``train_federated``
+                (forward and remat recompute, their plain-VJP backward:
+                all inside the captured step), ``==`` the same steps under
+                ``uncaptured()``, one step profiled (eager and replayed),
+                step 1 against B3's and B4's plain versions, ``train_federated``
                 (2 agents, 1 local step of 2 x 256, 2 rounds, codec None):
                 B3, B4 and B2 (42 leaves a round) exact.
 17. mesh_lm   — the LM zoo on a data x model mesh, in an NCCL group of
@@ -1246,9 +1269,10 @@ def check_scan_rounds_captured(x, want):
                      f"from uncaptured(), or launches {[r[1] for r in runs]}"
                      f" / {eager[1]} != {want}")
         recs = eng.program_records()
+        # the capture's call runs eagerly before it; the rest replay
         if len(recs) != 2 or not all(r.captured and r.captures == 1
-                                     and r.replays == 2 * R and r.in_place
-                                     for r in recs):
+                                     and r.replays == 2 * R - 1
+                                     and r.in_place for r in recs):
             fail(f"(a) captured scan_rounds programs: {recs}")
         held = [r.held_bytes for r in recs]
         print(f"(a) byte cap lifted: scan_rounds K={K_POP} int8 replaying "
@@ -1713,7 +1737,7 @@ def check_fl_variants(x, fns, thr):
             t_i, computed, _ = fl_case(x, fns, spec, dyn, thr, chunk, every,
                                        host)
             scanloop.clear_program_cache()
-        ran = [r for r in recs if r.replays]
+        ran = [r for r in recs if r.captures]
         want = 2 + host if every == 2 else 2
         if len(ran) != 1 or ran[0].captures != want or (
                 host != (ran[0].host_fns == ("target_fn",))) or (
@@ -2195,7 +2219,7 @@ def check_fleet():
         eng, mixed, tel = async_fleet.run(agents, label, stacked,
                                           plan="sparse")
         captured.append((mixed, tel.events(live_only=False)))
-        if not all(r.captured and r.replays == R
+        if not all(r.captured and r.captures == 1 and r.replays == R - 1
                    for r in eng.program_records()):
             fail(f"fleet {label!r}: scan_rounds programs "
                  f"{eng.program_records()} not captured")
@@ -3013,12 +3037,58 @@ def uncounted_params(cfg):
                                        else 0))
 
 
-def run_serve(cfg, shape=SERVE):
+def check_launcher_records(what, records, calls):
+    """Every launcher program of a call built per call and captured once,
+    at the default byte cap (never eager under the byte rule): its first
+    call runs eagerly just before the capture, every later one replays.
+    ``calls`` maps program name -> calls. Returns capture seconds and
+    held bytes by program."""
+    from repro_torch.core import scanloop
+    got = {r.name: r for r in records}
+    out = {}
+    for name, n in calls.items():
+        r = got.get(name)
+        if r is None or r.cache_key is not None or not r.captured \
+                or r.why_uncaptured is not None or r.captures != 1 \
+                or r.replays != n - 1 or r.eager_calls:
+            fail(f"{what}: program {name} {r} not captured once on its "
+                 f"first of {n} calls and replayed on the others at the "
+                 f"default byte cap ({scanloop.PROGRAM_CACHE_BYTES} B)")
+        out[name] = dict(capture_s=r.capture_seconds,
+                         held_bytes=r.held_bytes, replays=r.replays,
+                         in_place=r.in_place)
+    print(f"{what}: launcher programs captured once each on their first "
+          f"call, calls {calls}: {out}", flush=True)
+    return out
+
+
+def host_tree(tree):
+    """Every tensor leaf of ``tree`` copied to the host, in order."""
+    from torch.utils._pytree import tree_flatten
+    return [x.detach().cpu() for x in tree_flatten(tree)[0]
+            if isinstance(x, torch.Tensor)]
+
+
+def same_as_host(host, tree):
+    """``tree``'s tensor leaves (on the card) ``==`` ``host`` (their host
+    copies, in order), compared on the card one leaf at a time."""
+    from torch.utils._pytree import tree_flatten
+    leaves = [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+    return len(host) == len(leaves) and all(
+        torch.equal(h.to(x.device), x) for h, x in zip(host, leaves))
+
+
+def run_serve(cfg, shape=SERVE, twin=False):
     """The serving entry point, counted from 0: each prefill launches B3
     once per recurrent layer and B4 once per attention layer, decode
-    neither, and the consensus kernels never. A transformer's counted
-    parameters equal ``param_count()`` plus what it leaves out. Returns
-    the launches and the serving numbers."""
+    neither, and the consensus kernels never; the prefill and decode
+    programs are captured once each and replayed (decode once a token).
+    A transformer's counted parameters equal ``param_count()`` plus what
+    it leaves out. With ``twin`` the same call again under
+    ``scanloop.uncaptured()``: tokens, last logits and final caches
+    ``==``, the launches by phase the same, its times beside the
+    captured ones. Returns the launches and the serving numbers."""
+    from repro_torch.core import scanloop
     from repro_torch.launch.serve import serve
 
     want_prefill = expected_prefill(cfg)
@@ -3026,15 +3096,24 @@ def run_serve(cfg, shape=SERVE):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t = time.perf_counter()
-    res = serve(cfg, seed=0, device=DEVICE, verbose=True, **shape)
+    with scanloop.built_programs() as recs:
+        res = serve(cfg, seed=0, device=DEVICE, verbose=True, **shape)
     wall = time.perf_counter() - t
     got = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the graph pools' segments count here, not in the allocated peak
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    programs = check_launcher_records(
+        f"serve {cfg.name}", recs,
+        {"serve_prefill": 1, "serve_decode": shape["gen"] - 1})
     print(f"serve {cfg.name} layers={cfg.num_layers} batch={shape['batch']} "
           f"prompt={shape['prompt_len']} gen={shape['gen']}: prefill_ms="
           f"{res.prefill_ms} decode_ms_per_token={res.decode_ms_per_token} "
-          f"peak_memory_GB={peak_gb} wall_s(init included)={wall} "
-          f"launches={got} by phase {res.launches}", flush=True)
+          f"(serve's clock: the prefill's one call, eager before its "
+          f"capture; the decode steps after the first, replays) "
+          f"peak_memory_GB={peak_gb} peak_reserved_GB={reserved_gb} "
+          f"wall_s(init included)={wall} launches={got} by phase "
+          f"{res.launches}", flush=True)
     if got != want_prefill:
         fail(f"serve {cfg.name} launched {got}, expected {want_prefill}")
     if res.launches["prefill"] != {n: want_prefill[n] for n in
@@ -3064,9 +3143,38 @@ def run_serve(cfg, shape=SERVE):
     if not torch.isfinite(res.last_logits.float()).all():
         fail(f"{cfg.name}: last-position prefill logits are not finite")
     print(f"tokens[0]={tok[0].tolist()}", flush=True)
-    return got, dict(launches=res.launches, prefill_ms=res.prefill_ms,
-                     decode_ms_per_token=res.decode_ms_per_token,
-                     peak_memory_GB=peak_gb, params=res.n_params)
+    numbers = dict(launches=res.launches, prefill_ms=res.prefill_ms,
+                   decode_ms_per_token=res.decode_ms_per_token,
+                   peak_memory_GB=peak_gb, peak_reserved_GB=reserved_gb,
+                   params=res.n_params, programs=programs)
+    if twin:
+        mine = [res.tokens.cpu(), res.last_logits.cpu()] + host_tree(
+            res.caches)
+        del res
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with scanloop.uncaptured():
+            eager = serve(cfg, seed=0, device=DEVICE, verbose=False, **shape)
+        eager_peak = torch.cuda.max_memory_allocated() / 1e9
+        eager_reserved = torch.cuda.max_memory_reserved() / 1e9
+        ok = same_as_host(mine, (eager.tokens, eager.last_logits,
+                                 eager.caches))
+        print(f"serve {cfg.name} captured == uncaptured (tokens, last "
+              f"logits, {len(mine) - 2} cache leaves): {ok}; eager "
+              f"prefill_ms={eager.prefill_ms} decode_ms_per_token="
+              f"{eager.decode_ms_per_token} peak_memory_GB={eager_peak} "
+              f"peak_reserved_GB={eager_reserved}; launches by phase "
+              f"{eager.launches}", flush=True)
+        if not ok or eager.launches != numbers["launches"]:
+            fail(f"serve {cfg.name}: the captured programs differ from "
+                 "the same call under uncaptured()")
+        numbers["eager"] = dict(prefill_ms=eager.prefill_ms,
+                                decode_ms_per_token=eager.decode_ms_per_token,
+                                peak_memory_GB=eager_peak,
+                                peak_reserved_GB=eager_reserved)
+        del eager, mine
+        torch.cuda.empty_cache()
+    return got, numbers
 
 
 @torch.no_grad()
@@ -3143,11 +3251,86 @@ def profile_serve(cfg, steps=4, shape=SERVE):
     top_kernels(kd, steps)
     if cfg.moe is not None:
         moe_dispatch_share(cfg, model.blocks[0].mlp, busy_p, busy_d)
+    del caches, nxt
+    torch.cuda.empty_cache()
+    captured = profile_serving_programs(cfg, model, batch, steps)
     return dict(prefill_wall_ms=wall_p, prefill_kernels=len(kp),
                 prefill_busy_ms=busy_p, flash_attention_ms=b4,
                 rglru_scan_ms=b3, decode_wall_ms=wall_d,
                 decode_kernels_per_step=len(kd) / steps,
-                decode_busy_ms=busy_d, decode_busy_share=busy_d / wall_d)
+                decode_busy_ms=busy_d, decode_busy_share=busy_d / wall_d,
+                captured=captured)
+
+
+@torch.no_grad()
+def profile_serving_programs(cfg, model, batch, steps):
+    """The same work through ``serve``'s programs (``serving_programs``):
+    the prefill program's first call and capture, then one replay timed
+    (``serve`` runs the prefill once, eagerly before its capture); the
+    prefill program dropped, then the decode program from its caches:
+    captured, ``steps`` replays timed and ``steps`` profiled. Host wall,
+    kernels and busy share, the capture seconds, the held bytes and the
+    peaks, allocated and reserved (the graph pools)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import serving_programs
+    from repro_torch.models.api import get_model
+
+    B, S = batch["tokens"].shape
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
+    prefill, decode = serving_programs(cfg)
+    st = {"caches": get_model(cfg).init_cache(cfg, B, S + 2 * steps + 2,
+                                              device=DEVICE)}
+    positions = torch.arange(S, S + 2 * steps + 1, dtype=torch.int32,
+                             device=DEVICE)
+    step_no = [0]
+
+    def run_prefill():
+        (st["caches"],), (_, st["nxt"]) = prefill(model, st["caches"],
+                                                  batch)
+        torch.cuda.synchronize()
+
+    def run_decode(n):
+        for _ in range(n):
+            (st["caches"],), st["nxt"] = decode(
+                model, st["caches"], {"tokens": st["nxt"],
+                                      "cache_index": positions[step_no[0]]})
+            step_no[0] += 1
+        torch.cuda.synchronize()
+
+    run_prefill()                                     # its call, captured
+    t = time.perf_counter()
+    run_prefill()                                     # a replay
+    wall_p = (time.perf_counter() - t) * 1e3
+    st["nxt"] = st["nxt"].clone()
+    out = dict(prefill_capture_s=prefill.record.capture_seconds,
+               prefill_replay_wall_ms=wall_p,
+               prefill_held_bytes=prefill.record.held_bytes)
+    del prefill                                       # as ``serve`` does
+    run_decode(1)                                     # its call, captured
+    t = time.perf_counter()
+    run_decode(steps)
+    wall_d = (time.perf_counter() - t) * 1e3 / steps
+    with profile(activities=acts) as prof:
+        run_decode(steps)
+    _, kd = trace_kernels(prof, f"serve_decode_captured_{cfg.name}")
+    out.update(decode_capture_s=decode.record.capture_seconds,
+               decode_replay_wall_ms=wall_d,
+               decode_kernels_per_step=len(kd) / steps,
+               decode_held_bytes=decode.record.held_bytes,
+               peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_GB=torch.cuda.max_memory_reserved() / 1e9,
+               # the prefill's pool is gone: the decode's alone beside the
+               # model, the caches and the allocator's cached blocks
+               decode_reserved_GB=torch.cuda.memory_reserved() / 1e9)
+    if kd:
+        busy_d = sum(e.get("dur", 0) for e in kd) / 1e3 / steps
+        out.update(decode_busy_ms=busy_d, decode_busy_share=busy_d / wall_d)
+    print(f"{cfg.name} serving programs (captured; replays timed, host "
+          f"clock): {out}", flush=True)
+    del st, decode
+    torch.cuda.empty_cache()
+    return out
 
 
 def moe_dispatch_share(cfg, p, busy_prefill_ms, busy_decode_ms):
@@ -3265,7 +3448,7 @@ def serve_lm_phase(by_path):
     for arch in LM_ARCHS:
         t = time.perf_counter()
         cfg = get_arch(arch)
-        by_path[f"serve_{arch}"], numbers[arch] = run_serve(cfg)
+        by_path[f"serve_{arch}"], numbers[arch] = run_serve(cfg, twin=True)
         torch.cuda.empty_cache()
         profile_serve(cfg)
         torch.cuda.empty_cache()
@@ -3545,10 +3728,13 @@ def profile_step(fn, name, n=1):
 
 def plain_step1(cfg, shape):
     """(loss, grad norm) of ``train_standard``'s step 1 with the kernels'
-    plain versions: the same seed, so the same params and batch."""
+    plain versions: the same seed, so the same params and batch. A
+    reference, run eagerly (one step: a capture would only add its
+    warm-up)."""
+    from repro_torch.core import scanloop
     from repro_torch.launch import train
     out = []
-    with plain_kernels():
+    with plain_kernels(), scanloop.uncaptured():
         train.train_standard(
             cfg, device=DEVICE, **dict(shape, steps=1),
             callback=lambda t, p, m: out.append(
@@ -3556,8 +3742,68 @@ def plain_step1(cfg, shape):
     return out[0]
 
 
+def standard_twin(cfg, shape, mine):
+    """``train_standard`` at ``shape`` again under ``scanloop.
+    uncaptured()``, against the captured run's ``mine`` (host copies of
+    the params, Adam's state, the losses and grad norms): ``==`` or fail.
+    Returns the eager run's ms a step (steps 2..), its peak and its params
+    and state (on the card)."""
+    from repro_torch.core import scanloop
+    from repro_torch.launch import train
+
+    marks, gnorms = [], []
+
+    def on_step(t, params, m):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        gnorms.append(float(m["grad_norm"]))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with scanloop.uncaptured():
+        params, hist, ost = train.train_standard(
+            cfg, device=DEVICE, callback=on_step, return_state=True, **shape)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ok = same_as_host(mine["tree"], (params, ost)) and (
+        hist, gnorms) == (mine["hist"], mine["gnorms"])
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    print(f"train_standard {cfg.name} captured == uncaptured (params, Adam "
+          f"state, losses, grad norms over {len(hist)} steps): {ok}; eager "
+          f"ms per step {step_ms}, median {statistics.median(step_ms)}; "
+          f"eager peak_memory_GB={peak} peak_reserved_GB="
+          f"{torch.cuda.max_memory_reserved() / 1e9}", flush=True)
+    if not ok:
+        fail(f"train_standard {cfg.name}: the captured step differs from "
+             "the same steps under uncaptured()")
+    return dict(ms_per_step=statistics.median(step_ms), step_ms=step_ms,
+                peak_memory_GB=peak), params, ost
+
+
+def profile_step_program(cfg, shape, params, ost, batch):
+    """``train_standard``'s step program on ``params`` and ``ost``
+    (donated): captured, then one replay profiled. Its numbers, with the
+    capture seconds and held bytes."""
+    from repro_torch.launch import train
+    prog = train.train_step_program(cfg, lr=shape["lr"])
+    st = {"p": params, "o": ost}
+
+    def one_step():
+        (st["p"], st["o"]), _ = prog(st["p"], st["o"], batch)
+
+    one_step()                                        # capture
+    out = profile_step(one_step, f"train_step_captured_{cfg.name}")
+    out.update(capture_s=prog.record.capture_seconds,
+               held_bytes=prog.record.held_bytes)
+    del st, prog
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_train_standard():
-    """(b) ``train_standard`` at full width, 2 layers, counted from 0."""
+    """(b) ``train_standard`` at full width, 2 layers, counted from 0:
+    its step program captured once and replayed, then the same run under
+    ``uncaptured()`` ``==``; each step profiled, eager and captured."""
+    from repro_torch.core import scanloop
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
 
@@ -3576,18 +3822,24 @@ def run_train_standard():
 
     zero_counts()
     t0 = time.perf_counter()
-    params, hist = train.train_standard(cfg, device=DEVICE, callback=on_step,
-                                        **TRAIN_STD)
+    with scanloop.built_programs() as recs:
+        params, hist, ost = train.train_standard(
+            cfg, device=DEVICE, callback=on_step, return_state=True,
+            **TRAIN_STD)
     wall = time.perf_counter() - t0
     got = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    programs = check_launcher_records(f"train_standard {cfg.name}", recs,
+                                      {"train_step": TRAIN_STD["steps"]})
     steps_b4 = [b - a for a, b in zip([0] + counts, counts)]
     step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     print(f"train_standard {cfg.name} width {cfg.d_model} layers {L} "
           f"batch {TRAIN_STD['batch']} x {TRAIN_STD['seq']}: losses {hist}, "
           f"grad norms {[g for _, g in metrics]}; ms per step (steps 2-5) "
           f"{step_ms}, median {statistics.median(step_ms)}; peak_memory_GB="
-          f"{peak_gb}; B4 launches per step {steps_b4} (remat={cfg.remat}: "
+          f"{peak_gb} peak_reserved_GB="
+          f"{torch.cuda.max_memory_reserved() / 1e9}; B4 launches per step "
+          f"{steps_b4} (remat={cfg.remat}: "
           f"{per_step} = {'2' if cfg.remat else '1'} x {L} layers); wall_s "
           f"(init included) {wall}; launches {got}", flush=True)
     if not all(np.isfinite(hist)) or steps_b4 != [per_step] * len(hist) \
@@ -3595,8 +3847,15 @@ def run_train_standard():
                            flash_attention=per_step * len(hist)):
         fail(f"train_standard: losses {hist}, launches {steps_b4} / {got}")
 
+    mine = dict(tree=host_tree((params, ost)), hist=hist,
+                gnorms=[g for _, g in metrics])
+    del params, ost
+    eager, params, ost = standard_twin(cfg, TRAIN_STD, mine)
+    del mine
+
     step, opt = make_train_step(cfg, lr=TRAIN_STD["lr"], clip_norm=1.0)
-    state = {"p": params, "o": opt.init(params)}
+    state = {"p": params, "o": ost}
+    del params, ost
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     toks = torch.randint(0, cfg.vocab_size, (TRAIN_STD["batch"],
                                              TRAIN_STD["seq"] + 1),
@@ -3608,14 +3867,17 @@ def run_train_standard():
 
     one_step()
     prof = profile_step(one_step, "train_standard_step")
-    del params, state
+    prof_captured = profile_step_program(cfg, TRAIN_STD, state.pop("p"),
+                                         state.pop("o"), batch)
+    del state
     torch.cuda.empty_cache()
 
     check_step1(cfg.name, metrics[0], plain_step1(cfg, TRAIN_STD))
     torch.cuda.empty_cache()
     return got, dict(ms_per_step=statistics.median(step_ms),
                      step_ms=step_ms, peak_memory_GB=peak_gb, losses=hist,
-                     b4_per_step=per_step, profile=prof)
+                     b4_per_step=per_step, profile=prof, programs=programs,
+                     eager=eager, profile_captured=prof_captured)
 
 
 def fed_run(cfg, **kw):
@@ -3634,11 +3896,11 @@ def fed_run(cfg, **kw):
             torch.cuda.max_memory_allocated() / 1e9)
 
 
-def fed_expected(cfg, kernel):
+def fed_expected(cfg, kernel, rounds=None):
     """B4 once per layer of every local step's forward and its remat
     recompute, and of the logged loss; ``kernel`` (B1 or B2) once per
-    leaf per round."""
-    R, A, S, L = (TRAIN_FED["rounds"], TRAIN_FED["agents"],
+    leaf per round; over TRAIN_FED's rounds, or ``rounds``."""
+    R, A, S, L = (rounds or TRAIN_FED["rounds"], TRAIN_FED["agents"],
                   TRAIN_FED["local_steps"], cfg.num_layers)
     want = {n: 0 for n in KERNELS}
     want["flash_attention"] = R * (A * S * (2 if cfg.remat else 1) * L + L)
@@ -3783,12 +4045,13 @@ def run_train_federated(by_path):
 
 
 def measure_fl_round(codec):
-    """ms per federated round without the profiler (median of 3, warm),
-    then one profiled round: the trainer's own ``fl_round`` at the phase's
-    shape on the sparse plan, with the logged loss. With a codec, one more
-    round with agents 1 and 3 asleep holds their params and residuals bit
-    for bit."""
-    from repro_torch.core import topology
+    """ms per federated round of ``train_federated``'s round program
+    (``federated_round_program``) at the phase's shape on the sparse
+    plan, with the logged loss: under ``uncaptured()`` (eager), then
+    captured; each warm, the median of 3 host-clock walls, then one
+    profiled round. With a codec, first one round of ``fl_round`` with
+    agents 1 and 3 asleep holds their params and residuals bit for bit."""
+    from repro_torch.core import scanloop, topology
     from repro_torch.core.engine import ConsensusEngine
     from repro_torch.data import TaskTokenDistribution
     from repro_torch.launch import train
@@ -3801,7 +4064,9 @@ def measure_fl_round(codec):
     engine = ConsensusEngine(topo, codec=codec, plan="sparse")
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     params = train.init_params(cfg, gen, DEVICE)
-    st = {"p": {k: v.expand((A,) + v.shape) for k, v in params.items()}}
+    # one row per agent: the program adopts the population as its buffers
+    st = {"p": {k: v.expand((A,) + v.shape).clone()
+                for k, v in params.items()}}
     del params
     st["s"] = engine.init_state(st["p"])
     dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=T)
@@ -3810,31 +4075,7 @@ def measure_fl_round(codec):
     def loss_fn(p, tokens, labels):
         return lm_loss(p, cfg, tokens, labels)
 
-    def one(eng=engine, **kw):
-        toks, labels = dist.sample_traced(gen, grid, TRAIN_FED["batch"],
-                                          TRAIN_FED["seq"])
-        st["p"], st["s"] = train.fl_round(eng, loss_fn, st["p"], st["s"],
-                                          gen, toks, labels,
-                                          lr=TRAIN_FED["lr"], **kw)
-        with torch.no_grad():
-            loss_fn({k: v[0] for k, v in st["p"].items()}, toks[0, 0],
-                    labels[0, 0])
-
-    one()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t = time.perf_counter()
-        one()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
     name = "none" if codec is None else codec
-    prof = profile_step(one, f"train_federated_round_{name}")
-    print(f"federated round ({name}, sparse, {A} agents x {S} local steps, "
-          f"batch {TRAIN_FED['batch']} x {TRAIN_FED['seq']}): wall_ms "
-          f"{walls}, median {statistics.median(walls)}", flush=True)
-    out = dict(ms_per_round=statistics.median(walls), walls_ms=walls,
-               profile=prof)
     if codec is not None:
         eng = ConsensusEngine(topo, codec=codec, plan="sparse",
                               agents=topology.AgentProcess.bernoulli(0.5))
@@ -3844,7 +4085,11 @@ def measure_fl_round(codec):
         asleep = {k: v[1::2].cpu() for k, v in st["p"].items()}
         asleep_s = {k: v[1::2].cpu() for k, v in st["s"].items()}
         before = {k: v[0].cpu() for k, v in st["p"].items()}
-        one(eng, survival=ar.weights, act=ar.act)
+        toks, labels = dist.sample_traced(gen, grid, TRAIN_FED["batch"],
+                                          TRAIN_FED["seq"])
+        st["p"], st["s"] = train.fl_round(
+            eng, loss_fn, st["p"], st["s"], gen, toks, labels,
+            lr=TRAIN_FED["lr"], survival=ar.weights, act=ar.act)
         held = all(torch.equal(v[1::2].cpu(), asleep[k])
                    for k, v in st["p"].items()) and all(
             torch.equal(v[1::2].cpu(), asleep_s[k])
@@ -3855,9 +4100,102 @@ def measure_fl_round(codec):
               f"held bit for bit {held}; agent 0 moved {moved}", flush=True)
         if not held or not moved:
             fail("train_federated: a sleeping agent's state changed")
-    del st
+        del toks, labels
+    prog = train.federated_round_program(
+        engine, loss_fn, dist, grid, batch=TRAIN_FED["batch"],
+        seq=TRAIN_FED["seq"], lr=TRAIN_FED["lr"])
+    st["c"] = (st.pop("p"), st.pop("s"), None, None)
+    ts = torch.arange(0, 1, device=DEVICE)
+    xs = {"t": ts[0], "link": None, "act": None}
+
+    def one():
+        (st["c"],), _ = prog(st["c"], xs, gen)
+
+    def timed(label):
+        torch.cuda.reset_peak_memory_stats()
+        one()                     # warm; captured: its call and capture
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        return dict(ms_per_round=statistics.median(walls), walls_ms=walls,
+                    profile=profile_step(one, label),
+                    peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+                    peak_reserved_GB=torch.cuda.max_memory_reserved() / 1e9)
+
+    with scanloop.uncaptured():
+        out = timed(f"train_federated_round_{name}")
+    print(f"federated round ({name}, sparse, {A} agents x {S} local steps, "
+          f"batch {TRAIN_FED['batch']} x {TRAIN_FED['seq']}) through "
+          f"train_federated's program under uncaptured(): {out}", flush=True)
+    out["captured"] = timed(f"train_federated_round_captured_{name}")
+    out["captured"].update(capture_s=prog.record.capture_seconds,
+                           held_bytes=prog.record.held_bytes)
+    print(f"federated round ({name}) through train_federated's program, "
+          f"captured: {out['captured']}", flush=True)
+    del st, prog
     torch.cuda.empty_cache()
     return out
+
+
+def check_fed_programs(by_path):
+    """(c') ``train_federated`` at granite width, 2 rounds at chunk 2 on
+    the sparse plan with buffered telemetry, codec None (B2) and int8+ef
+    (B1): its round program captured once and replayed each round, then
+    the same run under ``uncaptured()``: the population, the codec state,
+    the losses, the telemetry rows and the launches ``==`` (the kernel
+    once a leaf a round, counted through the replays)."""
+    from repro_torch import telemetry
+    from repro_torch.core import scanloop
+
+    cfg = train_cfg()
+    kw = dict(rounds=2, chunk=2)
+    numbers = {}
+    for codec, kernel in ((None, "consensus_update_pop"),
+                          ("int8", "quant_consensus_pop")):
+        label = codec or "none"
+        runs = []
+        for mode in ("captured", "eager"):
+            tel = telemetry.Telemetry()
+            ctx = (scanloop.uncaptured() if mode == "eager"
+                   else contextlib.nullcontext())
+            with ctx, scanloop.built_programs() as recs:
+                (p, hist, _, st), got, wall, peak = fed_run(
+                    cfg, codec=codec, telemetry=tel, **kw)
+            runs.append(dict(hist=hist, got=got, wall=wall, peak=peak,
+                             rows=tel.events(live_only=False), recs=recs))
+            if mode == "captured":
+                host = host_tree((p, st))
+            else:
+                same = same_as_host(host, (p, st))
+            del p, st
+            torch.cuda.empty_cache()
+        cap, eag = runs
+        del host
+        programs = check_launcher_records(
+            f"train_federated {label} (2 rounds, chunk 2)", cap["recs"],
+            {"train_fl_round": kw["rounds"]})
+        want = fed_expected(cfg, kernel, rounds=kw["rounds"])
+        ok = (same and cap["hist"] == eag["hist"] and cap["rows"] == eag["rows"]
+              and cap["got"] == eag["got"] == want)
+        print(f"train_federated {label} captured == uncaptured (population, "
+              f"codec state, losses {cap['hist']}, {len(cap['rows'])} rows, "
+              f"launches {cap['got']}, expected {want}): {ok}; wall_s "
+              f"captured / eager {cap['wall']} / {eag['wall']} (init "
+              f"included); peak_memory_GB {cap['peak']} / {eag['peak']}",
+              flush=True)
+        if not ok:
+            fail(f"train_federated {label}: the captured rounds differ from "
+                 "the same rounds under uncaptured()")
+        by_path[f"train_federated_program_{label}"] = cap["got"]
+        numbers[label] = dict(wall_s=cap["wall"], eager_wall_s=eag["wall"],
+                              peak_memory_GB=cap["peak"],
+                              eager_peak_memory_GB=eag["peak"],
+                              programs=programs)
+    return numbers
 
 
 def run_train_cli():
@@ -3895,6 +4233,7 @@ def train_lm_phase(by_path, rows, generator):
     print(f"(b) train_standard: {time.perf_counter() - t:.2f} s", flush=True)
     t = time.perf_counter()
     fed = run_train_federated(by_path)
+    fed["programs"] = check_fed_programs(by_path)
     for codec in (None, "int8"):
         fed[f"round_{codec}"] = measure_fl_round(codec)
     print(f"(c, d) train_federated and checkpoint: "
@@ -3991,7 +4330,8 @@ def zoo_serve(cfg, shape, by_path):
     and 4 decode steps, and decode against the full forward at a cut
     depth. Returns the numbers."""
     t = time.perf_counter()
-    by_path[f"serve_{cfg.name}"], numbers = run_serve(cfg, shape)
+    by_path[f"serve_{cfg.name}"], numbers = run_serve(cfg, shape,
+                                                      twin=True)
     torch.cuda.empty_cache()
     numbers["profile"] = profile_serve(cfg, shape=shape)
     torch.cuda.empty_cache()
@@ -4027,14 +4367,17 @@ def train_launches(cfg, rounds, per_round, with_logged_loss):
     return {k: v * n for k, v in one.items()}
 
 
-def zoo_train_standard(cfg, shape, profile=False):
+def zoo_train_standard(cfg, shape, profile=False, twin=False):
     """``train_standard`` counted from 0: each step's launches exact (B4
-    and B3 in the forward and the remat recompute), finite losses; ms a
-    step (loop wall of steps 2.., sampling included) and peak memory;
-    with ``profile``, one more step on a fixed batch profiled (kernels,
-    busy share, B3/B4 device time). Where the path launches a kernel,
-    step 1 against the same step through the kernels' plain versions
-    (``check_step1``)."""
+    and B3 in the forward and the remat recompute), finite losses, its
+    step program captured once and replayed; ms a step (loop wall of
+    steps 2.., sampling included) and peak memory; with ``profile``, one
+    more step on a fixed batch profiled (kernels, busy share, B3/B4
+    device time); with ``twin``, the run again under ``uncaptured()``
+    ``==`` (:func:`standard_twin`) and the step program profiled too.
+    Where the path launches a kernel, step 1 against the same step
+    through the kernels' plain versions (``check_step1``)."""
+    from repro_torch.core import scanloop
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import frontend
@@ -4052,16 +4395,26 @@ def zoo_train_standard(cfg, shape, profile=False):
 
     zero_counts()
     t0 = time.perf_counter()
-    params, hist = train.train_standard(cfg, device=DEVICE, callback=on_step,
-                                        **shape)
+    with scanloop.built_programs() as recs:
+        params, hist, ost = train.train_standard(
+            cfg, device=DEVICE, callback=on_step, return_state=True, **shape)
     wall = time.perf_counter() - t0
     got = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     n_params = sum(v.numel() for v in params.values())
-    prof = None
+    programs = check_launcher_records(f"train_standard {cfg.name}", recs,
+                                      {"train_step": shape["steps"]})
+    eager = prof = prof_captured = None
+    if twin:
+        mine = dict(tree=host_tree((params, ost)), hist=hist, gnorms=gnorms)
+        del params, ost
+        eager, params, ost = standard_twin(cfg, shape, mine)
+        del mine
     if profile:
         step, opt = make_train_step(cfg, lr=shape["lr"], clip_norm=1.0)
-        st = {"p": params, "o": opt.init(params)}
+        st = {"p": params, "o": ost}
+        del params, ost
         gen = torch.Generator(device=DEVICE).manual_seed(5)
         toks = torch.randint(0, cfg.vocab_size,
                              (shape["batch"], shape["seq"] + 1),
@@ -4076,8 +4429,12 @@ def zoo_train_standard(cfg, shape, profile=False):
 
         one_step()
         prof = profile_step(one_step, f"train_standard_step_{cfg.name}")
+        if twin:
+            prof_captured = profile_step_program(
+                cfg, shape, st.pop("p"), st.pop("o"), batch)
         del st
-    del params
+    else:
+        del params, ost
     steps = [{k: b[k] - (a[k] if a else 0) for k in KERNELS}
              for a, b in zip([None] + counts, counts)]
     step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
@@ -4086,7 +4443,8 @@ def zoo_train_standard(cfg, shape, profile=False):
           + (f", frames {cfg.encdec.encoder_seq_len}" if cfg.encdec
              else "") + f"): losses "
           f"{hist}, grad norms {gnorms}; ms per step (steps 2..) {step_ms}, "
-          f"median {statistics.median(step_ms)}; peak_memory_GB={peak_gb}; "
+          f"median {statistics.median(step_ms)}; peak_memory_GB={peak_gb} "
+          f"peak_reserved_GB={reserved_gb}; "
           f"launches per step {steps} (expected {per_step}); wall_s (init "
           f"included) {wall}", flush=True)
     want = {k: v * shape["steps"] for k, v in per_step.items()}
@@ -4101,7 +4459,8 @@ def zoo_train_standard(cfg, shape, profile=False):
     return got, dict(ms_per_step=statistics.median(step_ms), step_ms=step_ms,
                      peak_memory_GB=peak_gb, losses=hist, grad_norms=gnorms,
                      launches_per_step=per_step, params=n_params,
-                     profile=prof, step1_vs_plain=step1)
+                     profile=prof, step1_vs_plain=step1, programs=programs,
+                     eager=eager, profile_captured=prof_captured)
 
 
 def zoo_train_federated(cfg, shape, codec):
@@ -4200,7 +4559,7 @@ def zoo_phase(by_path, rows, generator):
         key = f"train_{mode}_{cfg.name}_{cfg.num_layers}l" + (
             f"_{codec or 'none'}" if mode == "federated" else "")
         by_path[key], numbers[key] = (
-            zoo_train_standard(cfg, shape, profile=True)
+            zoo_train_standard(cfg, shape, profile=True, twin=True)
             if mode == "standard" else zoo_train_federated(cfg, shape, codec))
         torch.cuda.empty_cache()
         print(f"{key}: {time.perf_counter() - t:.2f} s", flush=True)
@@ -4737,7 +5096,7 @@ def main():
     check_b4_backward_memory(gen)
 
     phase("serve")
-    by_path["serve"], _ = run_serve(lm_cfg)
+    by_path["serve"], _ = run_serve(lm_cfg, twin=True)
     torch.cuda.empty_cache()
     profile_serve(lm_cfg)
     torch.cuda.empty_cache()

@@ -7,7 +7,12 @@ small FL and MAML configurations through the real drivers and
 holds the programs the drivers and engines actually build. A program is
 CACHED when it is kept across calls: admitted to
 ``scanloop.cached_program`` (the drivers), or held by its engine
-(``scan_rounds``; its ``cache_key`` family is ``"scan_rounds"``):
+(``scan_rounds``; its ``cache_key`` family is ``"scan_rounds"``). Every
+other program is built per call: the drivers' streaming and host-function
+programs, and the launchers' (serving's prefill and decode, training's
+step and federated round), which the audit runs at a reduced size
+(:func:`_tiny_launchers`) beside the drivers. JX1 and JX4 concern what
+may be CACHED; JX3 and JX5 hold for every program:
 
 JX1  no function that failed the capture probe inside a CACHED program:
      a sampler or target that runs on the host before each replay
@@ -19,14 +24,14 @@ JX4  no streaming telemetry inside a CACHED program: a streaming round's
      rows are read and emitted to host sinks after each replay, so the
      drivers and engines build streaming programs per call and never
      keep them.
-JX3  donation honoured (the card only): the replays of an admitted
-     captured program found every donated buffer at the address its
+JX3  donation honoured (the card only): the replays of a captured
+     program found every donated buffer at the address its
      graph writes, and whenever a caller handed back the carry of the
      last replay, that carry WAS those buffers
      (``ProgramRecord.in_place``): a carry handed out as a copy is copied
      back into the buffers every round, two generations of the
      population alive at once.
-JX5  the async carry donated: an admitted program whose arguments hold
+JX5  the async carry donated: a program whose arguments hold
      the ``AsyncState`` (per-agent clocks and per-lane wire ages,
      ``ProgramRecord.async_argnums``) lists them in ``donate_argnums``.
 
@@ -48,28 +53,28 @@ def audit_programs(records) -> List[Finding]:
     (:class:`repro_torch.core.scanloop.ProgramRecord`)."""
     findings: List[Finding] = []
     for rec in records:
-        if rec.cache_key is None:
-            continue                       # built per call: out of scope
-        family = rec.cache_key[0]
+        held = rec.cache_key is not None
+        family = rec.cache_key[0] if held else None
         kept = ("held by its engine" if family == "scan_rounds"
                 else "admitted to scanloop.cached_program")
-        if rec.host_fns:
+        where = f"cache key {family!r}" if held else "built per call"
+        if held and rec.host_fns:
             findings.append(Finding(
                 "JX1", LABEL, 0,
-                f"program {rec.name!r} (cache key {family!r}) holds "
+                f"program {rec.name!r} ({where}) holds "
                 f"{list(rec.host_fns)}, which failed the capture probe, "
                 f"yet was {kept} — host round functions must be built per "
                 "call", scope=rec.name))
-        if rec.streaming:
+        if held and rec.streaming:
             findings.append(Finding(
                 "JX4", LABEL, 0,
-                f"streaming-telemetry program {rec.name!r} (cache key "
-                f"{family!r}) was {kept} — streaming programs must be "
+                f"streaming-telemetry program {rec.name!r} ({where}) was "
+                f"{kept} — streaming programs must be "
                 "built per call", scope=rec.name))
         if rec.captured and rec.in_place is False:
             findings.append(Finding(
                 "JX3", LABEL, 0,
-                f"captured program {rec.name!r} (cache key {family!r}): a "
+                f"captured program {rec.name!r} ({where}): a "
                 "replay found a donated buffer moved, or was handed its "
                 "last carry as a copy of the buffers its graph writes — "
                 "donation not honoured", scope=rec.name))
@@ -77,12 +82,46 @@ def audit_programs(records) -> List[Finding]:
         if undonated:
             findings.append(Finding(
                 "JX5", LABEL, 0,
-                f"program {rec.name!r} (cache key {family!r}): arguments "
+                f"program {rec.name!r} ({where}): arguments "
                 f"{undonated} hold the AsyncState (clock, ages) but "
                 f"donate_argnums={tuple(rec.donate_argnums)} leaves them "
                 "undonated — the async carry must be updated in place like "
                 "the params", scope=rec.name))
     return findings
+
+
+def _tiny_launchers(device) -> list:
+    """The four launcher programs at a reduced size on ``device``, their
+    records returned: ``serve`` of the hybrid (prefill and 3 decode
+    steps: B3 and B4 on the card), ``train_standard`` of the hybrid (2
+    steps, their backward) and ``train_federated`` of granite (int8+ef on
+    the sparse plan, links fading and agents asleep, buffered telemetry,
+    2 rounds at chunk 2). Their output is discarded."""
+    import contextlib
+    import io
+
+    from repro_torch import telemetry as telemetry_lib
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import scanloop
+    from repro_torch.core import topology as topo_lib
+    from repro_torch.launch import serve, train
+
+    small = dict(d_model=64, vocab=128)
+    hybrid = reduced(get_arch("recurrentgemma-9b"), num_layers=3, **small)
+    dense = reduced(get_arch("granite-8b"), **small)
+    with scanloop.built_programs() as records, \
+            contextlib.redirect_stdout(io.StringIO()):
+        serve.serve(hybrid, batch=2, prompt_len=8, gen=4, device=device,
+                    verbose=False)
+        train.train_standard(hybrid, steps=2, batch=2, seq=8, lr=1e-3,
+                             device=device)
+        train.train_federated(
+            dense, rounds=2, agents=2, tasks=1, local_steps=1, batch=1,
+            seq=8, lr=1e-3, consensus_plan="sparse", codec="int8",
+            dropout_p=0.3, availability=topo_lib.AgentProcess.bernoulli(
+                0.7, seed=1), tau=2, chunk=2,
+            telemetry=telemetry_lib.Telemetry(), device=device)
+    return records
 
 
 def _tiny_drivers(device):
@@ -167,8 +206,10 @@ def _tiny_drivers(device):
 
 
 def run_program_audit(device="cpu") -> List[Finding]:
-    """The programs layer: :func:`_tiny_drivers` on ``device``, then
-    :func:`audit_programs` over every live program."""
+    """The programs layer: :func:`_tiny_drivers` and
+    :func:`_tiny_launchers` on ``device``, then :func:`audit_programs`
+    over every live program and the launchers' records."""
     from repro_torch.core import scanloop
     engines = _tiny_drivers(device)        # noqa: F841 (keeps programs)
-    return audit_programs(scanloop.registered_programs())
+    launchers = _tiny_launchers(device)
+    return audit_programs(scanloop.registered_programs() + launchers)

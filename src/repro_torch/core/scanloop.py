@@ -11,18 +11,27 @@ program; here a round of fixed shapes is recorded ONCE as a CUDA graph
 drivers still read the device once per chunk. The pieces:
 
 * :func:`donating_graph` — the counterpart of ``donating_jit``. On the
-  card the first call of each argument signature (a *variant*) warms the
-  round up on a side stream, then captures one call of ``fn`` into a
-  graph with static input and output buffers; later calls copy their
-  arguments into the static inputs and replay. DONATION: ``fn`` returns
+  card the first call of each argument signature (a *variant*) runs
+  ``fn`` eagerly on a side stream, on the inputs the graph will read:
+  that run IS the call (its carry lands in the donated buffers, its
+  ``ys`` and generator states are the call's), and its first-use work
+  (library loads, cached device tables, cuBLAS workspaces) happens there,
+  never inside the capture. Then one call of ``fn`` is captured into a
+  graph with static input and output buffers, without being replayed;
+  later calls copy their arguments into the static inputs and replay.
+  DONATION: ``fn`` returns
   ``(carry, ys)``, ``carry`` holding one new value per donated argument;
   the graph writes each donated leaf back into its static input buffer,
   so the carry is updated in place round after round and a call whose
-  donated arguments ARE those buffers copies nothing. The DONATION
+  donated arguments ARE those buffers copies nothing. ``fn`` may also
+  write the new carry into the donated buffers itself (``copy_``, as the
+  training steps do: no second copy of a model inside the graph). The
+  DONATION
   INVARIANT: a donated argument is dead after the call (the first capture
   adopts its tensors as the buffers). The drivers :func:`own` a caller's
   pytree before the first round, so the caller's params stay valid across
-  driver calls, and copy the carry out once at the end. ``ys`` live in
+  driver calls, and copy the carry out once at the end. ``ys`` of a
+  replay live in
   the program's own graph memory pool, shared by its variants, and are
   valid until its next replay: the drivers copy them out at once. A
   ``torch.Generator`` argument is replaced inside the graph by the
@@ -53,7 +62,9 @@ drivers still read the device once per chunk. The pieces:
   (:func:`trim_program_cache`). :data:`TRACE_COUNTS` counts the
   variants built per driver family (``"fl_chunk"``, ``"maml_chunk"``):
   captures on the card, builds on the CPU.
-* THE BYTE RULE. A program whose graphs would hold more than
+* THE BYTE RULE. A program HELD across calls (admitted to
+  :func:`cached_program`, or held by its engine: ``cache_key`` set) whose
+  graphs would hold more than
   :data:`PROGRAM_CACHE_BYTES` on their own is never replayed: it becomes
   an EAGER program for good (:data:`OVER_BYTE_CAP`), decided once per
   program, before its first capture where :func:`held_bytes_lower_bound`
@@ -62,7 +73,24 @@ drivers still read the device once per chunk. The pieces:
   graph and pool are then freed. It keeps its place in the cache, so
   later calls of its key hit, probe nothing, capture nothing and run
   the round eagerly. The rule is decided on every device (the CPU runs
-  eagerly anyway, but says why), never under :func:`uncaptured`.
+  eagerly anyway, but says why), never under :func:`uncaptured`. A
+  program built and dropped within one call (the launchers' programs,
+  :mod:`repro_torch.launch`, as the JAX package's launchers build their
+  ``jax.jit`` programs per call; the drivers' streaming and host-function
+  programs) holds nothing between calls and is never under the rule;
+  ``cache_stats()["per_call_held_bytes"]`` reports what the live ones
+  hold.
+* KEPT ARGUMENTS. ``keep_argnums`` names arguments a program only
+  reads, such as served params: the capture uses the caller's own
+  tensors (or module) as static inputs, by reference, with no clone, so
+  a replay reads them in place as ``jax.jit`` reads a non-donated
+  argument. A replay handed another object, or a kept tensor whose
+  storage moved, raises naming the program and the leaf (copying into
+  the captured tensor would overwrite the caller's). The program does
+  not own them: ``held_bytes`` and :func:`held_bytes_lower_bound` count
+  them as 0.
+* :func:`built_programs` collects the records of the programs a block
+  builds, for audits and tests of programs that die with their call.
 * :func:`first_hit` and :func:`to_host` — t_i from a chunk's reached
   flags, and the drivers' one device→host read of a chunk.
 """
@@ -110,13 +138,15 @@ class ProgramRecord:
     ``python -m repro_torch.analysis --layer programs`` walks
     :func:`registered_programs`: no admitted program (``cache_key`` set)
     may hold a function that failed the probe (``host_fns``, JX1) or
-    stream telemetry (``streaming``, JX4); the replays of an admitted
-    captured program must honour donation (``in_place``, JX3); and an
-    argument holding the ``AsyncState`` must be donated (``async_argnums``
-    within ``donate_argnums``, JX5)."""
+    stream telemetry (``streaming``, JX4); the replays of a captured
+    program must honour donation (``in_place``, JX3); and an argument
+    holding the ``AsyncState`` must be donated (``async_argnums`` within
+    ``donate_argnums``, JX5)."""
     name: str
     fn: Callable
     donate_argnums: tuple
+    #: arguments read in place, never cloned or owned (module docstring)
+    keep_argnums: tuple = ()
     #: whether any variant has been captured into a CUDA graph
     captured: bool = False
     #: why calls run eagerly ("cpu", "uncaptured()"), None while every
@@ -129,8 +159,11 @@ class ProgramRecord:
     streaming: bool = False
     #: kernel launches of one replay, by wrapper, per variant label
     launches_per_replay: dict = dataclasses.field(default_factory=dict)
+    #: a capture's call is its variant's first call, run eagerly just
+    #: before the capture; every later call of the variant replays
     captures: int = 0
     replays: int = 0
+    #: the captures alone, not the first calls they follow
     capture_seconds: float = 0.0
     #: calls that ran ``fn`` eagerly (the CPU, :func:`uncaptured`, the
     #: byte rule)
@@ -160,6 +193,9 @@ _PROGRAM_REFS: list = []
 #: ``ProgramRecord.why_uncaptured`` of a program under the byte rule
 OVER_BYTE_CAP = "held_bytes above PROGRAM_CACHE_BYTES"
 
+#: the lists :func:`built_programs` blocks collect records into
+_COLLECTING: list = []
+
 
 def _live_programs():
     """Every :func:`donating_graph` program still referenced. Dead
@@ -184,6 +220,20 @@ def registered_programs():
 def clear_program_registry():
     """Forget every registered program (tests)."""
     _PROGRAM_REFS.clear()
+
+
+@contextlib.contextmanager
+def built_programs():
+    """Collect the :class:`ProgramRecord` of every program built inside the
+    block, in order, into the list it yields. The records outlive their
+    programs (a launcher's programs die with its call), and hold no graph
+    or device buffer of their own."""
+    records = []
+    _COLLECTING.append(records)
+    try:
+        yield records
+    finally:
+        _COLLECTING.remove(records)
 
 
 _UNCAPTURED = [0]
@@ -217,12 +267,37 @@ def own(tree):
                            for x in leaves], spec)
 
 
-def _leaf_signature(x):
+def _leaf_signature(x, kept=False):
     if isinstance(x, torch.Tensor):
         return ("T", tuple(x.shape), str(x.dtype), str(x.device))
     if isinstance(x, torch.Generator):
         return ("G", str(x.device))
+    if kept:
+        # a kept module is read by reference: another object of its type
+        # is the same signature, refused at replay
+        return ("K", type(x).__name__)
     return ("C", type(x).__name__, x)
+
+
+def _kept_storage(x):
+    """The storage addresses a graph captured with the kept leaf ``x``
+    reads: its own, or every parameter's and buffer's of a module."""
+    if isinstance(x, torch.Tensor):
+        return (x.data_ptr(),)
+    if isinstance(x, torch.nn.Module):
+        return tuple(t.data_ptr() for t in (*x.parameters(), *x.buffers()))
+    return ()
+
+
+def _arg_positions(args, argnums):
+    """Flat leaf positions of the arguments ``argnums``, in order."""
+    pos, start = [], 0
+    for i, a in enumerate(args):
+        n = len(tree_flatten(a)[0])
+        if i in argnums:
+            pos.extend(range(start, start + n))
+        start += n
+    return pos
 
 
 def tree_signature(tree):
@@ -399,15 +474,18 @@ def _tensor_bytes(tensors) -> int:
     return sum(seen.values())
 
 
-def held_bytes_lower_bound(args, donate_argnums=()) -> int:
+def held_bytes_lower_bound(args, donate_argnums=(), keep_argnums=()) -> int:
     """The least device bytes a program capturing one call of ``args``
     holds between calls, from the tensors' shapes and dtypes alone: the
     donated carry, which the capture adopts (each tensor once), and a
-    clone of every other tensor argument, its static inputs. The graph
+    clone of every other tensor argument, its static inputs. Kept
+    arguments (``keep_argnums``) are the caller's and count 0. The graph
     pool's segments come on top and are known only once a capture has
     measured them (``ProgramRecord.held_bytes``)."""
     total, seen = 0, set()
     for i, a in enumerate(args):
+        if i in keep_argnums:
+            continue
         for x in tree_flatten(a)[0]:
             if not isinstance(x, torch.Tensor):
                 continue
@@ -437,6 +515,18 @@ class _LastOp:
         self.mode = Mode()
 
 
+def _write_carry(fn_name, buffers, carry_out):
+    """Write ``fn``'s new carry into the donated buffers (a leaf that IS
+    its buffer, written in place by ``fn``, is left as it is)."""
+    out_flat = tree_flatten(carry_out)[0]
+    if len(out_flat) != len(buffers):
+        raise ValueError(f"{fn_name} returned {len(out_flat)} carry leaves "
+                         f"for {len(buffers)} donated ones")
+    for buf, new in zip(buffers, out_flat):
+        if isinstance(buf, torch.Tensor) and new is not buf:
+            buf.copy_(new)
+
+
 class _Variant:
     """One captured signature of a program: the graph, its static inputs
     (flattened like the arguments), its outputs and the launches its
@@ -455,17 +545,25 @@ class _Variant:
         self.ys_spec = None
         self.launches = {}
         self.gens = []          # (argument position, private generator)
+        #: (flat position, storage addresses) of the kept leaves
+        self.kept = []
 
 
 class Program:
     """A :func:`donating_graph` program (see the module docstring)."""
 
-    def __init__(self, fn, donate_argnums=(), name=None, count_traces=True):
+    def __init__(self, fn, donate_argnums=(), name=None, count_traces=True,
+                 keep_argnums=()):
         self.fn = fn
         self.donate_argnums = tuple(donate_argnums)
+        self.keep_argnums = tuple(keep_argnums)
+        if set(self.keep_argnums) & set(self.donate_argnums):
+            raise ValueError(f"arguments {self.keep_argnums} kept and "
+                             f"{self.donate_argnums} donated overlap")
         self.name = name or getattr(fn, "__name__", repr(fn))
         self.count_traces = count_traces
-        self.record = ProgramRecord(self.name, fn, self.donate_argnums)
+        self.record = ProgramRecord(self.name, fn, self.donate_argnums,
+                                    self.keep_argnums)
         self._variants = {}
         self._carry = {}        # donated args' signature -> their buffers
         self._seen = set()      # variant signatures built (TRACE_COUNTS)
@@ -487,7 +585,10 @@ class Program:
 
     def __call__(self, *args):
         flat, spec = tree_flatten(args)
-        sig = (spec, tuple(_leaf_signature(x) for x in flat))
+        kept = (set(_arg_positions(args, self.keep_argnums))
+                if self.keep_argnums else ())
+        sig = (spec, tuple(_leaf_signature(x, i in kept)
+                           for i, x in enumerate(flat)))
         new = sig not in self._seen
         if new:
             self._seen.add(sig)
@@ -500,10 +601,12 @@ class Program:
         if _UNCAPTURED[0]:
             return self._eager("uncaptured()", args)
         variant = self._variants.get(sig)
-        if variant is None and (new or device.type == "cuda"):
+        held = rec.cache_key is not None
+        if variant is None and held and (new or device.type == "cuda"):
             # the byte rule, before a capture: the carry and static inputs
             # alone, beside what the program's other variants hold
-            predicted = (held_bytes_lower_bound(args, self.donate_argnums)
+            predicted = (held_bytes_lower_bound(args, self.donate_argnums,
+                                                self.keep_argnums)
                          + rec.held_bytes)
             if _above_cap(predicted):
                 self.make_eager(predicted)
@@ -511,13 +614,16 @@ class Program:
         if device.type != "cuda":
             return self._eager(device.type, args)
         if variant is None:
-            variant = self._capture(args, flat, spec, sig)
-            if _above_cap(rec.held_bytes):
-                # measured by the capture: the graph is never replayed
+            variant, out = self._capture(args, flat, spec, sig)
+            if held and _above_cap(rec.held_bytes):
+                # measured by the capture: the graph is never replayed,
+                # and this call ran eagerly before it
                 self.make_eager(rec.held_bytes)
-                return self._eager(OVER_BYTE_CAP, args)
+                rec.eager_calls += 1
+                return out
             self._variants[sig] = variant
             trim_program_cache()
+            return out
         return self._replay(variant, args, flat)
 
     def _eager(self, why, args):
@@ -548,31 +654,18 @@ class Program:
             torch.cuda.empty_cache()
 
     # -- capture ----------------------------------------------------------------
-    def _donated_positions(self, args):
-        """Flat leaf positions of the donated arguments, in order."""
-        pos, start = [], 0
-        for i, a in enumerate(args):
-            n = len(tree_flatten(a)[0])
-            if i in self.donate_argnums:
-                pos.extend(range(start, start + n))
-            start += n
-        return pos
-
-    def _capture(self, args, flat, spec, sig):
-        device = self._device(flat)
-        donated = self._donated_positions(args)
-        dsig = tuple(sig[1][i] for i in donated)
-        carry = self._carry.get(dsig)
-        if carry is None:
-            # the first capture ADOPTS the donated tensors as the buffers
-            carry = [flat[i] for i in donated]
-            self._carry[dsig] = carry
-        label = f"variant {len(self._variants)}"
-        v = _Variant(label, donated, carry)
+    def _static_inputs(self, v, flat, kept):
+        """The graph's inputs, flattened like the arguments, into ``v``:
+        the carry buffers at the donated positions, the caller's own
+        tensor or module at the kept positions (by reference), a clone of
+        every other tensor, a private generator per generator."""
         static = []
         for i, x in enumerate(flat):
-            if i in donated:
-                static.append(carry[donated.index(i)])
+            if i in v.donated:
+                static.append(v.carry[v.donated.index(i)])
+            elif i in kept:
+                static.append(x)
+                v.kept.append((i, _kept_storage(x)))
             elif isinstance(x, torch.Tensor):
                 static.append(x.clone())
                 self._static_bytes += _tensor_bytes([static[-1]])
@@ -588,21 +681,42 @@ class Program:
             else:
                 static.append(x)
         v.static = static
+        return static
+
+    def _capture(self, args, flat, spec, sig):
+        device = self._device(flat)
+        donated = _arg_positions(args, self.donate_argnums)
+        kept = set(_arg_positions(args, self.keep_argnums))
+        dsig = tuple(sig[1][i] for i in donated)
+        carry = self._carry.get(dsig)
+        if carry is None:
+            # the first capture ADOPTS the donated tensors as the buffers
+            carry = [flat[i] for i in donated]
+            self._carry[dsig] = carry
+        v = _Variant(f"variant {len(self._variants)}", donated, carry)
+        static = self._static_inputs(v, flat, kept)
         static_args = tree_unflatten(static, spec)
         stream = _capture_stream(device)
-        t0 = time.perf_counter()
-        counts = launch_counts()
-        # warm-up: first-use work (library loads, cached device tables,
-        # cuBLAS workspaces) happens here, never inside the capture; the
-        # round it computes is thrown away and leaves no trace
+        fn_name = getattr(self.fn, "__qualname__", self.name)
+        # the call itself, eagerly on the side stream, on the graph's own
+        # inputs: first-use work (library loads, cached device tables,
+        # cuBLAS workspaces) happens here, never inside the capture
         for i, g in v.gens:
             g.set_state(flat[i].get_state())
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            self.fn(*static_args)
+            carry_out, ys = self.fn(*static_args)
+            _write_carry(fn_name, carry, carry_out)
+        del carry_out
+        for i, g in v.gens:
+            flat[i].set_state(g.get_state())
         torch.cuda.current_stream(device).wait_stream(stream)
         torch.cuda.synchronize(device)
-        _set_launch_counts(counts)
+        # fresh containers for the capture: ``fn`` may consume the dicts
+        # it is given (the optimizers' ``apply`` pops their leaves)
+        static_args = tree_unflatten(static, spec)
+        t0 = time.perf_counter()
+        counts = launch_counts()
         graph = torch.cuda.CUDAGraph()
         for i, g in v.gens:
             g.set_state(flat[i].get_state())
@@ -612,7 +726,6 @@ class Program:
                     "cannot register a generator with a CUDA graph")
             graph.register_generator_state(g)
         last = _LastOp()
-        fn_name = getattr(self.fn, "__qualname__", self.name)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         # while a capture is underway the allocator never returns cached
@@ -632,16 +745,8 @@ class Program:
                 graph.capture_begin(pool=self._pool)
                 try:
                     with last.mode:
-                        carry_out, ys = self.fn(*static_args)
-                        out_flat = tree_flatten(carry_out)[0]
-                        if len(out_flat) != len(donated):
-                            raise ValueError(
-                                f"{fn_name} returned {len(out_flat)} carry "
-                                f"leaves for {len(donated)} donated ones")
-                        for buf, new in zip(carry, out_flat):
-                            if isinstance(buf, torch.Tensor) \
-                                    and new is not buf:
-                                buf.copy_(new)
+                        graph_carry, graph_ys = self.fn(*static_args)
+                        _write_carry(fn_name, carry, graph_carry)
                 except Exception as e:
                     try:
                         graph.capture_end()
@@ -664,20 +769,32 @@ class Program:
         v.launches = {n: after[n] - counts[n] for n in counts}
         _set_launch_counts(counts)
         v.graph = graph
-        v.ys, v.ys_spec = tree_flatten(ys)
+        v.ys, v.ys_spec = tree_flatten(graph_ys)
         rec = self.record
         rec.captured = True
         rec.why_uncaptured = None
         rec.captures += 1
         rec.capture_seconds += time.perf_counter() - t0
-        rec.launches_per_replay[label] = dict(v.launches)
+        rec.launches_per_replay[v.label] = dict(v.launches)
         rec.held_bytes = (sum(_tensor_bytes(c) for c in self._carry.values())
                           + self._static_bytes + self._pool_bytes)
-        return v
+        return v, self._result(v, args, ys)
 
     # -- replay -----------------------------------------------------------------
+    def _check_kept(self, v, flat):
+        """Raise unless every kept leaf of ``flat`` is the object ``v``
+        was captured with, its storage where the graph reads it."""
+        for i, ptrs in v.kept:
+            if flat[i] is not v.static[i] or _kept_storage(flat[i]) != ptrs:
+                raise RuntimeError(
+                    f"program {self.name!r}: kept argument leaf {i} "
+                    f"({type(flat[i]).__name__}) is not the one its graph "
+                    "was captured with, or its storage moved; a kept "
+                    "argument is read in place and never copied into")
+
     def _replay(self, v, args, flat):
         rec = self.record
+        self._check_kept(v, flat)
         moved = [i for i, (b, p) in enumerate(zip(v.carry, v.carry_ptrs))
                  if p is not None and b.data_ptr() != p]
         if moved:
@@ -695,7 +812,7 @@ class Program:
                 flat[i] is b for i, b in zip(v.donated, v.carry))
         for x, s in zip(flat, v.static):
             if isinstance(x, torch.Tensor) and x is not s:
-                s.copy_(x)
+                s.copy_(x)          # kept leaves are ``s`` itself
         for i, g in v.gens:
             g.set_state(flat[i].get_state())
         v.graph.replay()
@@ -708,10 +825,15 @@ class Program:
         rec.replays += 1
         if rec.in_place is None:
             rec.in_place = True
+        return self._result(v, args, tree_unflatten(v.ys, v.ys_spec))
+
+    def _result(self, v, args, ys):
+        """``(carry, ys)`` of a call, remembering the carry handed out
+        (the next call's donation check)."""
         carry = self._hand_out(v, args)
         self._handed = [weakref.ref(x) if isinstance(x, torch.Tensor)
                         else None for x in tree_flatten(carry)[0]]
-        return carry, tree_unflatten(v.ys, v.ys_spec)
+        return carry, ys
 
     def _hand_out(self, v, args):
         """The donated arguments after a replay: their buffers, updated in
@@ -721,17 +843,21 @@ class Program:
 
 
 def donating_graph(fn: Callable, donate_argnums=(), *,
-                   name=None, count_traces: bool = True) -> Program:
+                   name=None, count_traces: bool = True,
+                   keep_argnums=()) -> Program:
     """A :class:`Program` running ``fn`` as one CUDA graph per argument
     signature (see the module docstring). ``fn(*args) -> (carry, ys)``,
     ``carry`` a tuple with one new value per ``donate_argnums`` entry, in
-    order, shaped like that argument. Every program is registered for
+    order, shaped like that argument. ``keep_argnums``: arguments read in
+    place, by reference. Every program is registered for
     ``repro_torch.analysis`` (:func:`registered_programs`).
     ``count_traces=False`` keeps its builds out of :data:`TRACE_COUNTS`
     (a program the JAX package's counterpart never traces through its
     program cache: ``ConsensusEngine.scan_rounds``)."""
-    prog = Program(fn, donate_argnums, name, count_traces)
+    prog = Program(fn, donate_argnums, name, count_traces, keep_argnums)
     _PROGRAM_REFS.append(weakref.ref(prog))
+    for records in _COLLECTING:
+        records.append(prog.record)
     return prog
 
 
@@ -773,9 +899,12 @@ def cache_stats() -> dict:
     ``capacity``, ``held_bytes`` / ``byte_capacity``,
     ``registered_programs``, ``trace_counts`` (a dict copy of
     :data:`TRACE_COUNTS`); and over every live program, cached or not,
-    ``eager_by_byte_rule`` (how many run eagerly under the byte rule)
-    and ``scan_rounds_held_bytes`` (the bytes the engines' own
-    ``scan_rounds`` programs hold, outside the cache)."""
+    ``eager_by_byte_rule`` (how many run eagerly under the byte rule),
+    ``scan_rounds_held_bytes`` (the bytes the engines' own
+    ``scan_rounds`` programs hold, outside the cache) and
+    ``per_call_held_bytes`` (the bytes the programs built per call, such
+    as the launchers', hold while their call runs, outside the cache and
+    the byte rule)."""
     live = registered_programs()
     return {
         "hits": CACHE_STATS["hits"],
@@ -793,6 +922,8 @@ def cache_stats() -> dict:
         "scan_rounds_held_bytes": sum(
             r.held_bytes for r in live
             if r.cache_key is not None and r.cache_key[0] == "scan_rounds"),
+        "per_call_held_bytes": sum(r.held_bytes for r in live
+                                   if r.cache_key is None),
     }
 
 
@@ -850,14 +981,17 @@ def _held(program) -> int:
 def trim_program_cache():
     """Apply the byte rule to every live program above
     :data:`PROGRAM_CACHE_BYTES` on its own (cached or not: it becomes
-    eager and keeps its cache entry), then evict the least recently used
-    until the cache fits :data:`PROGRAM_CACHE_SIZE` and the byte cap.
-    Runs on every admission and after every capture. An evicted program
-    lives on while a driver still runs it."""
+    eager and keeps its cache entry; a program built per call is
+    exempt), then
+    evict the least recently used until the cache fits
+    :data:`PROGRAM_CACHE_SIZE` and the byte cap. Runs on every admission
+    and after every capture. An evicted program lives on while a driver
+    still runs it."""
     cap = PROGRAM_CACHE_BYTES
     if cap is not None:
         for p in _live_programs():
-            if p.record.held_bytes > cap:
+            if p.record.cache_key is not None \
+                    and p.record.held_bytes > cap:
                 p.make_eager(p.record.held_bytes)
     while len(_program_cache) > PROGRAM_CACHE_SIZE or (
             cap is not None and _program_cache
@@ -894,5 +1028,5 @@ __all__ = [
     "get_cached_program", "cached_program", "clear_program_cache",
     "PROGRAM_CACHE_BYTES", "trim_program_cache",
     "first_hit", "to_host", "launch_counts", "COUNTED_KERNELS",
-    "OVER_BYTE_CAP", "held_bytes_lower_bound",
+    "OVER_BYTE_CAP", "held_bytes_lower_bound", "built_programs",
 ]

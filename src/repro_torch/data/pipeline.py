@@ -75,7 +75,8 @@ class TaskTokenDistribution:
         """A Markov rollout of task ``task_id`` → (tokens, labels) int64
         (B, S) on ``generator``'s device."""
         logP = self.log_tables(generator.device)
-        task = torch.tensor(int(task_id), device=generator.device)
+        task = torch.full((), int(task_id), dtype=torch.int64,
+                          device=generator.device)
         return self._rollout(generator, logP, task, batch, seq_len)
 
     def sample_traced(self, generator, task_id, batch: int, seq_len: int):

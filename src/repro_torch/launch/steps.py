@@ -29,7 +29,7 @@ def value_and_grad(loss, params, *args):
 
 
 def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0,
-                    mesh=None, specs=None):
+                    mesh=None, specs=None, in_place: bool = False):
     """(params, opt_state, batch{tokens, labels, frames (encdec)}) ->
     (params, opt_state, {"loss", "grad_norm"}): Adam on the gradient
     clipped to a global norm of ``clip_norm``. ``params`` is the model's
@@ -39,7 +39,9 @@ def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0,
     optimizer's ``apply`` (:mod:`repro_torch.optim.optimizers`), so its
     peak is about the f32 params, Adam's two moments and the gradient (4×
     the params), not old and new of each (8×). The numbers are those of
-    clipping the whole gradient and updating every leaf at once.
+    clipping the whole gradient and updating every leaf at once. With
+    ``in_place`` the new params and state are written into the given
+    tensors (the same bits): a captured step's donated buffers.
 
     On a data x model ``mesh`` (every LM family) ``params`` are
     this rank's shards (``specs``: the table's,
@@ -65,7 +67,8 @@ def make_train_step(cfg, *, lr: float = 3e-4, clip_norm: float = 1.0,
                 sum_over_data(x, mesh)
         scale, gnorm = clip_scale(
             g, clip_norm, norm=None if tp is None else tp.grad_norm(g))
-        params, opt_state = opt.apply(g, opt_state, params, scale)
+        params, opt_state = opt.apply(g, opt_state, params, scale,
+                                      in_place=in_place)
         return params, opt_state, {"loss": l, "grad_norm": gnorm}
 
     return train_step, opt
@@ -108,7 +111,10 @@ def make_prefill_step(cfg, *, mesh=None, specs=None):
 def make_decode_step(cfg, *, mesh=None, specs=None):
     """(params, caches, batch{tokens (B, 1), cache_index}) -> (greedy next
     token (B, 1) int32, caches); on a ``mesh`` as
-    :func:`make_prefill_step`."""
+    :func:`make_prefill_step`. ``cache_index`` is a 0-d int32 tensor on
+    the device, as the reference's ``jnp.int32(prompt_len + i)`` (read
+    there, so one captured step serves every position), or a Python
+    int (the same bits)."""
     model = get_model(cfg)
     tp = _view(mesh, specs)
 
@@ -202,7 +208,8 @@ def lower_step(cfg, mesh, shape, *, lr: float = 3e-4):
     this rank's shapes (params by the table, Adam's state mirroring them,
     caches by the table, the batch over the data axes). ``step(*inputs)``
     runs it. The decode position (``cache_index``) is ``seq_len − 1``, a
-    Python int: the port's decode step reads the position on the host.
+    Python int (a ``meta`` tensor has no value to compute positions
+    from).
     The JAX package's ``lower_step`` returns a lowered XLA program; eager
     PyTorch runs the step instead (:mod:`repro_torch.launch.dryrun`)."""
     p_abs = abstract_params(cfg)

@@ -22,6 +22,15 @@ leaf (the transformer's ``blocks.*`` leaves are (K, L, ...), the hybrid's
 ``periods.*`` (K, n_periods, ...), xLSTM's per-layer leaves (K, ...)), so
 each codec leaf, its scale and its B1/B2 launch are the JAX package's.
 
+The standard step and the federated round are
+:func:`repro_torch.core.scanloop.donating_graph` programs built per call,
+the counterparts of the JAX package's ``jax.jit`` step and its donating
+round loop: on the card each is captured once into a CUDA graph and
+replayed (params and optimizer state, or the population, its codec state
+and the async clocks, donated: updated in place; the batch, or the
+round's ``t``, link and activity rows, static inputs); on the CPU, under
+``scanloop.uncaptured()`` and on a meshed engine they run eagerly.
+
 Usage (on the card; ``--device cpu --reduced`` for a CPU-sized run):
     PYTHONPATH=src python -m repro_torch.launch.train --mode federated \\
         --agents 4 --tasks 2 --rounds 3 --consensus-plan sparse
@@ -40,7 +49,7 @@ from repro_torch.comms import resolve_codec, select_codec
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core import energy, scanloop
 from repro_torch.core import topology as topo_lib
-from repro_torch.core.engine import (PLAN_ALIASES, PLAN_KINDS, AsyncState,
+from repro_torch.core.engine import (PLAN_ALIASES, PLAN_KINDS,
                                      ConsensusEngine, where_active)
 from repro_torch.core.protocol import stage_generators
 from repro_torch.data import TaskTokenDistribution
@@ -70,33 +79,56 @@ def init_params(cfg, generator, device):
 
 def train_standard(cfg, *, steps: int, batch: int, seq: int, lr: float,
                    log_every: int = 5, seed: int = 0, device="cuda",
-                   callback=None):
+                   callback=None, return_state: bool = False):
     """``steps`` Adam steps (gradient clipped to norm 1) on task 0's token
     stream; an encoder-decoder also gets a batch of stub audio frames
     each step. ``callback(t, params, metrics)`` runs after each step.
-    Returns ``(params, loss history)``."""
+    Returns ``(params, loss history)``, and Adam's state last with
+    ``return_state=True``."""
     repro_torch.set_f32_matmul()
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device)
-    step, opt = make_train_step(cfg, lr=lr, clip_norm=1.0)
-    opt_state = opt.init(params)
+    step = train_step_program(cfg, lr=lr)
+    opt_state = step.opt.init(params)
     dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=1)
     hist = []
     for t in range(steps):
+        # sampled outside the step, as the reference does
         toks, labels = dist.sample(gen, 0, batch, seq)
         bd = {"tokens": toks, "labels": labels}
         if cfg.family == "encdec":
             bd["frames"] = frontend.audio_frame_embeddings(gen, cfg, batch,
                                                            device=device)
         t0 = time.time()
-        params, opt_state, m = step(params, opt_state, bd)
+        (params, opt_state), m = step(params, opt_state, bd)
         hist.append(float(m["loss"]))
         if callback is not None:
             callback(t, params, m)
         if t % log_every == 0:
             print(f"step {t:4d}  loss {hist[-1]:.4f}  gnorm "
                   f"{float(m['grad_norm']):.3f}  {time.time() - t0:.2f}s")
+    if return_state:
+        return params, hist, opt_state
     return params, hist
+
+
+def train_step_program(cfg, *, lr: float):
+    """:func:`make_train_step` (Adam, gradient clipped to norm 1) as the
+    launcher program ``"train_step"``: ``(params, opt_state, batch) ->
+    ((params, opt_state), {"loss", "grad_norm"})``, params and optimizer
+    state donated and updated in place (``in_place``: no second copy of
+    the model and its moments inside the graph). Its ``opt`` attribute is
+    the optimizer."""
+    step, opt = make_train_step(cfg, lr=lr, clip_norm=1.0, in_place=True)
+
+    def body(params, opt_state, batch):
+        params, opt_state, m = step(params, opt_state, batch)
+        return (params, opt_state), m
+
+    prog = scanloop.donating_graph(body, donate_argnums=(0, 1),
+                                   name="train_step")
+    prog.opt = opt
+    return prog
 
 
 def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
@@ -172,7 +204,10 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device)
     round_gens = stage_generators(gen, rounds)
-    stacked = {n: x.expand((agents,) + x.shape) for n, x in params.items()}
+    # one row per agent, not a broadcast view: the rounds write the local
+    # steps into the population in place (its buffers, donated)
+    stacked = {n: x.expand((agents,) + x.shape).clone()
+               for n, x in params.items()}
     dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=tasks)
     task_grid = (torch.arange(agents, device=device) // per)[:, None].expand(
         agents, local_steps)
@@ -203,8 +238,14 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
     stream = (tel.stream_cb(rec, "fl")
               if tel is not None and tel.streaming else None)
 
+    round_prog = federated_round_program(
+        engine, loss_fn, dist, task_grid, batch=batch, seq=seq, lr=lr,
+        consensus_dtype=consensus_dtype, recorder=rec,
+        streaming=stream is not None)
     codec_state = engine.init_state(stacked)
     ast = engine.init_async_state(device=device) if is_async else None
+    carry = (stacked, codec_state, *(ast if is_async else (None, None)))
+    del stacked, codec_state
     hist = []
     chunk = max(int(chunk), 1)
     for start in range(0, rounds, chunk):
@@ -212,45 +253,25 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
         ts = torch.arange(start, start + n, device=device)
         links = engine.round_survival(ts) if fading else None
         acts = engine.availability(ts) if is_async else None
-        losses, rows = [], []
+        out = None
         for i in range(n):
-            t = start + i
-            g = round_gens[t]
-            link = None if links is None else links[i]
-            if is_async:
-                # one availability draw per round, shared between the
-                # staleness weights, the per-agent hold and the row
-                ar = engine.async_round(t, ast.age, act=acts[i], link=link)
-                sv, act, deliv = ar.weights, ar.act, ar.delivered
-            else:
-                sv, act, deliv = link, None, link
-            toks, labels = dist.sample_traced(g, task_grid, batch, seq)
-            stacked, codec_state = fl_round(
-                engine, loss_fn, stacked, codec_state, g, toks, labels,
-                lr=lr, survival=sv, act=act, consensus_dtype=consensus_dtype)
-            with torch.no_grad():
-                loss = loss_fn({name: x[0] for name, x in stacked.items()},
-                               toks[0, 0], labels[0, 0])
-            if is_async:
-                ast = AsyncState(ast.clock + act.to(ast.clock.dtype), ar.age)
-            losses.append(loss)
-            if rec is not None:
-                row = rec.row(stacked, deliv, metric=loss, reached=False,
-                              live=True, active=act,
-                              age=ar.age if is_async else None)
-                if stream is not None:
-                    stream(t, row)
-                rows.append(row)
-        cols = [torch.stack(losses).to(torch.float64)[:, None]]
-        if rec is not None:
-            cols.append(rec.pack(rows))
-        host = scanloop.to_host(torch.cat(cols, 1))         # one read
+            xs = {"t": ts[i], "link": None if links is None else links[i],
+                  "act": None if acts is None else acts[i]}
+            (carry,), ys = round_prog(carry, xs, round_gens[start + i])
+            if out is None:
+                out = torch.empty((n, ys.shape[0]), dtype=torch.float64,
+                                  device=device)
+            out[i].copy_(ys)       # ys live until the program's next replay
+            if stream is not None:
+                stream(start + i, out[i, 1:])
+        host = scanloop.to_host(out)                        # one read
         if rec is not None:
             tel.record_rounds(rec, rec.unpack(host[:, 1:]), start,
                               driver="fl")
         for r, loss in enumerate(host[:, 0], start):
             hist.append(float(loss))
             print(f"round {r:3d}  loss {float(loss):.4f}")
+    stacked, codec_state = carry[:2]
     # Eq.-(11) priced at the codec's wire size (b(W) · bits ratio)
     E = tasks * energy.fl_energy(ep, rounds, topology=cluster_topo,
                                  codec=codec)
@@ -270,6 +291,66 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
     return stacked, hist, E
 
 
+def federated_round(engine, loss_fn, dist, task_grid, *, batch: int,
+                    seq: int, lr: float, consensus_dtype=None,
+                    recorder=None):
+    """The round function of :func:`train_federated`: ``(carry, xs,
+    generator) -> ((carry,), row)``, ``carry`` = (population, codec state,
+    async clocks, wire ages; the last two None on lockstep engines), ``xs``
+    the round's ``t``, link survival and activity rows (None where the
+    engine draws none) and ``generator`` the round's. Each agent's batches
+    of ``task_grid``'s tasks are drawn from ``generator``, then
+    :func:`fl_round` and the logged loss (agent 0's after mixing, on its
+    first local batch); ``row`` is one float64 row: that loss, then the
+    ``recorder``'s packed telemetry row."""
+    is_async = engine.agents is not None
+
+    def one_round(carry, xs, g):
+        stacked, codec_state, clock, age = carry
+        link = xs["link"]
+        if is_async:
+            # one availability draw per round, shared between the
+            # staleness weights, the per-agent hold and the row
+            ar = engine.async_round(xs["t"], age, act=xs["act"], link=link)
+            sv, act, deliv = ar.weights, ar.act, ar.delivered
+        else:
+            sv, act, deliv = link, None, link
+        toks, labels = dist.sample_traced(g, task_grid, batch, seq)
+        stacked, codec_state = fl_round(
+            engine, loss_fn, stacked, codec_state, g, toks, labels,
+            lr=lr, survival=sv, act=act, consensus_dtype=consensus_dtype)
+        with torch.no_grad():
+            loss = loss_fn({name: x[0] for name, x in stacked.items()},
+                           toks[0, 0], labels[0, 0])
+        if is_async:
+            clock, age = clock + act.to(clock.dtype), ar.age
+        cols = [loss.to(torch.float64)[None]]
+        if recorder is not None:
+            cols.append(recorder.pack([recorder.row(
+                stacked, deliv, metric=loss, reached=False, live=True,
+                active=act, age=ar.age if is_async else None)])[0])
+        return ((stacked, codec_state, clock, age),), torch.cat(cols)
+
+    return one_round
+
+
+def federated_round_program(engine, loss_fn, dist, task_grid, *,
+                            streaming: bool = False, **kw):
+    """:func:`federated_round` as the launcher program
+    ``"train_fl_round"``, its carry (argument 0) donated; on a meshed
+    engine the round function itself, run eagerly (the program layer does
+    not capture collectives)."""
+    one_round = federated_round(engine, loss_fn, dist, task_grid, **kw)
+    if engine.local_rows is not None:
+        return one_round
+    prog = scanloop.donating_graph(one_round, donate_argnums=(0,),
+                                   name="train_fl_round")
+    prog.record.streaming = bool(streaming)
+    # the carry holds the AsyncState's clock and ages
+    prog.record.async_argnums = (0,) if engine.agents is not None else ()
+    return prog
+
+
 def local_round(loss_fn, stacked, tokens, labels, *, lr: float,
                 act=None):
     """Every agent's local steps, agent by agent: agent k takes one
@@ -279,9 +360,12 @@ def local_round(loss_fn, stacked, tokens, labels, *, lr: float,
     population; an agent asleep in the (K,) bool ``act`` keeps its params
     bit for bit. ``apply`` scales and frees the gradient leaf by leaf, so
     one agent's step holds its gradient once, not clipped and unclipped
-    together."""
+    together. Agent k's new params overwrite its row of ``stacked`` (read
+    by no later agent), so the round holds one population, not two; a
+    leaf broadcast over the agents (one row for all, as ``expand`` makes)
+    is copied to one row per agent first."""
     opt = sgd(lr)
-    new = {name: torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    new = {name: x.clone() if x.shape[0] > 1 and x.stride(0) == 0 else x
            for name, x in stacked.items()}
     for k in range(tokens.shape[0]):
         p = {name: x[k] for name, x in stacked.items()}
@@ -292,7 +376,7 @@ def local_round(loss_fn, stacked, tokens, labels, *, lr: float,
             p, state = opt.apply(grads, state, p, scale)
         for name, w in p.items():
             new[name][k] = (w if act is None else
-                            torch.where(act[k], w, stacked[name][k]))
+                            torch.where(act[k], w, new[name][k]))
     return new
 
 
@@ -306,9 +390,9 @@ def fl_round(engine, loss_fn, stacked, codec_state, generator, tokens,
     weights, ``act`` the (K,) activity of an async round: a sleeping
     agent's params and codec residuals hold bit for bit.
 
-    ``stacked`` is consumed: the dict is emptied once the local steps are
-    done, so the old population is freed before the consensus step.
-    Returns ``(new population, codec state)``."""
+    ``stacked`` is consumed: its tensors take the local steps' result
+    (:func:`local_round`) and the dict is emptied. Returns ``(new
+    population, codec state)``."""
     new = local_round(loss_fn, stacked, tokens, labels, lr=lr, act=act)
     stacked.clear()
     pre = new

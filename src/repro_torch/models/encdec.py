@@ -288,8 +288,7 @@ def forward(params, cfg, tokens, *, positions=None, caches=None,
     x = (params.embed[tokens] if tp is None
          else tp.embed(params.embed, tokens)).to(dt)
     if positions is None:
-        positions = torch.arange(S, device=x.device) + (
-            0 if cache_index is None else int(cache_index))
+        positions = L.decode_positions(S, cache_index, x.device)
         positions = positions[None, :].expand(B, S)
     table = sinusoid_table(max(cfg.encdec.max_decoder_ctx, 1), cfg.d_model,
                            x.device)

@@ -208,6 +208,13 @@ class Attention(nn.Module):
                                  persistent=False)
 
 
+def decode_positions(S: int, cache_index, device):
+    """(S,) int64 positions from ``cache_index`` (None: 0; a Python int,
+    or a 0-d integer tensor on the device, added there: no host sync)."""
+    return torch.arange(S, device=device) + (
+        0 if cache_index is None else cache_index)
+
+
 def heads_in(x, w):
     """einsum('bsd,dhk->bshk')."""
     d, h, k = w.shape
@@ -222,9 +229,13 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
 
     cache: dict(k=(B, C, K, hd), v=(B, C, K, hd)); C == window for SWA
     (circular buffer, slot = position % C), else C == max seq (linear).
-    cache_index: number of tokens already in the cache. Prefill (S > 1)
-    assumes cache_index == 0 (single-shot prefill); decode (S == 1)
-    supports any index. The cache is updated out of place.
+    cache_index: number of tokens already in the cache, a Python int or
+    a 0-d integer tensor on the device (as the JAX package traces it: a
+    captured decode step reads its position from the device, and the
+    clamped start, the circular slots, the valid length and the query
+    offset are then computed there; the same bits either way). Prefill
+    (S > 1) assumes cache_index == 0 (single-shot prefill); decode (S ==
+    1) supports any index. The cache is updated out of place.
     cross_kv: (k, v) (B, T, K, hd) given (an encoder's states): q comes
     from x, k and v get no norm and no RoPE, nothing is masked, and the
     cache comes back untouched.
@@ -274,7 +285,7 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
         return project_out(out), None
 
     C = cache["k"].shape[1]
-    idx = 0 if cache_index is None else int(cache_index)
+    idx = 0 if cache_index is None else cache_index
     cdt = cache["k"].dtype
     # what the cache stores, and the kv heads the kernel reads at a prefill
     k_st, v_st = (k, v) if split is None else (split.store(k), split.store(v))
@@ -294,8 +305,7 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
                                       softcap=cfg.logit_softcap)
         else:
             # decode: every valid cache slot is an in-window past position
-            kl = torch.full((B,), min(idx + S, C), dtype=torch.int32,
-                            device=x.device)
+            kl = _k_len(idx + S, B, x.device, at_most=C)
             kw = dict(causal=False, window=0, softcap=cfg.logit_softcap,
                       k_len=kl)
             out = (attention_reference(q, ck, cv, **kw) if split is None
@@ -304,20 +314,33 @@ def attention_block(p, cfg, x, positions, *, window: int = 0, cache=None,
 
     # linear buffer (the start clamps so the update fits, as
     # dynamic_update_slice does)
-    start = min(max(idx, 0), C - S)
-    ck, cv = cache["k"].clone(), cache["v"].clone()
-    ck[:, start:start + S] = k_st.to(cdt)
-    cv[:, start:start + S] = v_st.to(cdt)
+    start = (idx.clamp(0, C - S) if isinstance(idx, torch.Tensor)
+             else min(max(idx, 0), C - S))
+    rows = start + torch.arange(S, device=x.device)
+    ck = cache["k"].index_copy(1, rows, k_st.to(cdt))
+    cv = cache["v"].index_copy(1, rows, v_st.to(cdt))
     if S > 1:
         out = ops.flash_attention(q, k_in, v_in, causal=True, window=window,
                                   softcap=cfg.logit_softcap)
     else:
-        kl = torch.full((B,), idx + S, dtype=torch.int32, device=x.device)
+        kl = _k_len(idx + S, B, x.device)
         kw = dict(causal=True, window=window, q_offset=idx,
                   softcap=cfg.logit_softcap, k_len=kl)
         out = (attention_reference(q, ck, cv, **kw) if split is None
                else split.decode(q, ck, cv, **kw))
     return project_out(out), {"k": ck, "v": cv}
+
+
+def _k_len(n, B: int, device, *, at_most: Optional[int] = None):
+    """The (B,) int32 valid cache length ``n`` (at most ``at_most``): a
+    fill for a Python int, device ops for a 0-d tensor."""
+    if isinstance(n, torch.Tensor):
+        if at_most is not None:
+            n = torch.clamp(n, max=at_most)
+        return n.to(torch.int32).expand(B)
+    if at_most is not None:
+        n = min(n, at_most)
+    return torch.full((B,), n, dtype=torch.int32, device=device)
 
 
 def init_kv_cache(cfg, batch: int, seq_len: int, *, window: int = 0,

@@ -23,7 +23,6 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import layers as L
@@ -70,6 +69,13 @@ def expert_capacity(cfg, n_tokens: int) -> int:
                              * m.capacity_factor)), 1)
 
 
+def _one_hot(idx, n: int):
+    """``F.one_hot(idx, n)`` as a bool mask, with no host read: on the CPU
+    ``F.one_hot`` checks the indices' range by reading them (the card's
+    does not), which would fail the capture probe there."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
 def route(p, cfg, xf, *, capacity: Optional[int] = None) -> Routing:
     """f32 router, top-k, the Switch aux loss and position-in-expert for
     tokens ``xf`` (N, d)."""
@@ -83,7 +89,7 @@ def route(p, cfg, xf, *, capacity: Optional[int] = None) -> Routing:
 
     # load-balancing aux loss (Switch): E * sum_e f_e * P_e
     me = probs.mean(dim=0)
-    ce = F.one_hot(topk_idx, E).to(torch.float32).sum(1).mean(0) / k
+    ce = _one_hot(topk_idx, E).to(torch.float32).sum(1).mean(0) / k
     aux = m.router_aux_loss_coef * E * torch.sum(me * ce)
 
     cap = capacity or expert_capacity(cfg, N)
@@ -91,7 +97,7 @@ def route(p, cfg, xf, *, capacity: Optional[int] = None) -> Routing:
     # the running count of each expert along the assignments, scanned as
     # (E, N·k) rows: the card scans a contiguous last axis fast and the
     # (N·k, E) columns slowly (17.8 ms a layer at N·k = 65,536 on an H100)
-    oh = F.one_hot(flat_e, E).T.to(torch.int32).contiguous()    # (E, N·k)
+    oh = _one_hot(flat_e, E).T.to(torch.int32).contiguous()     # (E, N·k)
     count = torch.cumsum(oh, dim=1, dtype=torch.int32)           # inclusive
     pos = count.gather(0, flat_e[None, :])[0].to(torch.int64) - 1
     keep = pos < cap

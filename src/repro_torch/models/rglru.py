@@ -429,8 +429,7 @@ def forward(model, cfg, tokens, *, positions=None, caches=None,
         x = model.embed[tokens].to(dt)
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device) + (
-            0 if cache_index is None else int(cache_index))
+        positions = L.decode_positions(S, cache_index, x.device)
         positions = positions[None, :].expand(B, S)
 
     types = layer_types(cfg)

@@ -151,8 +151,7 @@ def forward(model: Transformer, cfg, tokens, *, positions=None, caches=None,
         x = model.embed[tokens].to(dt)
     B, S, _ = x.shape
     if positions is None:
-        positions = torch.arange(S, device=x.device) + (
-            0 if cache_index is None else int(cache_index))
+        positions = L.decode_positions(S, cache_index, x.device)
         positions = positions[None, :].expand(B, S)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -18,7 +18,10 @@ consumes its inputs as a donated buffer is: it makes the new params and
 state one leaf at a time, popping that leaf's gradient, param and
 per-leaf state as it goes, so it holds each leaf about once, not old
 and new of every leaf. ``grads``, ``params`` and the state's per-leaf
-dicts are left empty.
+dicts are left empty. With ``in_place=True`` it writes each new leaf into
+the old one's tensor (an exact copy, the same bits) and returns those
+tensors: a step whose params and state are a captured program's donated
+buffers then updates them with no second copy of the model.
 """
 from __future__ import annotations
 
@@ -72,6 +75,11 @@ def _zeros_f32(params):
     return {k: torch.zeros_like(p, dtype=_F32) for k, p in params.items()}
 
 
+def _kept(old, new, in_place: bool):
+    """``new``, or with ``in_place`` ``old`` holding ``new``'s values."""
+    return old.copy_(new) if in_place else new
+
+
 def _step0(params):
     device = next(iter(params.values())).device
     return torch.zeros((), dtype=torch.int32, device=device)
@@ -97,17 +105,19 @@ def sgd(lr: Schedule, momentum: float = 0.0):
         return ({k: -lr_t * g.to(_F32) for k, g in grads.items()},
                 {"step": step})
 
-    def apply(grads, state, params, scale=None):
-        step = state["step"] + 1
+    def apply(grads, state, params, scale=None, in_place=False):
+        step = _kept(state["step"], state["step"] + 1, in_place)
         lr_t = _lr_at(lr, step)
         out, mom = {}, {}
         for k in list(params):
             g = _scaled(grads.pop(k), scale).to(_F32)
             if momentum:
-                g = mom[k] = momentum * state["mom"].pop(k) + g
+                m = state["mom"].pop(k)
+                g = mom[k] = _kept(m, momentum * m + g, in_place)
             u = -lr_t * g
             del g                    # freed before the new param is made
-            out[k] = _applied(params.pop(k), u)
+            p = params.pop(k)
+            out[k] = _kept(p, _applied(p, u), in_place)
         return out, ({"step": step, "mom": mom} if momentum
                      else {"step": step})
 
@@ -124,9 +134,11 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
         """The step, its lr and the two bias corrections: once a step."""
         step = state["step"] + 1
         sf = step.to(_F32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=_F32, device=sf.device),
+        # fills on the device, not host copies: the step runs inside a
+        # captured program
+        bc1 = 1 - torch.pow(torch.full((), b1, dtype=_F32, device=sf.device),
                             sf)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=_F32, device=sf.device),
+        bc2 = 1 - torch.pow(torch.full((), b2, dtype=_F32, device=sf.device),
                             sf)
         return step, _lr_at(lr, step), bc1, bc2
 
@@ -150,14 +162,18 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
                 None if params is None else params[k], *sc)
         return updates, {"step": step, "mu": mu, "nu": nu}
 
-    def apply(grads, state, params, scale=None):
+    def apply(grads, state, params, scale=None, in_place=False):
         step, *sc = scalars(state)
+        step = _kept(state["step"], step, in_place)
         out, mu, nu = {}, {}, {}
         for k in list(params):
-            u, mu[k], nu[k] = leaf(
-                _scaled(grads.pop(k), scale), state["mu"].pop(k),
-                state["nu"].pop(k), params[k], *sc)
-            out[k] = _applied(params.pop(k), u)
+            m0, v0 = state["mu"].pop(k), state["nu"].pop(k)
+            u, m, v = leaf(_scaled(grads.pop(k), scale), m0, v0, params[k],
+                           *sc)
+            mu[k], nu[k] = _kept(m0, m, in_place), _kept(v0, v, in_place)
+            del m, v
+            p = params.pop(k)
+            out[k] = _kept(p, _applied(p, u), in_place)
         return out, {"step": step, "mu": mu, "nu": nu}
 
     return SimpleNamespace(init=init, update=update, apply=apply)

@@ -6,7 +6,10 @@ rows; the kernel launches inside the graphs are counted through the
 replays; a capture the graph refuses raises by name; a K = 256 program
 above the default byte cap is kept and run eagerly, and hit by the next
 call (F4); ``ConsensusEngine.scan_rounds`` replays its own captured round
-program on every plan without a mesh. The CPU side of the program layer,
+program on every plan without a mesh; the LM launchers' programs
+(serving's prefill and decode, training's step and federated round, at a
+reduced size) are captured ``==`` uncaptured, above any byte cap, their
+kept params read by reference. The CPU side of the program layer,
 against the JAX package, is ``tests/test_torch_scanloop.py`` and
 ``tests/test_torch_engine_program.py``.
 
@@ -142,7 +145,7 @@ def test_fl_driver_variants_captured_equal_uncaptured(cuda, case,
         assert _same(got, want)
         assert 1 < got[1] < 8            # the target hits mid-chunk
         assert n == n_eager == min(-(-got[1] // chunk) * chunk, 12)
-    recs = [p.record for p in made if p.record.replays]
+    recs = [p.record for p in made if p.record.captures]
     assert recs and all(r.captured and r.captures == 2 for r in recs)
     if case == "host_target":
         assert all(r.host_fns == ("target_fn",) and r.cache_key is None
@@ -372,7 +375,8 @@ def test_scan_rounds_captured_equals_uncaptured(cuda, case):
         assert recs == []                    # built per call, never held
         return
     (rec,) = recs
-    assert rec.captured and rec.captures == 1 and rec.replays == 10
+    # the capture's call runs eagerly before it; the other 9 rounds replay
+    assert rec.captured and (rec.captures, rec.replays) == (1, 9)
     assert rec.in_place and programs.audit_programs(recs) == []
     assert rec.async_argnums == ((0,) if eng.agents is not None else ())
     assert scanloop.cache_stats()["scan_rounds_held_bytes"] >= \
@@ -438,3 +442,131 @@ def test_refused_capture_raises_by_name(cuda):
         name="refused")
     with pytest.raises(RuntimeError, match="refused.*_local_scalar_dense"):
         prog(torch.ones(4, device=cuda))
+
+
+# -- the LM launchers' programs -------------------------------------------------
+
+LM_FAMILIES = {"dense": "h2o-danube-3-4b", "moe": "qwen2-moe-a2.7b",
+               "vlm": "chameleon-34b", "hybrid": "recurrentgemma-9b",
+               "ssm": "xlstm-125m", "encdec": "whisper-large-v3"}
+
+
+def _lm_cfg(family, **change):
+    from repro_torch.configs import get_arch, reduced
+    cfg = reduced(get_arch(LM_FAMILIES[family]),
+                  num_layers=3 if family == "hybrid" else 2)
+    return dataclasses.replace(cfg, **change)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", list(LM_FAMILIES))
+def test_serve_captured_equals_uncaptured(cuda, family, dtype):
+    """``serve``'s prefill and decode programs (a 72-token prompt past the
+    64-token window, 6 tokens): captured once each and replayed, the
+    tokens, the prefill's logits and the final caches ``==`` the same
+    call under ``uncaptured()``; the kernels' launches by phase the same
+    (B3/B4 inside the prefill's graph, none in decode)."""
+    from repro_torch.launch.serve import serve
+    cfg = _lm_cfg(family, dtype=dtype)
+
+    def run():
+        return serve(cfg, batch=2, prompt_len=72, gen=6, device="cuda",
+                     verbose=False)
+
+    got = run()
+    with scanloop.uncaptured():
+        want = run()
+    assert _same((got.tokens, got.last_logits, got.caches),
+                 (want.tokens, want.last_logits, want.caches))
+    assert got.launches == want.launches
+    assert not any(got.launches["decode"].values())
+    pre, dec = got.programs["prefill"], got.programs["decode"]
+    assert (pre.captures, pre.replays, dec.captures, dec.replays) == \
+        (1, 0, 1, 4)
+    assert pre.held_bytes > 0 and want.programs["decode"].eager_calls == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["dense", "hybrid", "encdec", "ssm"])
+def test_train_standard_captured_equals_uncaptured(cuda, family):
+    """``train_standard``'s step program with remat on (the blocks'
+    recompute, B3/B4's plain-VJP backward inside the graph): 3 steps'
+    losses and the final params ``==`` uncaptured; the launches too."""
+    from repro_torch.launch import train
+    cfg = _lm_cfg(family, remat=True)
+
+    def run():
+        before = scanloop.launch_counts()
+        with scanloop.built_programs() as recs:
+            p, h = train.train_standard(cfg, steps=3, batch=2, seq=32,
+                                        lr=1e-3, device="cuda")
+        after = scanloop.launch_counts()
+        return p, h, {k: after[k] - before[k] for k in after}, recs
+
+    p, h, n, (rec,) = run()
+    with scanloop.uncaptured():
+        p0, h0, n0, _ = run()
+    assert _same((p, h, n), (p0, h0, n0))
+    assert (rec.captures, rec.replays) == (1, 2) and rec.in_place
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_train_federated_captured_equals_uncaptured(cuda, codec):
+    """``train_federated``'s round program on the sparse plan, links
+    fading and agents asleep, buffered telemetry, 3 rounds at chunk 2:
+    the population, the codec state, the losses, the rows and the
+    launches (B1 or B2 once a leaf a round, through the replays)
+    ``==`` uncaptured."""
+    from repro_torch.launch import train
+    cfg = _lm_cfg("dense")
+    own = "quant_consensus_pop" if codec else "consensus_update_pop"
+
+    def run():
+        tel = Telemetry()
+        before = getattr(ops, own).launches
+        with scanloop.built_programs() as recs:
+            p, h, _, st = train.train_federated(
+                cfg, rounds=3, agents=4, tasks=2, local_steps=1, batch=1,
+                seq=16, lr=1e-3, consensus_plan="sparse", codec=codec,
+                dropout_p=0.3, chunk=2, tau=2,
+                availability=topology.AgentProcess.bernoulli(0.7, seed=1),
+                telemetry=tel, device="cuda", return_state=True)
+        return (p, h, st, tel.events(live_only=False),
+                getattr(ops, own).launches - before), recs
+
+    got, (rec,) = run()
+    with scanloop.uncaptured():
+        want, _ = run()
+    assert _same(got, want)
+    assert got[-1] == 3 * len(got[0])
+    assert (rec.captures, rec.replays) == (1, 2) and rec.in_place
+
+
+@pytest.mark.gpu
+def test_launcher_programs_capture_above_the_byte_cap_and_keep_by_reference(
+        cuda):
+    """At a 1-byte cap a launcher program is still captured (the byte
+    rule holds only programs kept across calls); a replay handed another
+    tensor for its kept argument is refused by name, before any copy."""
+    cap = scanloop.PROGRAM_CACHE_BYTES
+    try:
+        scanloop.PROGRAM_CACHE_BYTES = 1
+        prog = scanloop.donating_graph(
+            lambda w, c, x: ((c + x @ w,), (x @ w).sum()),
+            donate_argnums=(1,), keep_argnums=(0,), name="kept_card")
+        w = torch.randn(8, 8, device=cuda)
+        c, x = torch.zeros(8, device=cuda), torch.ones(8, device=cuda)
+        (c,), _ = prog(w, c, x)
+        (c,), _ = prog(w, c, x)
+        assert prog.record.captured and prog.record.replays == 1
+        assert torch.equal(c, 2 * (x @ w))
+        # the carry and the clone of x; the kept w is the caller's
+        assert prog.record.held_bytes == 2 * 8 * 4 + prog._pool_bytes
+        w2 = w.clone()
+        with pytest.raises(RuntimeError, match="'kept_card'.*kept argument"):
+            prog(w2, c, x)
+        assert torch.equal(w2, w)
+    finally:
+        scanloop.PROGRAM_CACHE_BYTES = cap

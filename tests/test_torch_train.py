@@ -443,7 +443,9 @@ def test_sleeping_agents_hold_params_and_residuals():
     ar = eng.async_round(0, eng.init_async_state(device="cpu").age, act=act)
     toks, labels = (torch.from_numpy(a) for a in
                     _tokens(cfg, (AGENTS, 1, 1, 8), seed=9))
-    before, st_before = dict(stacked), dict(state)
+    # a copy: the round writes the local steps into the population
+    before, st_before = {k: v.clone() for k, v in stacked.items()}, \
+        dict(state)
     out, st = train.fl_round(
         eng, lambda q, t, lab: api.lm_loss(q, cfg, t, lab), stacked, state,
         g, toks, labels, lr=0.1, survival=ar.weights, act=ar.act)
