@@ -145,9 +145,22 @@ Phases (any failure exits non-zero; nothing is caught):
                 (params, t_i, history, generator, rows; disagreement
                 within its tolerance), B1 / B2 exactly 10 x the rounds
                 computed, the observer collectives' bytes, walls beside
-                the run without a mesh. As in (d), one rank exchanges
-                nothing: multi-rank runs are held by the gloo tests
-                (tests/test_torch_mesh_fl.py) alone.
+                the run without a mesh; with the byte cap lifted its
+                cached program captured (collectives inside), replayed
+                on the hit and == ``uncaptured()``, at the default cap
+                eager by the byte rule, a recorded all-replay run C3
+                clean; (h) ``scan_rounds`` on the meshed engine, buffered
+                telemetry, K = 8 and K = 256 (cap lifted), its held
+                program captured == ``uncaptured()`` == without a mesh,
+                ms a round, held bytes, the collectives' device events;
+                (i) ``train_federated(mesh=)`` at granite-8b width, 2
+                layers, 4 agents, codec None: captured == uncaptured ==
+                without ``mesh=``, the recorded collectives ==, C3 with
+                the logged loss's broadcast, its round program timed
+                and its peaks. As in (d), one rank exchanges nothing:
+                multi-rank runs are held by the gloo tests
+                (tests/test_torch_mesh_fl.py,
+                tests/test_torch_mesh_programs.py) alone.
 11. profile   — host wall and device kernel time of one case-study FL
                 round (``torch.profiler``), the device's busy share.
 12. lm_kernels — the RG-LRU scan and flash-attention kernels against their
@@ -265,7 +278,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 profiled, step 1 against the same step through B4's plain
                 version (loss and gradient norm); (e)
                 xlstm-125m ``train_standard`` (batch 4 x 256, 5 steps) and
-                ``train_federated`` (clusters(2, 2), 2 local steps of 2 x
+                ``train_federated`` (clusters(2, 2), 1 local step of 2 x
                 128, 3 rounds, sparse plan, codec None and int8+ef, buffered
                 telemetry): B2 / B1 exactly 171 (the JAX leaves) a round,
                 the Eq.-(11) estimate == the host formula, every row's
@@ -385,7 +398,9 @@ WHISPER_SERVE = dict(batch=4, prompt_len=64, gen=32)
 XLSTM_SERVE = dict(batch=4, prompt_len=1024, gen=32)
 WHISPER_TRAIN = dict(steps=5, batch=2, seq=448, lr=1e-3)
 XLSTM_TRAIN = dict(steps=5, batch=4, seq=256, lr=1e-3)
-XLSTM_FED = dict(rounds=3, agents=4, tasks=2, local_steps=2, batch=2,
+#: one local step a round: the sLSTM loop's first call
+#: and capture dominate the phase's wall
+XLSTM_FED = dict(rounds=3, agents=4, tasks=2, local_steps=1, batch=2,
                  seq=128, lr=1e-3)
 HYBRID_TRAIN = dict(steps=3, batch=2, seq=512, lr=1e-3)
 HYBRID_FED = dict(rounds=2, agents=2, tasks=1, local_steps=1, batch=2,
@@ -2521,6 +2536,51 @@ def check_nccl_mesh():
 #: part (g) of ``mesh``: chunk, rounds at most, and the rounds of the
 #: recorded run that reads the collectives
 MESH_FL = dict(chunk=8, max_rounds=12, recorded_rounds=2)
+#: part (h): ``scan_rounds`` rounds a call, timed calls a mode, and the
+#: populations (K, codec, whether the byte cap is lifted)
+MESH_SCAN = dict(rounds=8, reps=3, cases=((8, "int8", False),
+                                          (K_POP, "int8", True)))
+#: part (i): ``train_federated(mesh=)`` rounds of the == runs, and timed
+#: rounds a mode
+MESH_TRAIN = dict(rounds=2, timed=3)
+
+
+@contextlib.contextmanager
+def nccl_mesh(name):
+    """A one-position agent mesh over an NCCL group of world size 1 (one
+    card runs no more), its communicator set up before the block; the
+    programs cached in the block are dropped before the group is
+    destroyed."""
+    from repro_torch.core import scanloop
+    from repro_torch.launch import mesh as mesh_lib
+
+    store = Path(__file__).resolve().parent / "build" / name
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    mesh_lib.init_local_group(0, 1, str(store), backend="nccl")
+    try:
+        # NCCL sets a communicator up at a group's first collective: do it
+        # here, outside the timed runs
+        torch.distributed.all_reduce(torch.zeros(1, device=DEVICE))
+        with scanloop.built_programs() as records:
+            yield mesh_lib.make_agent_mesh()
+        scanloop.evict_programs(records)
+    finally:
+        mesh_lib.destroy_local_group()
+        torch.cuda.empty_cache()
+
+
+def held_record(eng, fns):
+    """The record of the FL driver's program cached for ``eng`` and the
+    run functions ``fns`` (``multichip.fl_functions``)."""
+    from repro_torch.core import scanloop
+    recs = [r for r in scanloop.registered_programs()
+            if r.cache_key is not None and r.cache_key[0] == "fl_chunk"
+            and r.cache_key[4] is eng and r.cache_key[2] is fns[0]]
+    if len(recs) != 1:
+        fail(f"(g) {len(recs)} cached FL programs for one engine")
+    return recs[0]
 
 
 def check_mesh_fl(cfg, smi):
@@ -2531,18 +2591,23 @@ def check_mesh_fl(cfg, smi):
     ``run_fl_until_scan`` at chunk 8, buffered telemetry, a regression
     pull toward seeded targets with the batches' noise and the stochastic
     rounding from one generator, the hit mid-chunk from a probe run
-    without the mesh), on the int8 wire (B1) and the f32 wire (B2):
-    params, t_i, history, the generator's final state and every row's
-    exact fields ``==`` the same run without ``mesh=``, the disagreement
-    within its tolerance; the run's kernel launches exactly 10 x the
-    rounds computed and the other kernel none, on both paths. A 2-round
-    recorded run reads the observer collectives' bytes (population
-    gather, disagreement all-reduces) against ``audit_meta()`` and C3,
-    which books exactly the calls the run must make. One rank exchanges
-    nothing (the gather is a copy); the multi-rank exchanges are held by
-    the gloo tests alone (tests/test_torch_mesh_fl.py)."""
-    from repro_torch.core import topology
-    from repro_torch.launch import mesh as mesh_lib
+    without the mesh), on the int8 wire (B1) and the f32 wire (B2). With
+    the byte cap lifted the meshed driver's cached program is captured on
+    its first call (sampler and target inside, the population gather and
+    the disagreement's all-reduces captured with the round) and replayed
+    by the second, a hit; both and the same run under ``uncaptured()``
+    ``==`` the run without ``mesh=`` (params, t_i, history, the
+    generator's final state, every row's exact fields; the disagreement
+    within its tolerance); the launches exactly 10 x the rounds computed,
+    counted through the replays; ms a round captured and eager, mesh and
+    without (the driver call alone, warm: wall, device time, busy share). At the default cap the K = 256 program runs eagerly by
+    the byte rule, the second call a hit, the same bits. A 2-round run
+    replaying a captured program is recorded: the observer collectives'
+    bytes against ``audit_meta()``, and C3 books exactly the calls the
+    run must make. One rank exchanges nothing (the gather is a copy); the
+    multi-rank runs are held by the gloo tests alone
+    (tests/test_torch_mesh_fl.py, tests/test_torch_mesh_programs.py)."""
+    from repro_torch.core import scanloop, topology
     from repro_torch.launch import multichip
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
@@ -2551,23 +2616,26 @@ def check_mesh_fl(cfg, smi):
     topo = topology.small_world(K_POP, k=4, seed=1)
     chunk, rounds = MESH_FL["chunk"], MESH_FL["max_rounds"]
 
-    def run(eng, thr):
+    def run(eng, thr, fns):
         zero_counts()
         out = multichip.fl_run(eng, x, thr, chunk=chunk, device=DEVICE,
-                               max_rounds=rounds)
+                               max_rounds=rounds, fns=fns)
         return dict(out, n=launch_counts())
 
-    store = Path(__file__).resolve().parent / "build" / "nccl_store_fl"
-    store.parent.mkdir(parents=True, exist_ok=True)
-    if store.exists():
-        store.unlink()
+    def drive(eng, fns):
+        """``run``'s driver call alone (the same program: the same key)."""
+        from repro_torch.core import federated
+        from repro_torch.telemetry import Telemetry
+        sample, loss, target_fn = fns
+        zero_counts()
+        federated.run_fl_until_scan(
+            loss, x, sample, eng, multichip.FL["lr"], target_fn=target_fn,
+            max_rounds=rounds, chunk=chunk, return_state=True,
+            generator=torch.Generator(device=DEVICE).manual_seed(
+                multichip.GEN_SEED), telemetry=Telemetry())
+
     counts, report = {}, {}
-    mesh_lib.init_local_group(0, 1, str(store), backend="nccl")
-    try:
-        mesh = mesh_lib.make_agent_mesh()
-        # NCCL sets a communicator up at a group's first collective: do it
-        # here, outside the timed runs
-        torch.distributed.all_reduce(torch.zeros(1, device=DEVICE))
+    with nccl_mesh("nccl_store_fl") as mesh:
         for spec in ("int8", None):
             kernel = ("quant_consensus_pop" if spec == "int8"
                       else "consensus_update_pop")
@@ -2577,27 +2645,82 @@ def check_mesh_fl(cfg, smi):
             thr = multichip.fl_threshold(
                 multichip.masked_engine(topo, "sharded", spec, num_blocks=1),
                 x, device=DEVICE)
-            want = run(alone, thr)
-            got = run(on_mesh, thr)
-            r = multichip.fl_compare(got, want, slice(0, K_POP), "sharded")
-            computed = multichip.rounds_computed(got["rounds"], chunk, rounds)
+            fns = multichip.fl_functions(K_POP, x, thr, DEVICE)
+            with cap_lifted():
+                runs = {"mesh captured": run(on_mesh, thr, fns),
+                        "mesh replayed": run(on_mesh, thr, fns)}
+                # read now: leaving the block puts the program under the
+                # byte rule, which frees its graphs
+                r = held_record(on_mesh, fns)
+                rec = dict(captured=r.captured, host_fns=r.host_fns,
+                           in_place=r.in_place, captures=r.captures,
+                           replays=r.replays, group_backend=r.group_backend,
+                           held_bytes=r.held_bytes,
+                           capture_s=r.capture_seconds,
+                           collectives_per_replay=dict(
+                               r.collectives_per_replay))
+                with scanloop.uncaptured():
+                    runs["mesh eager"] = run(on_mesh, thr, fns)
+                    runs["alone eager"] = run(alone, thr, fns)
+                runs["alone captured"] = run(alone, thr, fns)
+                computed = multichip.rounds_computed(
+                    runs["alone eager"]["rounds"], chunk, rounds)
+                # each program warm (captured or eager), the driver call
+                # alone timed (no copy to the host): the median of
+                # PROG["reps"] calls, then one profiled call
+                timing = {}
+                for label, eng in (("mesh", on_mesh), ("alone", alone)):
+                    timing[f"{label} captured"] = per_round(
+                        lambda eng=eng: drive(eng, fns), computed,
+                        f"mesh_fl_{spec}_{label}_captured")
+                    with scanloop.uncaptured():
+                        timing[f"{label} eager"] = per_round(
+                            lambda eng=eng: drive(eng, fns), computed,
+                            f"mesh_fl_{spec}_{label}_eager")
+                rec_fns = multichip.fl_functions(K_POP, x, -1.0, DEVICE)
+                R = MESH_FL["recorded_rounds"]
+                for _ in range(2):          # capture, then all replays
+                    recorded = multichip.fl_run(
+                        on_mesh, x, -1.0, chunk=R, device=DEVICE,
+                        max_rounds=R, record=True, fns=rec_fns)
+            # a program of its own at the default cap: the byte rule
+            # decides (int8: predicted from shapes, never captured; f32:
+            # measured by its one capture, then freed)
+            cap_fns = multichip.fl_functions(K_POP, x, thr, DEVICE)
+            stats = scanloop.cache_stats()
+            runs["default cap"] = run(on_mesh, thr, cap_fns)
+            runs["default cap hit"] = run(on_mesh, thr, cap_fns)
+            hits = scanloop.cache_stats()["hits"] - stats["hits"]
+            eager_rec = held_record(on_mesh, cap_fns)
+            want = runs["alone eager"]
             expect = {k: (len(x) * computed if k == kernel else 0)
                       for k in KERNELS}
-            if not 1 < got["rounds"] < chunk:
-                fail(f"(g) {spec}: t_i {got['rounds']} is not mid-chunk")
-            if not (r["ok"] and r["bit_equal"] and r["history_equal"]
-                    and r["generator_equal"] and r["rows_equal"]
-                    and r["n_rows"] == got["rounds"]):
-                fail(f"(g) {spec}: the mesh run differs from the run "
-                     f"without a mesh: {r}")
-            if got["n"] != expect or want["n"] != expect:
-                fail(f"(g) {spec}: launches mesh {got['n']}, without "
-                     f"{want['n']}, expected {expect} ({computed} rounds)")
-            counts[f"mesh_fl_{spec}"] = got["n"]
-            recorded = multichip.fl_run(
-                on_mesh, x, -1.0, chunk=MESH_FL["recorded_rounds"],
-                device=DEVICE, max_rounds=MESH_FL["recorded_rounds"],
-                record=True)
+            if not 1 < want["rounds"] < chunk:
+                fail(f"(g) {spec}: t_i {want['rounds']} is not mid-chunk")
+            for label, got in runs.items():
+                r = multichip.fl_compare(got, want, slice(0, K_POP),
+                                         "sharded")
+                if not (r["ok"] and r["bit_equal"] and r["history_equal"]
+                        and r["generator_equal"] and r["rows_equal"]
+                        and r["n_rows"] == got["rounds"]):
+                    fail(f"(g) {spec}: the {label} run differs from the run "
+                         f"without a mesh: {r}")
+                if got["n"] != expect:
+                    fail(f"(g) {spec}: launches of the {label} run "
+                         f"{got['n']}, expected {expect} ({computed} "
+                         "rounds)")
+            if not (rec["captured"] and rec["host_fns"] == ()
+                    and rec["in_place"] and rec["captures"] >= 1
+                    and rec["replays"] > 0 and rec["group_backend"] == "nccl"
+                    and rec["collectives_per_replay"]):
+                fail(f"(g) {spec}: the meshed program under the lifted cap "
+                     f"was not captured and replayed: {rec}")
+            if eager_rec.why_uncaptured != scanloop.OVER_BYTE_CAP \
+                    or hits != 1 or eager_rec.eager_calls < computed \
+                    or eager_rec.captures > (spec is None):
+                fail(f"(g) {spec}: at the default cap the K = {K_POP} "
+                     f"program is {eager_rec.why_uncaptured!r}, {hits} hits")
+            counts[f"mesh_fl_{spec}"] = runs["mesh replayed"]["n"]
             ledger, c3 = multichip.fl_ledger(recorded,
                                              f"smoke:mesh_fl/{spec}")
             obs = {o["quantity"]: o["bytes"]
@@ -2605,33 +2728,305 @@ def check_mesh_fl(cfg, smi):
             if c3 or ledger.observer_calls != recorded["observer_calls"]:
                 fail(f"(g) {spec}: collectives {ledger} vs observers {obs}: "
                      f"{[f.message for f in c3]}")
+            ms = {k: v["wall"] * 1e3 / computed for k, v in runs.items()}
+            timed_ms = {k: (v["wall_ms_per_round"], v["device_ms_per_round"],
+                            v["busy_share"]) for k, v in timing.items()}
             report[spec or "f32"] = dict(
-                t_i=got["rounds"], rounds_computed=computed,
-                launches=got["n"][kernel], wall_mesh_s=got["wall"],
-                wall_alone_s=want["wall"],
-                wall_ratio=got["wall"] / want["wall"],
-                disagreement_of_tol=r["disagreement_of_tol"],
+                t_i=want["rounds"], rounds_computed=computed,
+                launches=runs["mesh replayed"]["n"][kernel],
+                one_run_ms_per_round=ms, timed=timing, program=rec,
+                default_cap=eager_rec.why_uncaptured,
+                default_cap_captures=eager_rec.captures,
+                over_cap_bytes=eager_rec.over_cap_bytes,
                 observer_bytes_per_call=obs,
-                wire_bytes_per_round=ledger.wire_bytes
-                / MESH_FL["recorded_rounds"])
+                wire_bytes_per_round=ledger.wire_bytes / R)
             print(f"(g) {smi}: run_fl_until_scan K={K_POP} paper-dqn "
                   f"({n} params) small_world sharded 1 block, fading, "
-                  f"codec={spec}, a generator: mesh == without a mesh "
-                  f"(params, t_i {got['rounds']}, history, generator, "
-                  f"{r['n_rows']} rows; disagreement "
-                  f"{r['disagreement_of_tol']:.3g} of its tolerance); "
-                  f"{kernel} {got['n'][kernel]} = 10 x {computed} rounds "
-                  f"on both; wall mesh {got['wall']} s, without "
-                  f"{want['wall']} s; per call: population gather "
-                  f"{obs['population for target_fn']} B, all-reduces "
-                  f"{obs['disagreement column sums']} + "
+                  f"codec={spec}, a generator: mesh captured (sampler and "
+                  f"target inside, host_fns {rec['host_fns']}), replayed on "
+                  f"the hit, and uncaptured() == without a mesh (params, "
+                  f"t_i {want['rounds']}, history, generator, rows); "
+                  f"{kernel} {expect[kernel]} = 10 x {computed} rounds on "
+                  f"every run; ms a round (wall, device, busy; median of "
+                  f"{PROG['reps']} warm driver calls) "
+                  + ", ".join(f"{k} {w:.3f} / {d:.3f} / {b:.3f}"
+                              for k, (w, d, b) in timed_ms.items())
+                  + "; one run each "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+                  + f"; program {rec}; default cap: "
+                  f"{eager_rec.why_uncaptured} ({eager_rec.over_cap_bytes}"
+                  f" B, {eager_rec.captures} captures), then {hits} hit; "
+                  f"recorded replays: C3 clean, observer "
+                  f"calls {ledger.observer_calls}, per call: population "
+                  f"gather {obs['population for target_fn']} B, "
+                  f"all-reduces {obs['disagreement column sums']} + "
                   f"{obs['disagreement distances']} B", flush=True)
-            del got, want, recorded
+            del runs, recorded, rec, eager_rec
             torch.cuda.empty_cache()
-    finally:
-        mesh_lib.destroy_local_group()
     print(f"(g) numbers {json.dumps(report)}", flush=True)
     return counts
+
+
+def profiled_names(fn):
+    """The device events of one profiled call of ``fn``: (kernels, the
+    names of the events a collective left: NCCL kernels, or the copies an
+    NCCL group of one rank makes instead)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    return len(names), sorted({n for n in names if "nccl" in n.lower()
+                               or "memcpy" in n.lower()})
+
+
+def check_mesh_scan(cfg, smi):
+    """(h) ``scan_rounds`` on a meshed engine, in an NCCL group of world
+    size 1: paper-DQN width, small_world(k=4), the sharded plan with 1
+    block, the int8 wire (B1), links fading with p = 0.3, a generator,
+    buffered telemetry; at K = 8 (below the byte cap) and at K = 256
+    with the cap lifted. The engine's held round program is captured by
+    the first call and replayed by the next; each call ``==`` the same
+    call under ``uncaptured()`` and the engine without a mesh (params,
+    EF state, generator, rows but their disagreement, which sums in
+    another order); B1 10 a round through the replays; ms a round
+    captured and eager (median of ``MESH_SCAN["reps"]`` calls each),
+    held bytes, and the collectives' device events by name in a profiled
+    replay (on one rank NCCL copies; it launches no kernel)."""
+    from repro_torch.core import scanloop, topology
+    from repro_torch.launch import multichip
+    from repro_torch.telemetry import Telemetry
+
+    R = MESH_SCAN["rounds"]
+    report, counts = {}, {}
+    with nccl_mesh("nccl_store_scan") as mesh:
+        for K, spec, lifted in MESH_SCAN["cases"]:
+            gen = torch.Generator(device=DEVICE).manual_seed(9)
+            x = stacked_params(cfg, K, gen)
+            topo = topology.small_world(K, k=4, seed=1)
+            on_mesh, alone = multichip.mesh_pair(topo, "sharded", spec, mesh)
+
+            def run(eng):
+                tel = Telemetry()
+                g = torch.Generator(device=DEVICE).manual_seed(1)
+                zero_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                p, st = eng.scan_rounds(x, rounds=R, generator=g,
+                                        telemetry=tel)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3 / R
+                rows = tel.events(live_only=False)
+                return dict(out=(p, st, g.get_state()), rows=rows,
+                            bare=[{k: v for k, v in e.items()
+                                  if k != "disagreement"} for e in rows],
+                            n=launch_counts(), ms=ms)
+
+            ctx = cap_lifted() if lifted else contextlib.nullcontext()
+            with ctx:
+                cap = [run(on_mesh) for _ in range(1 + MESH_SCAN["reps"])]
+                names = profiled_names(lambda: run(on_mesh))
+                with scanloop.uncaptured():
+                    eager = [run(on_mesh)
+                             for _ in range(1 + MESH_SCAN["reps"])]
+                ref = run(alone)
+                # read before a lifted cap returns: the byte rule would
+                # free the graphs
+                (r,) = on_mesh.program_records()
+                rec = dataclasses.replace(r, collectives_per_replay=dict(
+                    r.collectives_per_replay))
+            want = {k: (len(x) * R if k == "quant_consensus_pop" else 0)
+                    for k in KERNELS}
+            for label, got in [("captured", c) for c in cap] + [
+                    ("eager", e) for e in eager]:
+                if not (same(got["out"], eager[0]["out"])
+                        and got["rows"] == eager[0]["rows"]
+                        and same(got["out"], ref["out"])
+                        and got["bare"] == ref["bare"]
+                        and got["n"] == want):
+                    fail(f"(h) K={K}: a {label} call differs from "
+                         f"uncaptured() or the engine without a mesh, or "
+                         f"launches {got['n']} != {want}")
+            if not (rec.captured and rec.captures == 1 and rec.in_place
+                    and rec.replays == R * (1 + MESH_SCAN["reps"] + 1) - 1):
+                fail(f"(h) K={K}: the held program was not captured once "
+                     f"and replayed: {rec}")
+            ms_cap = statistics.median(c["ms"] for c in cap[1:])
+            ms_eager = statistics.median(e["ms"] for e in eager[1:])
+            counts[f"mesh_scan_{K}"] = cap[-1]["n"]
+            report[K] = dict(ms_per_round_captured=ms_cap,
+                             ms_per_round_eager=ms_eager,
+                             first_call_ms_per_round=cap[0]["ms"],
+                             held_bytes=rec.held_bytes,
+                             capture_s=rec.capture_seconds,
+                             collectives_per_replay=rec.collectives_per_replay,
+                             device_events=names[0],
+                             collective_events=names[1], lifted=lifted)
+            print(f"(h) {smi}: scan_rounds K={K} paper-dqn sharded 1 block "
+                  f"{spec} fading, buffered telemetry, mesh: captured "
+                  f"{ms_cap:.3f} ms a round, eager {ms_eager:.3f} "
+                  f"(first call {cap[0]['ms']:.3f}; cap "
+                  f"{'lifted' if lifted else 'default'}), == uncaptured() "
+                  f"== without a mesh, B1 {want['quant_consensus_pop']}; "
+                  f"held {rec.held_bytes} B; collectives a replay "
+                  f"{rec.collectives_per_replay}; in a profiled replay "
+                  f"{names[0]} device events, the collectives' "
+                  f"{names[1] or 'none named'} (one rank: NCCL copies)",
+                  flush=True)
+            del x, on_mesh, alone, cap, eager, ref, rec
+            torch.cuda.empty_cache()
+    print(f"(h) numbers {json.dumps(report)}", flush=True)
+    return counts
+
+
+def check_mesh_train(smi):
+    """(i) ``train_federated(mesh=)`` in an NCCL group of world size 1:
+    granite-8b at full width and 2 layers, 4 agents in 2 tasks, the
+    sharded plan with 1 block, codec None (B2), buffered telemetry (the
+    shape of ``train_lm``'s ``measure_fl_round``), ``MESH_TRAIN["rounds"]``
+    rounds: its round program captured and replayed ``==`` the run under
+    ``uncaptured()`` and the run without ``mesh=`` (population, losses,
+    rows but their disagreement), B2 12 and B4 34 a round through the
+    replays; the collectives a recorder reads of the captured run ``==``
+    the uncaptured run's, and C3 books the rows' all-reduces and the
+    logged loss's broadcast exactly. Then the meshed round program alone:
+    ms a round captured and eager (median of ``MESH_TRAIN["timed"]``),
+    peak allocated and reserved GB."""
+    from repro_torch import telemetry
+    from repro_torch.analysis import costmodel
+    from repro_torch.core import scanloop, topology
+    from repro_torch.core.engine import ConsensusEngine
+    from repro_torch.data import TaskTokenDistribution
+    from repro_torch.launch import train
+    from repro_torch.models.api import lm_loss
+
+    cfg = train_cfg()
+    A, T, S = (TRAIN_FED["agents"], TRAIN_FED["tasks"],
+               TRAIN_FED["local_steps"])
+    rounds = MESH_TRAIN["rounds"]
+    kw = dict(TRAIN_FED, rounds=rounds)
+    out = {}
+    with nccl_mesh("nccl_store_train") as mesh:
+        runs = {}
+        for label, m, ctx in (
+                ("captured", mesh, contextlib.nullcontext()),
+                ("eager", mesh, scanloop.uncaptured()),
+                ("without a mesh", None, contextlib.nullcontext())):
+            tel = telemetry.Telemetry()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with ctx, costmodel.CollectiveRecorder() as rec, \
+                    scanloop.built_programs() as recs:
+                p, hist, _, _ = train.train_federated(
+                    cfg, consensus_plan="sharded", mesh=m, telemetry=tel,
+                    device=DEVICE, return_state=True, **kw)
+            torch.cuda.synchronize()
+            rows = tel.events(live_only=False)
+            runs[label] = dict(
+                host=to_host(p), hist=hist, rows=rows,
+                bare=[{k: v for k, v in e.items() if k != "disagreement"}
+                      for e in rows], n=launch_counts(),
+                records=list(rec.records), recs=recs,
+                peak=torch.cuda.max_memory_allocated() / 1e9,
+                reserved=torch.cuda.max_memory_reserved() / 1e9)
+            del p
+        cap, eag, ref = (runs["captured"], runs["eager"],
+                         runs["without a mesh"])
+        want = fed_expected(cfg, "consensus_update_pop", rounds=rounds)
+        (prog,) = cap["recs"]
+        same_pop = all(torch.equal(cap["host"][k], v) and
+                       torch.equal(ref["host"][k], v)
+                       for k, v in eag["host"].items())
+        eng = ConsensusEngine(topology.clusters(T, A // T), mesh=mesh,
+                              plan="sharded")
+        meta = eng.audit_meta({k: v[0] for k, v in cap["host"].items()})
+        ledger, c3 = costmodel.collective_ledger(
+            meta, cap["records"], "smoke:mesh_train",
+            costmodel.observer_calls(0, rounds, losses=rounds))
+        if not (same_pop and cap["hist"] == eag["hist"] == ref["hist"]
+                and cap["rows"] == eag["rows"] and cap["bare"] == ref["bare"]
+                and cap["n"] == eag["n"] == ref["n"] == want
+                and cap["records"] == eag["records"] and not c3
+                and prog.captures == 1 and prog.replays == rounds - 1
+                and prog.in_place):
+            fail(f"(i) train_federated(mesh=): captured == uncaptured "
+                 f"{same_pop and cap['hist'] == eag['hist']}, == without a "
+                 f"mesh {cap['hist']} / {ref['hist']}, launches {cap['n']} / "
+                 f"{eag['n']} / {ref['n']} (want {want}), records equal "
+                 f"{cap['records'] == eag['records']}, C3 "
+                 f"{[f.message for f in c3]}, program {prog}")
+        print(f"(i) {smi}: train_federated(mesh=) {cfg.name} width "
+              f"{cfg.d_model} layers {cfg.num_layers}, {A} agents, {T} "
+              f"tasks, sharded 1 block, codec None, {rounds} rounds: "
+              f"captured == uncaptured() == without mesh= (population, "
+              f"losses {cap['hist']}, rows), launches {cap['n']}; recorded "
+              f"collectives captured == uncaptured ({len(cap['records'])}), "
+              f"observer calls {ledger.observer_calls}; peak alloc / "
+              f"reserved GB captured {cap['peak']:.2f} / "
+              f"{cap['reserved']:.2f}, eager {eag['peak']:.2f} / "
+              f"{eag['reserved']:.2f}, without a mesh {ref['peak']:.2f} / "
+              f"{ref['reserved']:.2f}", flush=True)
+        out.update(launches=cap["n"], peak_GB={k: (v["peak"], v["reserved"])
+                                               for k, v in runs.items()})
+        del runs, cap, eag, ref
+        torch.cuda.empty_cache()
+
+        # the meshed round program alone, timed
+        engine = ConsensusEngine(topology.clusters(T, A // T), mesh=mesh,
+                                 plan="sharded")
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        params = train.init_params(cfg, gen, DEVICE)
+        st = {"c": ({k: v.expand((A,) + v.shape).clone()
+                     for k, v in params.items()}, None, None, None)}
+        del params
+        dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=T)
+        grid = (torch.arange(A, device=DEVICE) // (A // T))[:, None].expand(
+            A, S)
+
+        def loss_fn(p, tokens, labels):
+            return lm_loss(p, cfg, tokens, labels)
+
+        prog = train.federated_round_program(
+            engine, loss_fn, dist, grid, batch=TRAIN_FED["batch"],
+            seq=TRAIN_FED["seq"], lr=TRAIN_FED["lr"])
+        xs = {"t": torch.zeros((), dtype=torch.int64, device=DEVICE),
+              "link": None, "act": None}
+
+        def one():
+            (st["c"],), _ = prog(st["c"], xs, gen)
+
+        def timed():
+            torch.cuda.reset_peak_memory_stats()
+            one()                 # warm; captured: its call and capture
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(MESH_TRAIN["timed"]):
+                t = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            return dict(ms_per_round=statistics.median(walls),
+                        walls_ms=walls,
+                        peak_GB=torch.cuda.max_memory_allocated() / 1e9,
+                        reserved_GB=torch.cuda.max_memory_reserved() / 1e9)
+
+        with scanloop.uncaptured():
+            out["eager"] = timed()
+        out["captured"] = timed()
+        out["captured"].update(capture_s=prog.record.capture_seconds,
+                               held_bytes=prog.record.held_bytes,
+                               collectives_per_replay=(
+                                   prog.record.collectives_per_replay))
+        print(f"(i) {smi}: the meshed round program ({A} agents x {S} "
+              f"local steps, batch {TRAIN_FED['batch']} x "
+              f"{TRAIN_FED['seq']}): captured {out['captured']}; eager "
+              f"{out['eager']}", flush=True)
+        del st, prog
+    torch.cuda.empty_cache()
+    print(f"(i) numbers {json.dumps(out)}", flush=True)
+    return {"mesh_train_federated": out.pop("launches")}
 
 
 def check_h1():
@@ -5076,7 +5471,11 @@ def main():
                             ("(d) NCCL mesh", check_nccl_mesh, ()),
                             ("(e) memory", check_h1, ()),
                             ("(f) scale smoke", run_scale_smoke, ()),
-                            ("(g) FL on a mesh", check_mesh_fl, (cfg, smi))):
+                            ("(g) FL on a mesh", check_mesh_fl, (cfg, smi)),
+                            ("(h) scan_rounds on a mesh", check_mesh_scan,
+                             (cfg, smi)),
+                            ("(i) train_federated on a mesh",
+                             check_mesh_train, (smi,))):
         t = time.perf_counter()
         by_path.update(fn(*args) or {})
         torch.cuda.empty_cache()

@@ -26,8 +26,9 @@ C2  one dense-plan round's FLOPs, counted by
 C3  every c10d op a round dispatches is the plan's priced wire
     (``engine.audit_meta()['priced_collectives']``), one of a meshed
     engine's observer collectives (``audit_meta()['observer_collectives']``:
-    the drivers' population gather for ``target_fn`` and telemetry's
-    disagreement all-reduces, matched by op AND bytes and booked only up
+    the drivers' population gather for ``target_fn``, telemetry's
+    disagreement all-reduces and ``train_federated``'s broadcast of the
+    logged loss, matched by op AND bytes and booked only up
     to the calls the audited run makes, :func:`observer_calls`, on a
     ledger line of their own and never in the Eq.-(11) bill; a call past
     that count, or a count not reached, is a finding), control plane
@@ -118,7 +119,14 @@ def collective_of(func, args) -> Collective:
 class CollectiveRecorder(TorchDispatchMode):
     """Within the block, every c10d op dispatched in this process is
     appended to ``records`` as a :class:`Collective`; every op still
-    runs as it would."""
+    runs as it would. A captured round program
+    (:func:`repro_torch.core.scanloop.donating_graph` on a meshed engine)
+    dispatches its collectives on its first call, hides its capture's
+    dispatch, and hands each replay's ops to :meth:`replayed`, so a
+    captured run's records ``==`` the same run's under
+    ``scanloop.uncaptured()``. The program layer's agreement all-reduces
+    (``scanloop.agree``: int64 control words, once per program build) run
+    outside every dispatch mode and are never recorded."""
 
     def __init__(self):
         super().__init__()
@@ -128,6 +136,13 @@ class CollectiveRecorder(TorchDispatchMode):
         if func.namespace == "c10d":
             self.records.append(collective_of(func, args))
         return func(*args, **(kwargs or {}))
+
+    def replayed(self, collectives):
+        """Record the c10d ops one replay of a captured program issued
+        (``(op, args)`` pairs its capture recorded, the tensors as
+        ``meta`` tensors of their shapes and dtypes)."""
+        for func, args in collectives:
+            self.records.append(collective_of(func, args))
 
 
 @dataclasses.dataclass
@@ -157,14 +172,20 @@ class StaticLedger:
 # -- pure helpers ------------------------------------------------------------------
 
 
-def observer_calls(evaluated: int, rows: int) -> Dict[str, int]:
+def observer_calls(evaluated: int, rows: int,
+                   losses: int = 0) -> Dict[str, int]:
     """The observer calls a meshed driver run makes, by the quantities
     ``ConsensusEngine.audit_meta()`` names: one population gather per
-    round ``target_fn`` evaluated, and the disagreement's two all-reduces
-    per telemetry row. A bare round makes none (``{}``)."""
-    return {"population for target_fn": evaluated,
-            "disagreement column sums": rows,
-            "disagreement distances": rows}
+    round ``target_fn`` evaluated, the disagreement's two all-reduces per
+    telemetry row, and (``train_federated``, ``losses`` rounds) one
+    broadcast of agent 0's logged loss a round. A bare round makes none
+    (``{}``)."""
+    calls = {"population for target_fn": evaluated,
+             "disagreement column sums": rows,
+             "disagreement distances": rows}
+    if losses:
+        calls["logged loss of agent 0"] = losses
+    return calls
 
 
 def collective_ledger(meta: dict, records, label: str,

@@ -11,8 +11,12 @@ CACHED when it is kept across calls: admitted to
 other program is built per call: the drivers' streaming and host-function
 programs, and the launchers' (serving's prefill and decode, training's
 step and federated round), which the audit runs at a reduced size
-(:func:`_tiny_launchers`) beside the drivers. JX1 and JX4 concern what
-may be CACHED; JX3 and JX5 hold for every program:
+(:func:`_tiny_launchers`) beside the drivers. The meshed engines' programs
+(the FL driver's cached round, ``scan_rounds``' held round and
+``train_federated``'s round, their collectives inside) are driven on a
+process group of world size 1 (:func:`_tiny_meshed`: gloo on the CPU,
+NCCL on the card). JX1 and JX4 concern what may be CACHED; JX3 and JX5
+hold for every program:
 
 JX1  no function that failed the capture probe inside a CACHED program:
      a sampler or target that runs on the host before each replay
@@ -205,11 +209,108 @@ def _tiny_drivers(device):
     return engine, async_engine
 
 
+def _tiny_meshed(device) -> list:
+    """The meshed round programs on ``device``, their records returned: on
+    a group of world size 1 started here (gloo on the CPU, NCCL on the
+    card; a group already live is used as it is, two agents a rank), a
+    sharded int8 engine with fading links and sleeping agents runs
+    ``run_fl_until_scan`` (telemetry off, buffered and streaming, and a
+    host sampler) and ``scan_rounds`` twice a telemetry mode, and a
+    reduced granite trains two federated rounds on the mesh. Their cached
+    programs are evicted before a group started here is destroyed."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import telemetry as telemetry_lib
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import federated, scanloop
+    from repro_torch.core import topology as topo_lib
+    from repro_torch.core.engine import ConsensusEngine
+    from repro_torch.launch import mesh as mesh_lib, train
+
+    cuda = torch.device(device).type == "cuda"
+    own = not dist.is_initialized()
+    with tempfile.TemporaryDirectory() as tmp:
+        if own:
+            mesh_lib.init_local_group(0, 1, os.path.join(tmp, "store"),
+                                      backend="nccl" if cuda else "gloo")
+        try:
+            mesh = mesh_lib.make_agent_mesh(
+                device_type="cuda" if cuda else "cpu")
+            world = dist.get_world_size()
+            K, D = 2 * world, 8
+            eng = ConsensusEngine(
+                topo_lib.ring(K), codec="int8", plan="sharded", mesh=mesh,
+                graph=topo_lib.GraphProcess.dropout(0.3, seed=0),
+                agents=topo_lib.AgentProcess.bernoulli(0.6, seed=0), tau=2)
+            rows = eng.local_rows
+
+            def loss_fn(p, batch):
+                return ((batch["x"] @ p["w"] - batch["y"]) ** 2).mean()
+
+            def sample_batches(generator, _t):
+                x = torch.randn((K, 1, 4, D), generator=generator,
+                                device=device)
+                return {"x": x, "y": x.sum(-1, keepdim=True)}
+
+            host_x = torch.ones((K, 1, 4, D), device=device)
+
+            def host_sampler(_generator, _t):
+                return {"x": host_x, "y": host_x.sum(-1, keepdim=True)}
+
+            def target_fn(stacked):
+                d = stacked["w"].mean()
+                return d < -1e9, d
+
+            mine = {"w": torch.zeros((rows.stop - rows.start, D, 1),
+                                     device=device)}
+            with scanloop.built_programs() as records, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                for sampler, mode in ((sample_batches, None),
+                                      (sample_batches, "buffered"),
+                                      (sample_batches, "streaming"),
+                                      (host_sampler, None)):
+                    federated.run_fl_until_scan(
+                        loss_fn, mine, sampler, eng, 0.1,
+                        target_fn=target_fn, max_rounds=2, chunk=2,
+                        telemetry=(None if mode is None
+                                   else telemetry_lib.Telemetry(mode=mode)),
+                        generator=torch.Generator(
+                            device=device).manual_seed(0))
+                flat = {"w": mine["w"][:, :, 0]}
+                for mode in (None, "buffered", "streaming"):
+                    for _ in range(2):
+                        eng.scan_rounds(
+                            flat, rounds=2,
+                            generator=torch.Generator(
+                                device=device).manual_seed(1),
+                            telemetry=(None if mode is None else
+                                       telemetry_lib.Telemetry(mode=mode)))
+                train.train_federated(
+                    reduced(get_arch("granite-8b"), d_model=64, vocab=128),
+                    rounds=2, agents=2 * world, tasks=1, local_steps=1,
+                    batch=1, seq=8, lr=1e-3, consensus_plan="sharded",
+                    codec="int8", mesh=mesh, device=device)
+            scanloop.evict_programs(records)
+            return records
+        finally:
+            if own:
+                mesh_lib.destroy_local_group()
+
+
 def run_program_audit(device="cpu") -> List[Finding]:
-    """The programs layer: :func:`_tiny_drivers` and
-    :func:`_tiny_launchers` on ``device``, then :func:`audit_programs`
-    over every live program and the launchers' records."""
+    """The programs layer: :func:`_tiny_drivers`, :func:`_tiny_launchers`
+    and :func:`_tiny_meshed` on ``device``, then :func:`audit_programs`
+    over every live program and the records of those that died with
+    their call or group."""
     from repro_torch.core import scanloop
     engines = _tiny_drivers(device)        # noqa: F841 (keeps programs)
-    launchers = _tiny_launchers(device)
-    return audit_programs(scanloop.registered_programs() + launchers)
+    built = _tiny_launchers(device) + _tiny_meshed(device)
+    live = scanloop.registered_programs()
+    ids = {id(r) for r in live}
+    return audit_programs(live + [r for r in built if id(r) not in ids])

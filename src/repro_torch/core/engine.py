@@ -385,6 +385,15 @@ class ConsensusEngine:
         return None
 
     @property
+    def group(self):
+        """The process group of the agent axis the plan runs on (the
+        collectives of a meshed round), None when this process holds all
+        K (``local_rows`` None)."""
+        if self.local_rows is None:
+            return None
+        return self.mesh.get_group(self.plan.axis_name)
+
+    @property
     def mesh_positions(self) -> int:
         """Positions the plan spreads over (1 in one process)."""
         if self.local_rows is None:
@@ -857,11 +866,10 @@ class ConsensusEngine:
         package's ``scan_rounds`` never touches its program cache).
         Streaming telemetry builds the program per call and holds none,
         as the drivers do. On a meshed engine (``local_rows`` set) the
-        round is the plain function, run eagerly every round."""
-        if self.local_rows is not None:
-            rec = (telemetry.recorder_for(self) if telemetry is not None
-                   else None)
-            return self._round_fn(rec, self)
+        carry is this rank's rows and the round's collectives (the
+        consensus wire, the row's disagreement all-reduces) run on the
+        agent axis's group, captured with the round on NCCL
+        (``scanloop.donating_graph(group=)``)."""
         streaming = telemetry is not None and telemetry.streaming
         device = next(iter(stacked_params.values())).device
         key = ("scan_rounds", str(device),
@@ -879,7 +887,7 @@ class ConsensusEngine:
                    else RoundRecorder(engine, telemetry.energy_params))
             prog = scanloop.donating_graph(
                 self._round_fn(rec, engine), donate_argnums=(0,),
-                name="scan_rounds", count_traces=False)
+                name="scan_rounds", count_traces=False, group=self.group)
             prog.record.streaming = streaming
             # the carry (argument 0) holds the AsyncState's clock and ages
             prog.record.async_argnums = ((0,) if self.agents is not None
@@ -916,8 +924,9 @@ class ConsensusEngine:
         device in one copy at the end (streaming mode: each row read after
         its round's replay). Params and state are bit-identical with
         telemetry off, buffered or streaming. On a mesh ``stacked_params``
-        is this process's rows, the rounds run eagerly, and every rank
-        records the same rows (:meth:`audit_meta` names the disagreement's
+        is this process's rows, the round program is held the same way
+        (its collectives captured with it on NCCL), and every rank records
+        the same rows (:meth:`audit_meta` names the disagreement's
         all-reduces)."""
         if rounds is None:
             raise ValueError(
@@ -989,10 +998,12 @@ class ConsensusEngine:
         "quantity", "bytes"}`` with the bytes one call carries for agents
         shaped like ``per_agent`` (one agent's tensors; None without it):
         the gather that hands ``target_fn`` the population (K agents'
-        bytes, once per evaluated round) and the disagreement's two
+        bytes, once per evaluated round), the disagreement's two
         all-reduces (every leaf's f32 column sums, and the (K,) f32
-        distances; once per telemetry row). C3 books them on a line of
-        their own and never in the Eq.-(11) bill."""
+        distances; once per telemetry row) and ``train_federated``'s
+        broadcast of agent 0's logged loss (one f32, once per round). C3
+        books them on a line of their own and never in the Eq.-(11)
+        bill."""
         base = (getattr(self.codec, "inner", self.codec)
                 if self.codec is not None else None)
         meta = dict(PLAN_AUDIT_EXPECTATIONS[self.plan.kind])
@@ -1024,6 +1035,8 @@ class ConsensusEngine:
                      bytes=None if n is None else 4 * n),
                 dict(op="allreduce_", quantity="disagreement distances",
                      bytes=4 * self.K),
+                dict(op="broadcast_", quantity="logged loss of agent 0",
+                     bytes=4),
             ]
         return meta
 

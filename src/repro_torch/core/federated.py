@@ -30,7 +30,9 @@ step with the one-process run) and the driver keeps its rows of them.
 ``eval_every`` grid evaluates, ONE gather over the agent axis
 (:func:`repro_torch.core.consensus.gather_population`) gives every rank the
 one-process run's bits, so every rank reaches the same verdict in the
-same round without a vote; rounds the grid skips issue no collective.
+same round without a vote; rounds the grid skips issue no collective. The
+meshed round is the same cached program, its collectives captured with it
+on an NCCL group.
 """
 from __future__ import annotations
 
@@ -125,6 +127,20 @@ def fedavg_round(loss_fn, global_params, stacked_batches, weights,
                             ).to(x.dtype) for k, x in locals_.items()}
 
 
+def population_stand_in(stacked_params, engine):
+    """A (K, ...) population built from this rank's rows alone (its rows
+    repeated), for probing ``target_fn`` on a meshed engine without a
+    gather: the probe's call is real, and a gather there would be a
+    collective the run does not make."""
+    K = engine.K
+
+    def whole(x):
+        reps = -(-K // x.shape[0])
+        return x.repeat((reps,) + (1,) * (x.dim() - 1))[:K]
+
+    return {k: whole(v) for k, v in stacked_params.items()}
+
+
 def fl_round_program(engine, update, evaluate, *, recorder=None,
                      keep_delivered: bool = False,
                      host_fns=(), streaming: bool = False):
@@ -159,9 +175,11 @@ def fl_round_program(engine, update, evaluate, *, recorder=None,
     clock and ages; its telemetry row becomes
     :meth:`RoundRecorder.frozen_row`).
 
-    On a meshed engine (``engine.local_rows`` set) the round is returned as
-    a plain function, run eagerly every round: the program layer does not
-    capture collectives yet."""
+    On a meshed engine (``engine.local_rows`` set) the program's carry is
+    this rank's rows, and its body's collectives (the consensus wire,
+    ``evaluate``'s population gather, the row's disagreement all-reduces)
+    run on the agent axis's group: captured with the round on NCCL
+    (``scanloop.donating_graph(group=)``)."""
     is_async = engine.agents is not None
     keep = keep_delivered and (is_async or engine.graph.kind != "static")
     f64 = torch.float64
@@ -216,10 +234,8 @@ def fl_round_program(engine, update, evaluate, *, recorder=None,
             cols.append(recorder.pack([row])[0])
         return ((params, st, clock, age, reached),), torch.cat(cols)
 
-    if engine.local_rows is not None:
-        return fl_round
     prog = scanloop.donating_graph(fl_round, donate_argnums=(0,),
-                                   name="fl_chunk")
+                                   name="fl_chunk", group=engine.group)
     prog.record.host_fns = tuple(host_fns)
     prog.record.streaming = bool(streaming)
     # the carry (argument 0) holds the AsyncState's clock and ages
@@ -345,6 +361,11 @@ def _fl_program(loss_fn, sample_batches, target_fn, engine, lr, *,
         return out if has_codec else (out, None)
 
     def evaluate(new, _generator):
+        if engine.local_rows is not None:
+            # the whole population, on every rank: one gather a round the
+            # grid evaluates
+            new = consensus.gather_population(new, engine.mesh,
+                                              engine.plan.axis_name)
         r, metric = target_fn(new)
         device = next(iter(new.values())).device
         return (torch.as_tensor(r, device=device).to(torch.bool),
@@ -373,9 +394,16 @@ def _run_fl_chunked(loss_fn, stacked_params, sample_batches, engine, lr, *,
     skips the capture probes. A sampler or target that fails the probe
     (:func:`repro_torch.core.scanloop.traceable`) runs on the host each
     round, and its program is built per call and never admitted to the
-    cache; so is a streaming-telemetry program. On a meshed engine
-    (``engine.local_rows`` is not None) both functions run on the host and
-    the round runs eagerly, uncached (:func:`fl_round_program`)."""
+    cache; so is a streaming-telemetry program.
+
+    A meshed engine (``engine.local_rows`` is not None) takes the same
+    key (the engine's identity covers its mesh) and the same program: the
+    sampler inside the round, and ``target_fn`` inside the ``eval``
+    variant on the gathered population
+    (:func:`repro_torch.core.consensus.gather_population`). The target is
+    probed on :func:`population_stand_in`, not on a gather, and the ranks
+    take the least of their verdicts (``scanloop.agree``), so every rank
+    builds the same program."""
     engine = ConsensusEngine.wrap(engine, codec=codec)
     has_codec = engine.codec is not None
     streaming = telemetry is not None and telemetry.streaming
@@ -383,29 +411,26 @@ def _run_fl_chunked(loss_fn, stacked_params, sample_batches, engine, lr, *,
                 else None)
     meshed = engine.local_rows is not None
     program = None
-    if meshed:
-        s_ok = t_ok = False
-        program = _fl_program(loss_fn, None, None, engine, lr,
-                              has_codec=has_codec, recorder=recorder,
-                              host_fns=("sample_batches", "target_fn"),
-                              streaming=streaming)
-    else:
-        key = ("fl_chunk", loss_fn, sample_batches, target_fn, engine,
-               float(lr), int(max_rounds), int(eval_every),
-               scanloop.tree_signature(stacked_params))
-        if telemetry is not None:
-            key = key + (telemetry.trace_signature(),)
-        if not streaming:
-            program = scanloop.get_cached_program(key)
-        s_ok = t_ok = program is not None      # hit: the probes passed
+    key = ("fl_chunk", loss_fn, sample_batches, target_fn, engine,
+           float(lr), int(max_rounds), int(eval_every),
+           scanloop.tree_signature(stacked_params))
+    if telemetry is not None:
+        key = key + (telemetry.trace_signature(),)
+    if not streaming:
+        program = scanloop.get_cached_program(key)
+    s_ok = t_ok = program is not None          # hit: the probes passed
     if program is None:
         device = next(iter(stacked_params.values())).device
         _, s_ok = scanloop.traceable(
             sample_batches, generator,
             torch.zeros((), dtype=torch.int64, device=device),
             name="sample_batches")
-        _, t_ok = scanloop.traceable(target_fn, stacked_params,
-                                     name="target_fn")
+        _, t_ok = scanloop.traceable(
+            target_fn, population_stand_in(stacked_params, engine)
+            if meshed else stacked_params, name="target_fn")
+        if meshed:
+            s_ok, t_ok = map(bool, scanloop.agree(engine.group,
+                                                  [s_ok, t_ok]))
         host = tuple(n for n, ok in (("sample_batches", s_ok),
                                      ("target_fn", t_ok)) if not ok)
 

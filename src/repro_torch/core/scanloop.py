@@ -89,6 +89,27 @@ drivers still read the device once per chunk. The pieces:
   the captured tensor would overwrite the caller's). The program does
   not own them: ``held_bytes`` and :func:`held_bytes_lower_bound` count
   them as 0.
+* COLLECTIVES. A meshed round's body issues c10d collectives on its
+  process group (``donating_graph(group=)``: the consensus wire, the
+  population gather, telemetry's all-reduces). On an NCCL group they are
+  captured with the rest of the round: the communicator was set up by
+  the variant's first call, which runs eagerly before the capture, and
+  the capture runs in ``"thread_local"`` mode whenever a process group
+  is live (its watchdog thread queries CUDA events meanwhile). A group
+  whose backend joins no CUDA graph (gloo, on CUDA tensors) runs the
+  program eagerly, ``why_uncaptured`` naming the backend; on the CPU it
+  runs eagerly as every program does. A dispatch mode sees a call's
+  collectives as they run: the first call's eagerly; the capture's
+  dispatch is hidden from every active mode; each replay hands the ops
+  its capture recorded (``ProgramRecord.collectives_per_replay``) to the
+  active modes that take them (``replayed``, as
+  ``repro_torch.analysis.costmodel.CollectiveRecorder`` does), so a
+  captured run records what the same run records under
+  :func:`uncaptured`. Every rank must decide alike where a decision
+  changes the collectives it issues: the byte rule predicts from shapes
+  (the same on every rank for equal blocks) and, after a capture, takes
+  the largest ``held_bytes`` over the group (:func:`agree`: one int64
+  all-reduce outside every dispatch mode).
 * :func:`built_programs` collects the records of the programs a block
   builds, for audits and tests of programs that die with their call.
 * :func:`first_hit` and :func:`to_host` — t_i from a chunk's reached
@@ -159,6 +180,12 @@ class ProgramRecord:
     streaming: bool = False
     #: kernel launches of one replay, by wrapper, per variant label
     launches_per_replay: dict = dataclasses.field(default_factory=dict)
+    #: the c10d ops one replay issues, by name in order, per variant label
+    #: (a program whose body runs collectives on ``group``)
+    collectives_per_replay: dict = dataclasses.field(default_factory=dict)
+    #: the backend of the process group the body's collectives run on
+    #: (``donating_graph(group=)``), None for a one-process program
+    group_backend: Optional[str] = None
     #: a capture's call is its variant's first call, run eagerly just
     #: before the capture; every later call of the variant replays
     captures: int = 0
@@ -233,7 +260,9 @@ def built_programs():
     try:
         yield records
     finally:
-        _COLLECTING.remove(records)
+        # by identity: an enclosing block's list may hold equal records
+        del _COLLECTING[next(i for i, r in enumerate(_COLLECTING)
+                             if r is records)]
 
 
 _UNCAPTURED = [0]
@@ -497,9 +526,21 @@ def held_bytes_lower_bound(args, donate_argnums=(), keep_argnums=()) -> int:
     return total
 
 
+def _meta_like(x):
+    """``x`` with every tensor replaced by an empty tensor of its shape and
+    dtype on the ``meta`` device (what a record of the op reads)."""
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    if isinstance(x, (list, tuple)):
+        return type(x)(_meta_like(i) for i in x)
+    return x
+
+
 class _LastOp:
     """Names the last aten op dispatched while a graph is captured, so a
-    capture failure says which op the graph refused."""
+    capture failure says which op the graph refused, and keeps the c10d
+    ops the capture dispatched (``collectives``: ``(op, args)`` with the
+    tensors as ``meta`` tensors), which every replay issues again."""
 
     def __init__(self):
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -509,10 +550,51 @@ class _LastOp:
         class Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 box.last = str(func)
+                if func.namespace == "c10d":
+                    box.collectives.append((func, _meta_like(tuple(args))))
                 return func(*args, **(kwargs or {}))
 
         self.last = "no aten op yet"
+        self.collectives = []
         self.mode = Mode()
+
+
+def _hand_to_recorders(collectives):
+    """Hand the c10d ops a replay issued to every active dispatch mode that
+    takes them (``replayed(collectives)``, as
+    ``repro_torch.analysis.costmodel.CollectiveRecorder`` does): a replay
+    dispatches no op, so a recorder would otherwise miss its collectives."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in _get_current_dispatch_mode_stack():
+        take = getattr(mode, "replayed", None)
+        if take is not None:
+            take(collectives)
+
+
+def _group_backend(group) -> str:
+    """The backend name of a process group (``"nccl"``, ``"gloo"``)."""
+    return str(torch.distributed.get_backend(group)).lower()
+
+
+def agree(group, values, op: str = "min") -> list:
+    """``values`` (ints or bools) reduced elementwise over the ranks of
+    ``group`` (``op`` "min" or "max"): ONE int64 all-reduce, so that every
+    rank takes the same decision (a probe's verdict, the byte rule). It
+    runs outside every active dispatch mode, so a collective recorder
+    sees only the run's own collectives, captured or not; its payload is
+    an int64 control word, never model data."""
+    import torch.distributed as dist
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if "nccl" in _group_backend(group) else torch.device("cpu"))
+    t = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                     device=device)
+    with _disable_current_modes():
+        dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min"
+                        else dist.ReduceOp.MAX, group=group)
+    return [int(v) for v in t.tolist()]
 
 
 def _write_carry(fn_name, buffers, carry_out):
@@ -544,6 +626,8 @@ class _Variant:
         self.ys = None
         self.ys_spec = None
         self.launches = {}
+        #: the c10d ops of one replay (``_LastOp.collectives``)
+        self.collectives = []
         self.gens = []          # (argument position, private generator)
         #: (flat position, storage addresses) of the kept leaves
         self.kept = []
@@ -553,8 +637,10 @@ class Program:
     """A :func:`donating_graph` program (see the module docstring)."""
 
     def __init__(self, fn, donate_argnums=(), name=None, count_traces=True,
-                 keep_argnums=()):
+                 keep_argnums=(), group=None):
         self.fn = fn
+        #: the process group the body's collectives run on (None: none)
+        self.group = group
         self.donate_argnums = tuple(donate_argnums)
         self.keep_argnums = tuple(keep_argnums)
         if set(self.keep_argnums) & set(self.donate_argnums):
@@ -564,6 +650,8 @@ class Program:
         self.count_traces = count_traces
         self.record = ProgramRecord(self.name, fn, self.donate_argnums,
                                     self.keep_argnums)
+        if group is not None:
+            self.record.group_backend = _group_backend(group)
         self._variants = {}
         self._carry = {}        # donated args' signature -> their buffers
         self._seen = set()      # variant signatures built (TRACE_COUNTS)
@@ -613,6 +701,10 @@ class Program:
                 return self._eager(OVER_BYTE_CAP, args)
         if device.type != "cuda":
             return self._eager(device.type, args)
+        if self.group is not None and "nccl" not in rec.group_backend:
+            # only NCCL's collectives join a CUDA graph
+            return self._eager(f"collectives on a {rec.group_backend} group",
+                               args)
         if variant is None:
             variant, out = self._capture(args, flat, spec, sig)
             if held and _above_cap(rec.held_bytes):
@@ -684,6 +776,8 @@ class Program:
         return static
 
     def _capture(self, args, flat, spec, sig):
+        from torch.utils._python_dispatch import _disable_current_modes
+
         device = self._device(flat)
         donated = _arg_positions(args, self.donate_argnums)
         kept = set(_arg_positions(args, self.keep_argnums))
@@ -740,11 +834,19 @@ class Program:
         # graph would be destroyed mid-capture, a call the capture refuses
         gc_on = gc.isenabled()
         gc.disable()
+        # with a process group live, its watchdog thread queries CUDA
+        # events while the capture is underway: a capture in "global" mode
+        # would refuse those calls
+        mode = ("thread_local" if torch.distributed.is_available()
+                and torch.distributed.is_initialized() else "global")
         try:
             with torch.cuda.stream(stream):
-                graph.capture_begin(pool=self._pool)
+                graph.capture_begin(pool=self._pool, capture_error_mode=mode)
                 try:
-                    with last.mode:
+                    # the capture is not a call: active dispatch modes (a
+                    # collective recorder) see the first call and the
+                    # replays, never the capture's dispatch
+                    with _disable_current_modes(), last.mode:
                         graph_carry, graph_ys = self.fn(*static_args)
                         _write_carry(fn_name, carry, graph_carry)
                 except Exception as e:
@@ -768,6 +870,7 @@ class Program:
         after = launch_counts()
         v.launches = {n: after[n] - counts[n] for n in counts}
         _set_launch_counts(counts)
+        v.collectives = last.collectives
         v.graph = graph
         v.ys, v.ys_spec = tree_flatten(graph_ys)
         rec = self.record
@@ -776,8 +879,15 @@ class Program:
         rec.captures += 1
         rec.capture_seconds += time.perf_counter() - t0
         rec.launches_per_replay[v.label] = dict(v.launches)
+        if v.collectives:
+            rec.collectives_per_replay[v.label] = tuple(
+                str(f.overloadpacket) for f, _ in v.collectives)
         rec.held_bytes = (sum(_tensor_bytes(c) for c in self._carry.values())
                           + self._static_bytes + self._pool_bytes)
+        if self.group is not None and rec.cache_key is not None:
+            # the byte rule decides alike on every rank: one replaying
+            # while another runs eagerly would issue other collectives
+            rec.held_bytes = agree(self.group, [rec.held_bytes], "max")[0]
         return v, self._result(v, args, ys)
 
     # -- replay -----------------------------------------------------------------
@@ -816,6 +926,8 @@ class Program:
         for i, g in v.gens:
             g.set_state(flat[i].get_state())
         v.graph.replay()
+        if v.collectives:
+            _hand_to_recorders(v.collectives)
         for i, g in v.gens:
             flat[i].set_state(g.get_state())
         ops = _ops()
@@ -844,17 +956,20 @@ class Program:
 
 def donating_graph(fn: Callable, donate_argnums=(), *,
                    name=None, count_traces: bool = True,
-                   keep_argnums=()) -> Program:
+                   keep_argnums=(), group=None) -> Program:
     """A :class:`Program` running ``fn`` as one CUDA graph per argument
     signature (see the module docstring). ``fn(*args) -> (carry, ys)``,
     ``carry`` a tuple with one new value per ``donate_argnums`` entry, in
     order, shaped like that argument. ``keep_argnums``: arguments read in
-    place, by reference. Every program is registered for
-    ``repro_torch.analysis`` (:func:`registered_programs`).
-    ``count_traces=False`` keeps its builds out of :data:`TRACE_COUNTS`
-    (a program the JAX package's counterpart never traces through its
-    program cache: ``ConsensusEngine.scan_rounds``)."""
-    prog = Program(fn, donate_argnums, name, count_traces, keep_argnums)
+    place, by reference. ``group``: the process group ``fn``'s collectives
+    run on (a meshed round; see COLLECTIVES in the module docstring).
+    Every program is registered for ``repro_torch.analysis``
+    (:func:`registered_programs`). ``count_traces=False`` keeps its builds
+    out of :data:`TRACE_COUNTS` (a program the JAX package's counterpart
+    never traces through its program cache:
+    ``ConsensusEngine.scan_rounds``)."""
+    prog = Program(fn, donate_argnums, name, count_traces, keep_argnums,
+                   group)
     _PROGRAM_REFS.append(weakref.ref(prog))
     for records in _COLLECTING:
         records.append(prog.record)
@@ -1005,6 +1120,15 @@ def clear_program_cache():
     _program_cache.clear()
 
 
+def evict_programs(records):
+    """Drop the cached programs whose records are among ``records`` (a
+    meshed run's programs, before its process group is destroyed)."""
+    ids = {id(r) for r in records}
+    for key in [k for k, p in _program_cache.items()
+                if id(getattr(p, "record", None)) in ids]:
+        del _program_cache[key]
+
+
 # -- host side of a chunk -----------------------------------------------------------
 
 def first_hit(reached_mask) -> Optional[int]:
@@ -1028,5 +1152,6 @@ __all__ = [
     "get_cached_program", "cached_program", "clear_program_cache",
     "PROGRAM_CACHE_BYTES", "trim_program_cache",
     "first_hit", "to_host", "launch_counts", "COUNTED_KERNELS",
-    "OVER_BYTE_CAP", "held_bytes_lower_bound", "built_programs",
+    "OVER_BYTE_CAP", "held_bytes_lower_bound", "built_programs", "agree",
+    "evict_programs",
 ]

@@ -38,9 +38,15 @@ C3. :func:`dry_run_sharded` and :func:`dry_run_distributed` are the JAX
 harness's compile-and-inspect checks on a fake process group (rank 0 of
 8 or K ranks, nothing moved): no (K, K) buffer among the shapes a masked
 round produces, the wire collective present, an int8 wire carrying int8,
-the C3 ledger clean. Its donation check (JX3) has no counterpart: a
-meshed round runs eagerly and donates no buffer (the one-process round
-programs' JX3 is ``python -m repro_torch.analysis --layer programs``).
+the C3 ledger clean. Its donation check (JX3) is not made there: the dry
+run steps the engine once, outside any program; the round programs'
+JX3, meshed or not, is ``python -m repro_torch.analysis --layer
+programs``.
+
+* **the meshed round programs** — :func:`run_program_checks`:
+  ``train_federated(mesh=)`` (:func:`train_cases`) against the same run
+  in one process, the meshed FL driver's cached program hit on a second
+  call, and ``scan_rounds``' program held by its engine.
 
 For the LM zoo, :func:`run_lm_parity` spawns a data x model gloo group
 and runs :func:`lm_mesh_case` on each rank: the tensor- and data-parallel
@@ -61,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import time
 from pathlib import Path
@@ -297,8 +304,29 @@ def _scale(trees) -> tuple:
     return n, max(float(abs(v).max()) for t in trees for v in t.values())
 
 
+def fl_functions(K, x, thr, device) -> tuple:
+    """``(sample, loss, target_fn)`` of the FL case (:func:`fl_run`) for K
+    agents shaped like ``x``'s rows and the threshold ``thr``: made once
+    and passed to several runs, they key one cached round program."""
+    target = fl_targets(x, device)
+
+    def sample(gen, _t):
+        return {k: v + 0.1 * torch.randn((K, 1) + tuple(v.shape),
+                                         generator=gen, device=device)
+                for k, v in target.items()}
+
+    def loss(p, b):
+        return sum(0.5 * (p[k] - b[k]).square().sum() for k in p)
+
+    def target_fn(stacked):
+        m = sum((stacked[k] - target[k]).square().mean() for k in stacked)
+        return m < thr, m
+
+    return sample, loss, target_fn
+
+
 def fl_run(eng, x, thr, *, chunk, device, max_rounds=FL["max_rounds"],
-           eval_every=1, record=False) -> dict:
+           eval_every=1, record=False, fns=None) -> dict:
     """One FL run of the case: K agents, one local step a round on
     ½‖w − w*‖² toward :func:`fl_targets` plus noise
     the sampler draws from the run's generator (which also drives the int
@@ -312,25 +340,16 @@ def fl_run(eng, x, thr, *, chunk, device, max_rounds=FL["max_rounds"],
     either side; ``scale``: :func:`_scale` of ``x``, the targets and the
     result. With ``record``, also the c10d ops the driver dispatched
     (``records``), ``eng.audit_meta()`` and the observer calls the run
-    must make (``observer_calls``), for :func:`fl_ledger`."""
+    must make (``observer_calls``), for :func:`fl_ledger`. ``fns``: the
+    run's :func:`fl_functions` (default: made for this run, so its round
+    program is built anew)."""
     from repro_torch.analysis import costmodel
     from repro_torch.core import federated
     from repro_torch.telemetry import MemorySink, Telemetry
 
     target = fl_targets(x, device)
-    K = eng.K
-
-    def sample(gen, _t):
-        return {k: v + 0.1 * torch.randn((K, 1) + tuple(v.shape),
-                                         generator=gen, device=device)
-                for k, v in target.items()}
-
-    def loss(p, b):
-        return sum(0.5 * (p[k] - b[k]).square().sum() for k in p)
-
-    def target_fn(stacked):
-        m = sum((stacked[k] - target[k]).square().mean() for k in stacked)
-        return m < thr, m
+    sample, loss, target_fn = (fl_functions(eng.K, x, thr, device)
+                               if fns is None else fns)
 
     gen = torch.Generator(device=device).manual_seed(GEN_SEED)
     sink = MemorySink()
@@ -512,6 +531,160 @@ def run_mesh_checks(world: int, parity=None, fl=None, *,
             "alone": alone}
 
 
+#: ``train_federated`` on a mesh (:func:`train_run`): granite-8b reduced
+#: to one layer of width 32, and the run's arguments
+TRAIN = dict(rounds=2, local_steps=1, batch=1, seq=8, lr=1e-2)
+
+
+def train_cfg():
+    """The reduced granite-8b :func:`train_run` trains."""
+    from repro_torch.configs import get_arch, reduced
+    return reduced(get_arch("granite-8b"), num_layers=1, d_model=32)
+
+
+def train_cases(world: int) -> list:
+    """(plan, agents, tasks, codec, dropout_p, awake_p) of
+    ``train_federated`` on a ``world``-rank group: the sharded plan two
+    agents a rank, the distributed plan one, in clusters that span ranks
+    (one cluster at 2 ranks, two at 4); codecs None and int8 (error
+    feedback); the sharded int8 run on links fading with p = 0.3, the
+    distributed int8 run with agents awake with p = 0.7 (τ = 2)."""
+    tasks = max(1, world // 2)
+    return [("sharded", 2 * world, tasks, None, 0.0, None),
+            ("sharded", 2 * world, tasks, "int8", DROPOUT_P, None),
+            ("distributed", world, tasks, None, 0.0, None),
+            ("distributed", world, tasks, "int8", 0.0, 0.7)]
+
+
+def train_run(case, world: int, *, mesh=None, device="cpu",
+              record=False) -> dict:
+    """One ``train_federated`` run of ``case`` (:func:`train_cases`) with
+    buffered telemetry: on ``mesh`` (the run returns this rank's rows), or
+    in one process with the sharded plan in ``world`` blocks, as the
+    meshed run splits it. With ``record``, the c10d ops it dispatched,
+    the engine's ``audit_meta()`` and the observer calls the run must
+    make (two all-reduces a row, one loss broadcast a round)."""
+    from repro_torch.analysis import costmodel
+    from repro_torch.core import topology
+    from repro_torch.launch import train
+    from repro_torch.telemetry import Telemetry
+
+    plan, agents, tasks, codec, p, awake = case
+    asleep = ({} if awake is None else dict(
+        availability=topology.AgentProcess.bernoulli(awake, seed=1), tau=2))
+    cfg = train_cfg()
+    tel = Telemetry()
+    rec = (costmodel.CollectiveRecorder() if record
+           else contextlib.nullcontext())
+    with rec, contextlib.redirect_stdout(io.StringIO()):
+        params, hist, _, st = train.train_federated(
+            cfg, agents=agents, tasks=tasks, consensus_plan=plan,
+            codec=codec, dropout_p=p, mesh=mesh, telemetry=tel,
+            num_blocks=world if plan == "sharded" else None, device=device,
+            return_state=True, **asleep, **TRAIN)
+    out = dict(params=_numpy(params), state=_numpy(st), history=hist,
+               events=tel.events(), scale=_scale([params]))
+    if record:
+        graph = (topology.GraphProcess.dropout(p, seed=0) if p > 0
+                 else None)
+        eng = ConsensusEngine(topology.clusters(tasks, agents // tasks),
+                              codec=codec, mesh=mesh, plan=plan, graph=graph,
+                              agents=asleep.get("availability"),
+                              tau=asleep.get("tau"))
+        rounds = TRAIN["rounds"]
+        out.update(records=list(rec.records),
+                   meta=eng.audit_meta({k: v[0] for k, v in params.items()}),
+                   observer_calls=costmodel.observer_calls(0, rounds,
+                                                           losses=rounds))
+    return out
+
+
+def program_rows(rank, world, cases, fl, device="cpu") -> dict:
+    """One rank of :func:`run_program_checks` on the initialised group:
+    each ``train_federated`` case (:func:`train_run`, recorded); the FL
+    case ``fl`` (topology, plan, codec, process, eval_every, threshold)
+    driven twice with one set of :func:`fl_functions`, each call's
+    program-cache hits, misses and builds, the cached program's record;
+    and :data:`PARITY_ROUNDS` rounds of ``scan_rounds`` twice on the
+    sharded engine of :func:`parity_case`, with the records its engine
+    holds."""
+    from repro_torch.core import scanloop
+
+    mesh = agent_mesh(world, device_type=device)
+    out = dict(train=[train_run(c, world, mesh=mesh, device=device,
+                                record=True) for c in cases])
+    topo, plan, codec, process, every, thr = fl
+    eng, _ = mesh_pair(topo, plan, codec, mesh, process)
+    full = population(topo.K, FL["n"], FL["seed"])
+    mine = {k: torch.from_numpy(v[eng.local_rows]).to(device)
+            for k, v in full.items()}
+    fns = fl_functions(eng.K, mine, thr, device)
+    runs = []
+    for _ in range(2):
+        before = scanloop.cache_stats()
+        run = fl_run(eng, mine, thr, chunk=FL["chunk"], device=device,
+                     eval_every=every, record=True, fns=fns)
+        after = scanloop.cache_stats()
+        run.update({k: after[k] - before[k] for k in ("hits", "misses")},
+                   builds=after["trace_counts"].get("fl_chunk", 0)
+                   - before["trace_counts"].get("fl_chunk", 0))
+        runs.append(run)
+    out["fl"] = runs
+    out["fl_programs"] = [_record_fields(r)
+                          for r in scanloop.registered_programs()
+                          if r.cache_key is not None
+                          and r.cache_key[0] == "fl_chunk"
+                          and r.cache_key[4] is eng]
+    stopo = case_graph(4 * world)
+    on_mesh, _ = mesh_pair(stopo, "sharded", "int8", mesh)
+    x = {k: torch.from_numpy(v[on_mesh.local_rows]).to(device)
+         for k, v in population(stopo.K, 64).items()}
+    out["scan"] = [scan_run(on_mesh, x, device) for _ in range(2)]
+    out["scan_programs"] = [_record_fields(r)
+                            for r in on_mesh.program_records()]
+    return out
+
+
+def _record_fields(rec) -> dict:
+    """The picklable fields of a ``scanloop.ProgramRecord``."""
+    return dict(name=rec.name, cached=rec.cache_key is not None,
+                family=None if rec.cache_key is None else rec.cache_key[0],
+                host_fns=rec.host_fns, streaming=rec.streaming,
+                captured=rec.captured, why_uncaptured=rec.why_uncaptured,
+                group_backend=rec.group_backend, eager_calls=rec.eager_calls,
+                captures=rec.captures, replays=rec.replays,
+                async_argnums=rec.async_argnums,
+                donate_argnums=rec.donate_argnums)
+
+
+def run_program_checks(world: int, *, timeout_s: float = 180.0) -> dict:
+    """The meshed round programs on ONE spawned gloo group of ``world``
+    ranks (:func:`program_rows`), beside the same runs in this process
+    without a mesh: ``{"train": [(case, [rank rows], one-process run)],
+    "fl": ([rank rows], {chunk: one-process run}, case), "scan": [rank
+    rows], "world": world}``."""
+    cases = train_cases(world)
+    alone = [train_run(c, world) for c in cases]
+    topo = case_graph(4 * world)
+    x = {k: torch.from_numpy(v)
+         for k, v in population(topo.K, FL["n"], FL["seed"]).items()}
+    thr = fl_threshold(masked_engine(topo, "sharded", "int8",
+                                     num_blocks=world), x, device="cpu")
+    fl = (topo, "sharded", "int8", "fading", 1, thr)
+    fl_alone = fl_run(masked_engine(topo, "sharded", "int8",
+                                    num_blocks=world), x, thr,
+                      chunk=FL["chunk"], device="cpu")
+    got = mesh_lib.run_on_group(world, program_rows, cases, fl, "cpu",
+                                timeout_s=timeout_s)
+    return dict(world=world,
+                train=[(c, [g["train"][i] for g in got], alone[i])
+                       for i, c in enumerate(cases)],
+                fl=([g["fl"] for g in got], fl_alone, fl),
+                fl_programs=[g["fl_programs"] for g in got],
+                scan=[g["scan"] for g in got],
+                scan_programs=[g["scan_programs"] for g in got])
+
+
 def _masked_round_records(topo, plan, codec, world, n, **kw):
     """One masked round of ``plan`` at rank 0 of a ``FakeStore`` group of
     ``world`` ranks (collectives move nothing, so values are not
@@ -574,8 +747,8 @@ def dry_run_sharded(k: int = 4096, *, num_blocks: int = 8,
     shapes the round's ops produced
     (:func:`repro_torch.launch.hlo_analysis.square_buffers`); the wire
     collective present and an int8 wire carrying int8; the C3 ledger
-    clean. The JAX harness's donation check (JX3) has no counterpart:
-    a meshed round runs eagerly and donates no buffer."""
+    clean. The JAX harness's donation check (JX3) is not made here: the
+    round is stepped once, outside any program."""
     from repro_torch.launch.hlo_analysis import square_buffers
 
     eng, rec, secs = _masked_round_records(

@@ -28,8 +28,10 @@ the counterparts of the JAX package's ``jax.jit`` step and its donating
 round loop: on the card each is captured once into a CUDA graph and
 replayed (params and optimizer state, or the population, its codec state
 and the async clocks, donated: updated in place; the batch, or the
-round's ``t``, link and activity rows, static inputs); on the CPU, under
-``scanloop.uncaptured()`` and on a meshed engine they run eagerly.
+round's ``t``, link and activity rows, static inputs); on the CPU and
+under ``scanloop.uncaptured()`` they run eagerly. On a meshed engine
+(``train_federated(mesh=)``) each rank holds and steps its own agents,
+and the round's collectives are captured with it on an NCCL group.
 
 Usage (on the card; ``--device cpu --reduced`` for a CPU-sized run):
     PYTHONPATH=src python -m repro_torch.launch.train --mode federated \\
@@ -42,6 +44,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as tdist
 
 import repro_torch
 from repro_torch import telemetry as telemetry_lib
@@ -140,7 +143,7 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
                     dropout_seed: int = 0, availability=None,
                     tau=None, staleness_decay: float = 1.0,
                     telemetry=None, metrics_path=None, device="cuda",
-                    return_state: bool = False):
+                    return_state: bool = False, num_blocks=None):
     """Clustered federated LM training (the paper's stage 2 at LM scale).
 
     ``agents`` agents form ``tasks`` clusters of ``agents // tasks``;
@@ -168,9 +171,19 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
     bits. ``metrics_path`` writes a buffered telemetry JSONL log. The
     logged loss is agent 0's after mixing, on its first local batch.
 
+    ``mesh`` (a ``DeviceMesh`` with an ``agents`` axis over the process
+    group) spreads the agents over the ranks: the sharded plan a block a
+    rank (``num_blocks``, the sharded plan's block count, defaults to the
+    axis's size), the distributed plan one agent a rank. Each rank then
+    holds only its rows (``engine.local_rows``), draws the whole
+    population's batches from the round's generator as one process does
+    and steps only its agents; agent 0's loss reaches every rank by one
+    broadcast a round (an observer collective of ``audit_meta()``).
+
     Returns ``(stacked params {name: (K, ...)}, per-round losses, the
     Eq.-(11) estimate in J)``, and the codec state (error-feedback
-    residuals, or None) last with ``return_state=True``."""
+    residuals, or None) last with ``return_state=True``; on a mesh, this
+    rank's rows of both."""
     if cfg.family not in FEDERATED_FAMILIES:
         raise ValueError(
             f"{cfg.name} is a {cfg.family!r} model: train_federated trains "
@@ -195,7 +208,8 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
     engine = ConsensusEngine(topo, codec=codec, mesh=mesh,
                              plan=consensus_plan, graph=graph,
                              agents=availability, tau=tau,
-                             staleness_decay=staleness_decay)
+                             staleness_decay=staleness_decay,
+                             num_blocks=num_blocks)
     codec = engine.codec
     is_async = engine.agents is not None
     fading = engine.graph.kind != "static"
@@ -204,9 +218,12 @@ def train_federated(cfg, *, rounds: int, agents: int, tasks: int,
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device)
     round_gens = stage_generators(gen, rounds)
-    # one row per agent, not a broadcast view: the rounds write the local
-    # steps into the population in place (its buffers, donated)
-    stacked = {n: x.expand((agents,) + x.shape).clone()
+    # one row per agent this process holds (all of them without a mesh),
+    # not a broadcast view: the rounds write the local steps into the
+    # population in place (its buffers, donated)
+    rows = engine.local_rows
+    held = agents if rows is None else rows.stop - rows.start
+    stacked = {n: x.expand((held,) + x.shape).clone()
                for n, x in params.items()}
     dist = TaskTokenDistribution(vocab_size=cfg.vocab_size, num_tasks=tasks)
     task_grid = (torch.arange(agents, device=device) // per)[:, None].expand(
@@ -302,8 +319,18 @@ def federated_round(engine, loss_fn, dist, task_grid, *, batch: int,
     of ``task_grid``'s tasks are drawn from ``generator``, then
     :func:`fl_round` and the logged loss (agent 0's after mixing, on its
     first local batch); ``row`` is one float64 row: that loss, then the
-    ``recorder``'s packed telemetry row."""
+    ``recorder``'s packed telemetry row.
+
+    On a meshed engine the population and codec state are this rank's
+    rows (``engine.local_rows``): the whole population's batches are
+    drawn, as one process draws them, and the rank keeps its rows and
+    steps its agents; the clocks and the row read the whole population's
+    activity. The rank holding agent 0 computes the loss and broadcasts
+    it over the agent axis (``audit_meta()``'s observer "logged loss of
+    agent 0")."""
     is_async = engine.agents is not None
+    rows, group = engine.local_rows, engine.group
+    owner = rows is None or rows.start == 0        # holds agent 0
 
     def one_round(carry, xs, g):
         stacked, codec_state, clock, age = carry
@@ -316,12 +343,23 @@ def federated_round(engine, loss_fn, dist, task_grid, *, batch: int,
         else:
             sv, act, deliv = link, None, link
         toks, labels = dist.sample_traced(g, task_grid, batch, seq)
+        first, mine = (toks[0, 0], labels[0, 0]), act
+        if rows is not None:
+            toks, labels = toks[rows], labels[rows]
+            mine = None if act is None else act[rows]
         stacked, codec_state = fl_round(
             engine, loss_fn, stacked, codec_state, g, toks, labels,
-            lr=lr, survival=sv, act=act, consensus_dtype=consensus_dtype)
+            lr=lr, survival=sv, act=mine, consensus_dtype=consensus_dtype)
         with torch.no_grad():
-            loss = loss_fn({name: x[0] for name, x in stacked.items()},
-                           toks[0, 0], labels[0, 0])
+            if owner:
+                loss = loss_fn({name: x[0] for name, x in stacked.items()},
+                               *first).to(torch.float32)
+            else:
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=first[0].device)
+        if group is not None:
+            tdist.broadcast(loss, src=tdist.get_global_rank(group, 0),
+                            group=group)
         if is_async:
             clock, age = clock + act.to(clock.dtype), ar.age
         cols = [loss.to(torch.float64)[None]]
@@ -338,13 +376,11 @@ def federated_round_program(engine, loss_fn, dist, task_grid, *,
                             streaming: bool = False, **kw):
     """:func:`federated_round` as the launcher program
     ``"train_fl_round"``, its carry (argument 0) donated; on a meshed
-    engine the round function itself, run eagerly (the program layer does
-    not capture collectives)."""
+    engine the carry is this rank's rows and the round's collectives run
+    on the agent axis's group, captured with it on NCCL."""
     one_round = federated_round(engine, loss_fn, dist, task_grid, **kw)
-    if engine.local_rows is not None:
-        return one_round
     prog = scanloop.donating_graph(one_round, donate_argnums=(0,),
-                                   name="train_fl_round")
+                                   name="train_fl_round", group=engine.group)
     prog.record.streaming = bool(streaming)
     # the carry holds the AsyncState's clock and ages
     prog.record.async_argnums = (0,) if engine.agents is not None else ()

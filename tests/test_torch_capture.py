@@ -9,9 +9,15 @@ call (F4); ``ConsensusEngine.scan_rounds`` replays its own captured round
 program on every plan without a mesh; the LM launchers' programs
 (serving's prefill and decode, training's step and federated round, at a
 reduced size) are captured ``==`` uncaptured, above any byte cap, their
-kept params read by reference. The CPU side of the program layer,
-against the JAX package, is ``tests/test_torch_scanloop.py`` and
-``tests/test_torch_engine_program.py``.
+kept params read by reference; the meshed engines' three programs (the
+FL driver's cached round, ``scan_rounds``' held round and
+``train_federated(mesh=)``'s round) on an NCCL group of world size 1 are
+captured ``==`` uncaptured and ``==`` the runs without a mesh, and a
+collective recorder reads the same collectives of a captured run as of
+an uncaptured one. The CPU side of the program layer, against the JAX
+package, is ``tests/test_torch_scanloop.py`` and
+``tests/test_torch_engine_program.py``; the meshed programs on gloo
+groups of 2 and 4 ranks, ``tests/test_torch_mesh_programs.py``.
 
 On the card: ``PYTHONPATH=src python -m pytest -q --noconftest -m gpu
 tests/test_torch_capture.py``."""
@@ -570,3 +576,141 @@ def test_launcher_programs_capture_above_the_byte_cap_and_keep_by_reference(
         assert torch.equal(w2, w)
     finally:
         scanloop.PROGRAM_CACHE_BYTES = cap
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-position agent mesh over an NCCL group of world size 1 (one
+    card runs no more); the group's communicator set up before the test,
+    the cached programs dropped before the group is destroyed."""
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_local_group(0, 1, str(tmp_path / "store"), backend="nccl")
+    try:
+        torch.distributed.all_reduce(torch.zeros(1, device=cuda))
+        yield mesh_lib.make_agent_mesh()
+    finally:
+        scanloop.clear_program_cache()
+        mesh_lib.destroy_local_group()
+
+
+def _without_disagreement(out):
+    """``out`` with its telemetry rows (its last item) stripped of the
+    disagreement, which a meshed engine sums in another order than one
+    process (held to its tolerance by the gloo tests)."""
+    *head, events = out
+    return (*head, [{k: v for k, v in e.items() if k != "disagreement"}
+                    for e in events])
+
+
+def _recorded(fn):
+    from repro_torch.analysis.costmodel import CollectiveRecorder
+    with CollectiveRecorder() as rec:
+        out = fn()
+    return out, rec.records
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_meshed_fl_driver_captured_equals_uncaptured(cuda, nccl_mesh, codec):
+    """The meshed FL driver at NCCL world size 1 (sharded, one block,
+    fading links, buffered telemetry): its cached program is captured on
+    the first call and replayed by the second (a hit), with the sampler
+    and ``target_fn`` inside; both calls ``==`` ``uncaptured()`` and the
+    run without a mesh, and the collectives a recorder reads of a
+    captured call (one population gather a round, two all-reduces a row)
+    ``==`` those of an uncaptured one."""
+    loss, sample, target_fn, params = _fl_case(cuda)
+    fading = dict(graph=topology.GraphProcess.dropout(0.3, seed=1))
+    eng = ConsensusEngine(topology.ring(K), codec=codec, plan="sharded",
+                          mesh=nccl_mesh, **fading)
+    alone = ConsensusEngine(topology.ring(K), codec=codec, plan="sharded",
+                            **fading)
+    assert eng.local_rows == slice(0, K)
+
+    def run(engine):
+        g = torch.Generator(device=cuda).manual_seed(5)
+        tel = Telemetry()
+        p, t_i, hist, st = federated.run_fl_until_scan(
+            loss, params, sample, engine, 0.1, target_fn=target_fn,
+            max_rounds=6, chunk=3, generator=g, return_state=True,
+            telemetry=tel)
+        return (p, t_i, hist, st, g.get_state(),
+                tel.events(live_only=False))
+
+    got = [_recorded(lambda: run(eng)) for _ in range(2)]
+    with scanloop.uncaptured():
+        want = _recorded(lambda: run(eng))
+    ref = run(alone)
+    for out, records in got:
+        assert _same(out, want[0])
+        assert _same(_without_disagreement(out), _without_disagreement(ref))
+        assert records == want[1] and records
+        assert sum(r.kind == "allgather_" for r in records) == 6
+    (rec,) = [r for r in scanloop.registered_programs()
+              if r.cache_key is not None and r.cache_key[4] is eng]
+    assert rec.captured and rec.host_fns == () and rec.in_place
+    assert rec.group_backend == "nccl" and rec.collectives_per_replay
+
+
+@pytest.mark.gpu
+def test_meshed_scan_rounds_captured_equals_uncaptured(cuda, nccl_mesh):
+    """``scan_rounds`` on a meshed int8 engine at NCCL world size 1 with
+    buffered telemetry: the engine's held program captured, replayed by
+    a second call, ``==`` ``uncaptured()`` and the engine without a mesh;
+    the recorded collectives ``==``."""
+    fading = dict(graph=topology.GraphProcess.dropout(0.3, seed=1))
+    eng = ConsensusEngine(topology.ring(K), codec="int8", plan="sharded",
+                          mesh=nccl_mesh, **fading)
+    alone = ConsensusEngine(topology.ring(K), codec="int8", plan="sharded",
+                            **fading)
+    x = {"w": torch.randn((K, D), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda)}
+
+    def run(engine):
+        tel = Telemetry()
+        g = torch.Generator(device=cuda).manual_seed(1)
+        p, st = engine.scan_rounds(x, rounds=4, generator=g, telemetry=tel)
+        return p, st, g.get_state(), tel.events(live_only=False)
+
+    got = [_recorded(lambda: run(eng)) for _ in range(2)]
+    with scanloop.uncaptured():
+        want = _recorded(lambda: run(eng))
+    ref = run(alone)
+    for out, records in got:
+        assert _same(out, want[0])
+        assert _same(_without_disagreement(out), _without_disagreement(ref))
+        assert records == want[1] and records
+    (rec,) = eng.program_records()
+    assert rec.captured and rec.replays == 2 * 4 - 1 and rec.in_place
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", [None, "int8"])
+def test_meshed_train_federated_captured_equals_uncaptured(cuda, nccl_mesh,
+                                                          codec):
+    """``train_federated(mesh=)`` at NCCL world size 1 (sharded, one
+    block, buffered telemetry, 3 rounds): the round program captured and
+    replayed ``==`` ``uncaptured()`` and the run without ``mesh=``; the
+    recorded collectives (the wire, two all-reduces a row, one loss
+    broadcast a round) ``==``."""
+    from repro_torch.launch import train
+    cfg = _lm_cfg("dense")
+
+    def run(mesh):
+        tel = Telemetry()
+        with scanloop.built_programs() as recs:
+            p, h, _, st = train.train_federated(
+                cfg, rounds=3, agents=4, tasks=2, local_steps=1, batch=1,
+                seq=16, lr=1e-3, consensus_plan="sharded", codec=codec,
+                mesh=mesh, telemetry=tel, device="cuda", return_state=True)
+        return (p, h, st, tel.events(live_only=False)), recs
+
+    (got, (rec,)), records = _recorded(lambda: run(nccl_mesh))
+    with scanloop.uncaptured():
+        (want, _), want_records = _recorded(lambda: run(nccl_mesh))
+    ref, _ = run(None)
+    assert _same(got, want)
+    assert _same(_without_disagreement(got), _without_disagreement(ref))
+    assert records == want_records
+    assert [r.kind for r in records].count("broadcast_") == 3
+    assert (rec.captures, rec.replays) == (1, 2) and rec.in_place

@@ -224,7 +224,11 @@ def test_meshed_drivers_book_their_observer_collectives(mesh_rows):
         obs = {o["quantity"]: o for o in meta["observer_collectives"]}
         assert set(obs) == {"population for target_fn",
                             "disagreement column sums",
-                            "disagreement distances"}
+                            "disagreement distances",
+                            "logged loss of agent 0"}
+        # the FL driver logs no loss: train_federated's broadcast
+        assert obs.pop("logged loss of agent 0") == dict(
+            op="broadcast_", quantity="logged loss of agent 0", bytes=4)
         assert obs["population for target_fn"]["op"] == "allgather_"
         # K = 4 agents of one (64,) f32 leaf
         assert obs["population for target_fn"]["bytes"] == 4 * 64 * 4
@@ -300,7 +304,7 @@ def test_observer_calls_past_their_count_are_findings(mesh_rows):
 def test_audit_meta_names_observers_only_on_a_mesh(tmp_path):
     """Without a mesh the drivers ship nothing, so ``audit_meta()`` names
     no observer collective (and keeps the JAX package's keys); on a
-    1-position gloo mesh it names the three, with bytes for the agents
+    1-position gloo mesh it names the four, with bytes for the agents
     given."""
     from repro_torch.launch import mesh as mesh_lib
     assert "observer_collectives" not in ConsensusEngine(
@@ -314,7 +318,7 @@ def test_audit_meta_names_observers_only_on_a_mesh(tmp_path):
         obs = eng.audit_meta(agent)["observer_collectives"]
         assert [(o["op"], o["bytes"]) for o in obs] == [
             ("allgather_", 8 * (15 * 4 + 2 * 2)), ("allreduce_", 17 * 4),
-            ("allreduce_", 8 * 4)]
+            ("allreduce_", 8 * 4), ("broadcast_", 4)]
         assert eng.audit_meta()["observer_collectives"][0]["bytes"] is None
     finally:
         mesh_lib.destroy_local_group()

@@ -427,3 +427,17 @@ def test_program_audit_is_clean_and_catches_admitted_host_programs():
     good = dataclasses.replace(bad, donate_argnums=(0,), host_fns=(),
                                streaming=False, in_place=True)
     assert programs.audit_programs([good]) == []
+
+
+def test_nested_built_programs_blocks_collect_their_own():
+    """An inner ``built_programs`` block collects the programs built in
+    it, the enclosing block every program of both, whichever list ends
+    first equal to the other."""
+    with scanloop.built_programs() as outer:
+        with scanloop.built_programs() as inner:
+            scanloop.donating_graph(lambda c: ((c,), None),
+                                    donate_argnums=(0,), name="inner")
+        scanloop.donating_graph(lambda c: ((c,), None),
+                                donate_argnums=(0,), name="outer")
+    assert [r.name for r in inner] == ["inner"]
+    assert [r.name for r in outer] == ["inner", "outer"]
