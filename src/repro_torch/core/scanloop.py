@@ -132,7 +132,8 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 #: the kernel wrappers whose ``launches`` counters replays advance
 #: (:mod:`repro_torch.kernels.ops`, in the kernel table's order)
 COUNTED_KERNELS = ("quant_consensus_pop", "consensus_update_pop",
-                   "rglru_scan", "flash_attention")
+                   "rglru_scan", "flash_attention", "rglru_scan_backward",
+                   "flash_attention_backward")
 
 
 def _ops():

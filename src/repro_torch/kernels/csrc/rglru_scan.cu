@@ -33,10 +33,34 @@
 // (they still copy and synchronise). Where W or a base is not 16-byte
 // aligned, the tiles are filled with plain loads instead (the same
 // arithmetic, without the overlap).
+//
+// B3', the scan's vector-Jacobian product (rglru_scan_bwd_*): the JAX
+// package differentiates its XLA scan and has no backward kernel; this one
+// replaces autograd's T-step loop through the plain version. Given the
+// cotangents g (B, T, W) of h and g_last (B, W) of h_last, stepping back in
+// time with a_t = exp(log_a_t) and h_{t-1} the f32 carry (h0 first):
+//
+//   l_{T-1} = g_{T-1} + g_last,  l_t = g_t + a_{t+1} * l_{t+1}
+//   db_t = l_t,  dlog_a_t = (l_t * h_{t-1}) * a_t,  dh0 = l_0 * a_0
+//
+// Bound: device-memory bytes, as the forward: per element an exp and four
+// flops on three loads (log_a, g and the carry's source) and two stores.
+// Design: the forward's parallelism, one thread per (batch row, channel)
+// walking T in reverse with l in a register; a block is one warp of 32
+// channels, so a step's loads and stores are one 128-byte row segment per
+// array (f32). The loads do not depend on l, so each thread issues those of
+// kBwdU steps together into registers before it steps through them. expf,
+// __fmul_rn and __fadd_rn in the plain version's order keep the kernel
+// equal to it bit for bit. For f32 inputs the saved output h IS the carry
+// and is read; a bf16 output is not (and is not kept), so for bf16 the
+// thread first walks T forwards writing its f32 carry to a scratch buffer
+// (B, T, W) f32 that the wrapper allocates, then reads it back in reverse
+// (its own writes: no synchronisation).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace repro_torch {
 namespace {
@@ -199,6 +223,119 @@ int launch(const void* log_a, const void* b, const void* h0, void* out,
              : launch_as<T, false>(log_a, b, h0, out, h_last, B, steps, W, s);
 }
 
+constexpr int kBwdCh = 32;    // channels (threads) per block: one warp
+constexpr int kBwdU = 16;     // steps whose loads are issued together
+
+// step back through steps hi, hi - 1, ... hi - n + 1 (n <= kBwdU)
+template <typename T, bool kScratch, bool kFull>
+__device__ __forceinline__ void bwd_steps(
+    const T* __restrict__ la, const T* __restrict__ gh,
+    const T* __restrict__ hs, const float* __restrict__ carry, float hinit,
+    T* __restrict__ dla, T* __restrict__ db, int64_t hi, int n, int64_t W,
+    float& lam, float& a_next) {
+  float x[kBwdU], g[kBwdU], hp[kBwdU];
+#pragma unroll
+  for (int u = 0; u < kBwdU; ++u) {
+    if (kFull || u < n) {
+      const int64_t t = hi - u;
+      x[u] = to_f32(la[t * W]);
+      g[u] = to_f32(gh[t * W]);
+      if (t == 0)
+        hp[u] = hinit;
+      else if constexpr (kScratch)
+        hp[u] = carry[(t - 1) * W];
+      else
+        hp[u] = to_f32(hs[(t - 1) * W]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kBwdU; ++u) {
+    if (kFull || u < n) {
+      const int64_t t = hi - u;
+      const float a = expf(x[u]);
+      lam = __fadd_rn(g[u], __fmul_rn(lam, a_next));
+      store(lam, db + t * W);
+      store(__fmul_rn(__fmul_rn(lam, hp[u]), a), dla + t * W);
+      a_next = a;
+    }
+  }
+}
+
+template <typename T, bool kScratch>
+__global__ void __launch_bounds__(kBwdCh)
+    rglru_scan_bwd_kernel(const T* __restrict__ log_a,
+                          const T* __restrict__ b,
+                          const float* __restrict__ h0,
+                          const T* __restrict__ h, const T* __restrict__ g_h,
+                          const float* __restrict__ g_last,
+                          T* __restrict__ dlog_a, T* __restrict__ db,
+                          float* __restrict__ dh0, float* __restrict__ carry,
+                          int64_t steps, int64_t W) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kBwdCh + threadIdx.x;
+  if (w >= W) return;
+  const int64_t row = blockIdx.y;
+  const int64_t base = row * steps * W + w;
+  const float hinit = h0 ? h0[row * W + w] : 0.f;
+  if constexpr (kScratch) {
+    // the f32 carry after each step, as the forward computes it
+    float c = hinit;
+    for (int64_t t0 = 0; t0 < steps; t0 += kBwdU) {
+      float x[kBwdU], y[kBwdU];
+      const int n = static_cast<int>(steps - t0 < kBwdU ? steps - t0 : kBwdU);
+#pragma unroll
+      for (int u = 0; u < kBwdU; ++u)
+        if (u < n) {
+          x[u] = to_f32(log_a[base + (t0 + u) * W]);
+          y[u] = to_f32(b[base + (t0 + u) * W]);
+        }
+#pragma unroll
+      for (int u = 0; u < kBwdU; ++u)
+        if (u < n) {
+          c = step(c, x[u], y[u]);
+          carry[base + (t0 + u) * W] = c;
+        }
+    }
+  }
+  // l_T = g_last with a_T = 1, so that l_{T-1} = g_{T-1} + g_last exactly
+  float lam = g_last ? g_last[row * W + w] : 0.f;
+  float a_next = 1.f;
+  const T* la = log_a + base;
+  const T* gh = g_h + base;
+  const T* hs = kScratch ? nullptr : h + base;
+  const float* cs = kScratch ? carry + base : nullptr;
+  T* dl = dlog_a + base;
+  T* dbb = db + base;
+  int64_t hi = steps - 1;
+  for (; hi + 1 >= kBwdU; hi -= kBwdU)
+    bwd_steps<T, kScratch, true>(la, gh, hs, cs, hinit, dl, dbb, hi, kBwdU, W,
+                                 lam, a_next);
+  if (hi >= 0)
+    bwd_steps<T, kScratch, false>(la, gh, hs, cs, hinit, dl, dbb, hi,
+                                  static_cast<int>(hi + 1), W, lam, a_next);
+  dh0[row * W + w] = __fmul_rn(lam, a_next);
+}
+
+template <typename T>
+int launch_bwd(const void* log_a, const void* b, const void* h0,
+               const void* h, const void* g_h, const void* g_last,
+               void* dlog_a, void* db, void* dh0, void* carry, long long B,
+               long long steps, long long W, void* stream) {
+  // the saved output is the carry only for f32 inputs
+  const bool scratch = h == nullptr || !std::is_same<T, float>::value;
+  if (scratch && carry == nullptr) return -1;
+  dim3 grid(static_cast<unsigned>((W + kBwdCh - 1) / kBwdCh),
+            static_cast<unsigned>(B));
+  auto kernel = scratch ? rglru_scan_bwd_kernel<T, true>
+                        : rglru_scan_bwd_kernel<T, false>;
+  kernel<<<grid, kBwdCh, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(log_a), static_cast<const T*>(b),
+      static_cast<const float*>(h0), static_cast<const T*>(h),
+      static_cast<const T*>(g_h), static_cast<const float*>(g_last),
+      static_cast<T*>(dlog_a), static_cast<T*>(db), static_cast<float*>(dh0),
+      static_cast<float*>(carry), steps, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 }  // namespace repro_torch
 
@@ -213,4 +350,28 @@ extern "C" int rglru_scan_bf16(const void* log_a, const void* b, const void* h0,
                                long long T, long long W, void* stream) {
   return repro_torch::launch<__nv_bfloat16>(log_a, b, h0, out, h_last, B, T, W,
                                             stream);
+}
+
+// B3': h0 and g_last may be null (zeros); h, the forward's output, may be
+// null; carry is an f32 (B, T, W) scratch buffer, needed for bf16 or
+// without h (else null: the f32 output is the carry).
+extern "C" int rglru_scan_bwd_f32(const void* log_a, const void* b,
+                                  const void* h0, const void* h,
+                                  const void* g_h, const void* g_last,
+                                  void* dlog_a, void* db, void* dh0,
+                                  void* carry, long long B, long long T,
+                                  long long W, void* stream) {
+  return repro_torch::launch_bwd<float>(log_a, b, h0, h, g_h, g_last, dlog_a,
+                                        db, dh0, carry, B, T, W, stream);
+}
+
+extern "C" int rglru_scan_bwd_bf16(const void* log_a, const void* b,
+                                   const void* h0, const void* h,
+                                   const void* g_h, const void* g_last,
+                                   void* dlog_a, void* db, void* dh0,
+                                   void* carry, long long B, long long T,
+                                   long long W, void* stream) {
+  return repro_torch::launch_bwd<__nv_bfloat16>(log_a, b, h0, h, g_h, g_last,
+                                                dlog_a, db, dh0, carry, B, T,
+                                                W, stream);
 }

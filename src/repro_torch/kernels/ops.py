@@ -16,14 +16,17 @@ kernel is launched, so a run can show that its main path went through
 the kernel.
 
 The two LM kernels are differentiable: each wrapper applies a
-``torch.autograd.Function`` whose forward is the dispatch above and
-whose backward is the vector-Jacobian product of the plain version at the
-saved inputs (:func:`torch.func.vjp`, so it runs inside ``torch.func``
-transforms too). That is the gradient of the attention and scan the JAX
-package trains through, which differentiates its XLA path and never a
-Pallas kernel; there is no backward kernel. The backward is itself made
-of differentiable operations, so a second derivative is that of the
-plain version. Under ``torch.func.vmap`` each Function folds the mapped
+``torch.autograd.Function`` whose forward is the dispatch above. Its
+backward dispatches by device too: on the CPU it is the vector-Jacobian
+product of the plain version at the saved inputs (:func:`torch.func.vjp`,
+so it runs inside ``torch.func`` transforms), as in the JAX package,
+which differentiates its XLA path and never a Pallas kernel; on the card
+it launches the backward kernel (:func:`rglru_scan_backward`, B3′, and
+:func:`flash_attention_backward`, B4′) or raises; on ``meta`` it reports
+the backward's work. Each backward kernel sits behind a Function of its
+own whose backward is the VJP of the plain version's VJP, so a second
+derivative is that of the plain version on every device. Under
+``torch.func.vmap`` each Function, forward and backward, folds the mapped
 axis into the batch and launches its kernel once.
 """
 from __future__ import annotations
@@ -297,8 +300,22 @@ def _rglru_scan_forward(log_a, b, h0):
     return out, h_last
 
 
+def _on_cpu(*ts) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in ts)
+
+
+def _rglru_scan_vjp(log_a, b, h0, g_h, g_last):
+    """The VJP of the plain scan at (log_a, b, h0) → (d log_a, db, dh0 or
+    None): autograd's own steps, the CPU's backward."""
+    if h0 is None:
+        _, pull = torch.func.vjp(ref.rglru_scan_reference, log_a, b)
+        return (*pull((g_h, g_last)), None)
+    _, pull = torch.func.vjp(ref.rglru_scan_reference, log_a, b, h0)
+    return pull((g_h, g_last))
+
+
 class _RglruScan(torch.autograd.Function):
-    """B3 with the plain version's gradient (see the module docstring)."""
+    """B3; its backward by device (see the module docstring)."""
 
     @staticmethod
     def forward(log_a, b, h0):
@@ -306,16 +323,18 @@ class _RglruScan(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
+        # B3′ reads the carry from an f32 output h; a bf16 one is not the
+        # carry, and the CPU's plain VJP recomputes it: neither is kept
+        h = output[0]
+        keep = h.dtype == torch.float32 and h.device.type != "cpu"
+        ctx.save_for_backward(*inputs, h if keep else None)
 
     @staticmethod
     def backward(ctx, g_h, g_last):
-        log_a, b, h0 = ctx.saved_tensors
-        if h0 is None:
-            _, pull = torch.func.vjp(ref.rglru_scan_reference, log_a, b)
-            return (*pull((g_h, g_last)), None)
-        _, pull = torch.func.vjp(ref.rglru_scan_reference, log_a, b, h0)
-        return pull((g_h, g_last))
+        log_a, b, h0, h = ctx.saved_tensors
+        if _on_cpu(log_a, b, h0):
+            return _rglru_scan_vjp(log_a, b, h0, g_h, g_last)
+        return rglru_scan_backward(log_a, b, h0, h, g_h, g_last)
 
     @staticmethod
     def vmap(info, in_dims, log_a, b, h0):
@@ -329,8 +348,8 @@ class _RglruScan(torch.autograd.Function):
 def rglru_scan(log_a, b, h0=None):
     """Linear recurrence h_t = exp(log_a_t)·h_{t-1} + b_t over (B, T, W),
     carry in f32. log_a, b (B, T, W) f32/bf16; h0 (B, W) or None (zeros)
-    → (h (B, T, W) in log_a's dtype, h_last (B, W) f32). Differentiable
-    (the plain version's gradient)."""
+    → (h (B, T, W) in log_a's dtype, h_last (B, W) f32). Differentiable:
+    on the card through B3′ (:func:`rglru_scan_backward`)."""
     _check_dtype(log_a, b)
     if log_a.shape != b.shape or log_a.ndim != 3:
         raise ValueError(f"bad shapes {tuple(log_a.shape)} {tuple(b.shape)}")
@@ -343,6 +362,131 @@ def rglru_scan(log_a, b, h0=None):
 
 
 rglru_scan.launches = 0
+
+
+def _rglru_scan_backward_launch(log_a, b, h0, h, g_h, g_last):
+    """B3′'s dispatch by device → (d log_a, db, dh0 f32): the plain
+    backward on the CPU, the kernel on the card (shapes already checked;
+    ``h0`` and ``g_last`` may be None)."""
+    B, T, W = log_a.shape
+    if _on_cpu(log_a, b, h0, h, g_h, g_last):
+        return ref.rglru_scan_backward_reference(log_a, b, h0, h, g_h,
+                                                 g_last)
+    dh0 = torch.empty(B, W, dtype=torch.float32, device=log_a.device)
+    if _on_meta(log_a, b, g_h):
+        work.add("rglru_scan_backward", work.rglru_scan_backward(
+            B, T, W, with_h0=h0 is not None, with_g_last=g_last is not None,
+            elem=log_a.element_size()))
+        return torch.empty_like(log_a), torch.empty_like(b), dh0
+    _cuda_only(log_a, b, g_h, *(() if h is None else (h,)))
+    if B > _GRID_YZ:
+        raise ValueError(f"B={B} exceeds the kernel's grid ({_GRID_YZ})")
+    for name, t in (("h0", h0), ("g_last", g_last)):
+        if t is not None and t.device != log_a.device:
+            raise ValueError(f"{name} is on {t.device}, log_a on "
+                             f"{log_a.device}")
+    log_a, b, g_h = (t.contiguous() for t in (log_a, b, g_h))
+    h0, g_last = (None if t is None else t.to(torch.float32).contiguous()
+                  for t in (h0, g_last))
+    # the kernel reads the carry from an f32 output
+    h = h.contiguous() if h is not None and h.dtype == torch.float32 \
+        else None
+    dla, db = torch.empty_like(log_a), torch.empty_like(b)
+    if B == 0 or W == 0:
+        return dla, db, dh0
+    bf16 = log_a.dtype == torch.bfloat16
+    # without an f32 output to read, the kernel's forward walk writes the
+    # f32 carry here first
+    carry = (torch.empty(B, T, W, dtype=torch.float32, device=log_a.device)
+             if h is None else None)
+    fn_name = "rglru_scan_bwd_bf16" if bf16 else "rglru_scan_bwd_f32"
+    lib = _lib("rglru_scan", [(n, [_VP] * 10 + [_LL, _LL, _LL, _VP])
+                              for n in ("rglru_scan_bwd_f32",
+                                        "rglru_scan_bwd_bf16")])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(log_a.device):
+        stream = torch.cuda.current_stream(log_a.device).cuda_stream
+        err = getattr(lib, fn_name)(
+            log_a.data_ptr(), b.data_ptr(), ptr(h0), ptr(h),
+            g_h.data_ptr(), ptr(g_last), dla.data_ptr(), db.data_ptr(),
+            dh0.data_ptr(), ptr(carry), B, T, W, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    rglru_scan_backward.launches += 1
+    return dla, db, dh0
+
+
+class _RglruScanBackward(torch.autograd.Function):
+    """B3′: the scan's VJP as one kernel; its own backward is the VJP of
+    the plain version's VJP (a second derivative of the plain version)."""
+
+    @staticmethod
+    def forward(log_a, b, h0, h, g_h, g_last):
+        return _rglru_scan_backward_launch(log_a, b, h0, h, g_h, g_last)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        log_a, b, h0, _, g_h, g_last = inputs
+        ctx.save_for_backward(log_a, b, h0, g_h, g_last)
+
+    @staticmethod
+    def backward(ctx, gg_la, gg_b, gg_h0):
+        log_a, b, h0, g_h, g_last = ctx.saved_tensors
+        no_last = g_last is None
+        if no_last:
+            g_last = torch.zeros(log_a.shape[0], log_a.shape[2],
+                                 dtype=torch.float32, device=log_a.device)
+        primals = [t for t in (log_a, b, h0) if t is not None]
+        n = len(primals)
+
+        def vjp(*args):
+            la, bb, *rest = args
+            hh = rest[0] if n == 3 else None
+            return tuple(x for x in _rglru_scan_vjp(la, bb, hh, *args[n:])
+                         if x is not None)
+
+        cot = (gg_la, gg_b, gg_h0.to(h0.dtype)) if n == 3 else (gg_la, gg_b)
+        _, pull = torch.func.vjp(vjp, *primals, g_h, g_last)
+        d = list(pull(cot))
+        d_h0 = d.pop(2) if n == 3 else None
+        return d[0], d[1], d_h0, None, d[2], None if no_last else d[3]
+
+    @staticmethod
+    def vmap(info, in_dims, log_a, b, h0, h, g_h, g_last):
+        V = info.batch_size
+        ins = [None if t is None else _fold(t, d, V) for t, d in
+               zip((log_a, b, h0, h, g_h, g_last), in_dims)]
+        out = _RglruScanBackward.apply(*ins)
+        return tuple(o.unflatten(0, (V, -1)) for o in out), (0, 0, 0)
+
+
+def rglru_scan_backward(log_a, b, h0, h, g_h, g_last=None):
+    """B3′, the scan's vector-Jacobian product (the plain version:
+    :func:`ref.rglru_scan_backward_reference`): log_a, b (B, T, W) f32 /
+    bf16 of one dtype, h0 (B, W) or None, h the forward's output (B, T, W)
+    or None (read as the carry when f32; else the kernel recomputes the
+    carry), g_h its cotangent, g_last (B, W) that of h_last or None →
+    (d log_a, db in their dtypes, dh0 in h0's dtype, or None without h0)."""
+    _check_dtype(log_a, b)
+    if log_a.ndim != 3 or any(tuple(t.shape) != tuple(log_a.shape)
+                              for t in (b, g_h) + (() if h is None else (h,))):
+        raise ValueError(f"bad shapes log_a {tuple(log_a.shape)}, b "
+                         f"{tuple(b.shape)}, h "
+                         f"{None if h is None else tuple(h.shape)}, g_h "
+                         f"{tuple(g_h.shape)}: want (B, T, W) each")
+    B, T, W = log_a.shape
+    for name, t in (("h0", h0), ("g_last", g_last)):
+        if t is not None and tuple(t.shape) != (B, W):
+            raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                             f"{(B, W)}")
+    dla, db, dh0 = _RglruScanBackward.apply(log_a, b, h0, h, g_h, g_last)
+    return dla, db, None if h0 is None else dh0.to(h0.dtype)
+
+
+rglru_scan_backward.launches = 0
 
 
 def _kernel_layout(t):
@@ -419,8 +563,18 @@ def _flash_attention_forward(q, k, v, causal, window, softcap):
     return out
 
 
+def _flash_attention_vjp(q, k, v, g, causal, window, softcap):
+    """The VJP of the plain attention at (q, k, v) → (dq, dk, dv):
+    autograd's own steps, the CPU's backward."""
+    _, pull = torch.func.vjp(
+        lambda q, k, v: ref.attention_reference(
+            q, k, v, causal=causal, window=window, softcap=softcap),
+        q, k, v)
+    return pull(g)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """B4 with the plain version's gradient (see the module docstring)."""
+    """B4; its backward by device (see the module docstring)."""
 
     @staticmethod
     def forward(q, k, v, causal, window, softcap):
@@ -433,12 +587,14 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        if _on_cpu(q, k, v, g):
+            return (*_flash_attention_vjp(q, k, v, g, *ctx.mask), None,
+                    None, None)
         causal, window, softcap = ctx.mask
-        _, pull = torch.func.vjp(
-            lambda q, k, v: ref.attention_reference(
-                q, k, v, causal=causal, window=window, softcap=softcap),
-            *ctx.saved_tensors)
-        return (*pull(g), None, None, None)
+        return (*flash_attention_backward(q, k, v, g, causal=causal,
+                                          window=window, softcap=softcap),
+                None, None, None)
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window, softcap):
@@ -454,7 +610,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     k, v (B, T, K, hd), H % K == 0 (q head h reads kv head h // (H/K));
     causal and sliding-window (``window`` > 0) masks, tanh soft-capping of
     the scores (``softcap`` > 0) → (B, S, H, hd) in q's dtype.
-    Differentiable (the plain version's gradient)."""
+    Differentiable: on the card through B4′
+    (:func:`flash_attention_backward`)."""
     _check_dtype(q, k, v)
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or q.shape[3] != k.shape[3] or q.shape[0] != k.shape[0]:
@@ -467,3 +624,132 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+#: blocks of B4′'s dk/dv grid below which it splits each kv head's query
+#: heads over several blocks (two waves of the H100's 132 SMs)
+_BWD_MIN_BLOCKS = 264
+
+
+def _bwd_head_splits(B: int, T: int, K: int, group: int) -> int:
+    """How many blocks share one (kv tile, kv head, batch row)'s query
+    heads in B4′'s dk/dv pass: 1 where the kv tiles alone fill the card,
+    else enough to reach ``_BWD_MIN_BLOCKS`` (at most ``group``, and
+    within the grid's z limit)."""
+    blocks = -(-T // 64) * K * B
+    if blocks >= _BWD_MIN_BLOCKS:
+        return 1
+    per = -(-group // min(group, -(-_BWD_MIN_BLOCKS // blocks)))
+    splits = -(-group // per)
+    return max(1, min(splits, _GRID_YZ // max(B, 1)))
+
+
+def _flash_attention_backward_launch(q, k, v, g, causal, window, softcap):
+    """B4′'s dispatch by device → (dq, dk, dv): the plain backward on the
+    CPU, the kernel on the card (shapes already checked)."""
+    if _on_cpu(q, k, v, g):
+        return ref.attention_backward_reference(
+            q, k, v, g, causal=causal, window=window, softcap=softcap)
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if _on_meta(q, k, v, g):
+        work.add("flash_attention_backward", work.flash_attention_backward(
+            B, S, T, H, K, hd, causal=causal, window=window,
+            elem=q.element_size()))
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _cuda_only(q, k, v, g)
+    if hd > 256:
+        raise ValueError(f"head_dim={hd}: the backward kernel takes "
+                         "head_dim <= 256")
+    if B > _GRID_YZ or max(H, K) > _GRID_YZ or max(S, T) > _INT_MAX // 2 \
+            or window > _INT_MAX:
+        raise ValueError(f"B={B}, H={H}, K={K}, S={S}, T={T} or "
+                         f"window={window} exceeds the backward kernel's "
+                         "grid or int positions")
+    q, k, v, g = (t.contiguous() for t in (q, k, v, g))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if B == 0 or S == 0 or H == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # each query row's log-sum-exp and D = Σ_t P_t dP_t, written by the
+    # dq pass and read by the dk/dv pass
+    stats = torch.empty(2, B, H, S, dtype=torch.float32, device=q.device)
+    # dk, dv as f32 sums of each block's share of the q heads, added in
+    # order and rounded once
+    splits = _bwd_head_splits(B, T, K, H // K)
+    partial = torch.empty(2, splits, B, T, K, hd, dtype=torch.float32,
+                          device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    fn_name = "flash_attention_bwd_bf16" if bf16 else "flash_attention_bwd_f32"
+    lib = _lib("flash_attention_bwd", [
+        (n, [_VP] * 9 + [_LL] * 7 + [_I, _I, _F, _F, _VP])
+        for n in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16")])
+    scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            partial.data_ptr(), B, S, T, H, K, hd, splits,
+            int(bool(causal)), max(int(window), 0), float(softcap), scale,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttentionBackward(torch.autograd.Function):
+    """B4′: the attention's VJP as one kernel launch; its own backward is
+    the VJP of the plain version's VJP (a second derivative of the plain
+    version)."""
+
+    @staticmethod
+    def forward(q, k, v, g, causal, window, softcap):
+        return _flash_attention_backward_launch(q, k, v, g, causal, window,
+                                                softcap)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs[:4])
+        ctx.mask = inputs[4:]
+
+    @staticmethod
+    def backward(ctx, gg_q, gg_k, gg_v):
+        mask = ctx.mask
+        _, pull = torch.func.vjp(
+            lambda q, k, v, g: _flash_attention_vjp(q, k, v, g, *mask),
+            *ctx.saved_tensors)
+        return (*pull((gg_q, gg_k, gg_v)), None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, g, causal, window, softcap):
+        V = info.batch_size
+        q, k, v, g = (_fold(t, d, V) for t, d in zip((q, k, v, g),
+                                                      in_dims[:4]))
+        out = _FlashAttentionBackward.apply(q, k, v, g, causal, window,
+                                            softcap)
+        return tuple(o.unflatten(0, (V, -1)) for o in out), (0, 0, 0)
+
+
+def flash_attention_backward(q, k, v, g, *, causal: bool = True,
+                             window: int = 0, softcap: float = 0.0):
+    """B4′, the attention's vector-Jacobian product (the plain version:
+    :func:`ref.attention_backward_reference`): q (B, S, H, hd), k, v (B,
+    T, K, hd) of one dtype, g (B, S, H, hd) the cotangent of the output,
+    the masks and softcap of :func:`flash_attention` → (dq, dk, dv) in
+    their inputs' dtypes. The kernel recomputes the scores and each row's
+    log-sum-exp (the forward writes nothing for it) and uses no atomics:
+    two launches on the same inputs give the same bits."""
+    _check_dtype(q, k, v, g)
+    if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
+            or q.shape[3] != k.shape[3] or q.shape[0] != k.shape[0] \
+            or g.shape != q.shape:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}"
+                         f" v {tuple(v.shape)} g {tuple(g.shape)}")
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"H={q.shape[2]} not a multiple of K={k.shape[2]}")
+    return _FlashAttentionBackward.apply(q, k, v, g, bool(causal),
+                                         int(window), float(softcap))
+
+
+flash_attention_backward.launches = 0

@@ -93,6 +93,48 @@ def _rglru_scan_meta(log_a, b, h0, acc):
     return h.to(log_a.dtype), h[:, -1]
 
 
+def rglru_scan_backward_reference(log_a, b, h0, h, g_h, g_last=None):
+    """The scan's vector-Jacobian product, stepped backwards in time in
+    f32 with a_t = exp(log_a_t) and h_{t-1} the f32 carry (h0 first):
+
+        λ_{T-1} = g_{T-1} + g_last,   λ_t = g_t + a_{t+1}·λ_{t+1}
+        db_t = λ_t,   d log_a_t = (λ_t·h_{t-1})·a_t,   dh0 = λ_0·a_0
+
+    log_a, b (B, T, W), h0 (B, W) or None (zeros), h the forward's output
+    or None (the carry itself for f32 inputs; for bf16, or without h, the
+    carry is recomputed by a forward walk), g_h (B, T, W) the cotangent of
+    h, g_last (B, W) f32 or None → (d log_a, db in their inputs' dtypes,
+    dh0 (B, W) in the carry's dtype: f32, f64 for f64 inputs). The rounded
+    steps are those of autograd through :func:`rglru_scan_reference`, in
+    the same order, so the two are equal bit for bit."""
+    B, T, W = log_a.shape
+    acc = torch.promote_types(log_a.dtype, torch.float32)
+    h0 = (torch.zeros(B, W, dtype=acc, device=log_a.device)
+          if h0 is None else h0.to(acc))
+    if h is not None and h.dtype == acc:
+        carry = h
+    else:
+        carry, c = [], h0
+        for t in range(T):
+            c = torch.exp(log_a[:, t].to(acc)) * c + b[:, t].to(acc)
+            carry.append(c)
+        carry = torch.stack(carry, dim=1)
+    dla, db = [None] * T, [None] * T
+    lam = a_next = None
+    for t in range(T - 1, -1, -1):
+        a = torch.exp(log_a[:, t].to(acc))
+        g = g_h[:, t].to(acc)
+        if lam is None:
+            lam = g if g_last is None else g + g_last.to(acc)
+        else:
+            lam = g + lam * a_next
+        prev = h0 if t == 0 else carry[:, t - 1]
+        db[t] = lam.to(b.dtype)
+        dla[t] = ((lam * prev) * a).to(log_a.dtype)
+        a_next = a
+    return torch.stack(dla, dim=1), torch.stack(db, dim=1), lam * a_next
+
+
 NEG_INF = -2.0 ** 30
 
 
@@ -138,3 +180,47 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype).to(acc),
                        v.to(acc))
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def attention_backward_reference(q, k, v, g, *, causal: bool = True,
+                                 window: int = 0, softcap: float = 0.0):
+    """The FlashAttention-2 gradient of :func:`attention_reference` (no
+    ``q_offset`` / ``k_len``): q (B, S, H, hd), k, v (B, T, K, hd) and the
+    cotangent ``g`` (B, S, H, hd) of the output → (dq, dk, dv) in their
+    inputs' dtypes. With q_scaled = q / sqrt(hd) rounded to q's dtype as
+    the forward rounds it, and in f32:
+
+        P = exp(s − logsumexp(s)) of the (soft-capped, masked) scores s
+        dP = g vᵀ,   D = Σ_t P dP,   dV = Pᵀ g,   dS = P ∘ (dP − D)
+        dS ∘= 1 − tanh²(s_raw / softcap)     (softcap > 0)
+        dK = dSᵀ q_scaled,   dQ = dS k / sqrt(hd)
+
+    summed over the H/K query heads of each kv head. D is rowsum(g ∘ out)
+    of the unrounded output: a bf16 output's rounding would fall on the
+    difference dP − D. Autograd through the plain forward reaches the same
+    values by another route (in bf16 with roundings of dP and dq between
+    its casts); the tests hold the two within their stated tolerances."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    grp = H // K
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qs = (q.to(acc) / math.sqrt(hd)).to(q.dtype).to(acc)
+    qs = qs.reshape(B, S, K, grp, hd)
+    kf, vf = k.to(acc), v.to(acc)
+    raw = torch.einsum("bskgh,btkh->bkgst", qs, kf)
+    if softcap > 0:
+        th = torch.tanh(raw / softcap)
+        raw = softcap * th
+    s = raw + _mask_bias(torch.arange(S, device=q.device),
+                         torch.arange(T, device=q.device), causal, window)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    gf = g.to(acc).reshape(B, S, K, grp, hd)
+    dv = torch.einsum("bkgst,bskgh->btkh", p, gf)
+    dp = torch.einsum("bskgh,btkh->bkgst", gf, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if softcap > 0:
+        ds = ds * (1 - th * th)
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qs)
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) / math.sqrt(hd)
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

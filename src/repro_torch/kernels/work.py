@@ -64,6 +64,18 @@ def rglru_scan(B: int, T: int, W: int, *, with_h0: bool, elem: int = 4):
     return 3 * elem * n + (8 if with_h0 else 4) * B * W, 3 * n
 
 
+def rglru_scan_backward(B: int, T: int, W: int, *, with_h0: bool,
+                        with_g_last: bool, elem: int = 4):
+    """B3′: (bytes, flops) of the scan's VJP over (B, T, W). log_a, the
+    carry's source (the saved h for f32, b for bf16) and g read, d log_a
+    and db written (``elem`` bytes each per element); h0 and g_last read
+    (f32, when given) and dh0 written (f32); per element an exp, the
+    adjoint's multiply and add and d log_a's two multiplies."""
+    n = B * T * W
+    rows = 4 * (1 + int(with_h0) + int(with_g_last)) * B * W
+    return 5 * elem * n + rows, 5 * n
+
+
 def visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
     """(query, key) pairs the masks leave visible, positions from 0:
     query i sees keys [lo_i, hi_i], hi_i = min(i, T − 1) under ``causal``
@@ -85,3 +97,17 @@ def flash_attention(B: int, S: int, T: int, H: int, K: int, hd: int, *,
     is what the kernel computes, not the full S·T."""
     nbytes = elem * (2 * B * S * H * hd + 2 * B * T * K * hd)
     return nbytes, 4 * hd * visible_pairs(S, T, causal, window) * B * H
+
+
+def flash_attention_backward(B: int, S: int, T: int, H: int, K: int,
+                             hd: int, *, causal: bool, window: int,
+                             elem: int):
+    """B4′: (bytes, flops) of the attention's VJP. q, g read and dq
+    written, k, v read and dk, dv written (``elem`` bytes per element),
+    and each query row's log-sum-exp and D (f32) written once; 10·hd flops
+    per visible (query, key) pair per (batch, query head): the scores
+    q·k, dP = g·v, and dV += P g, dK += dS q, dQ += dS k, a multiply and
+    an add each."""
+    nbytes = (elem * (3 * B * S * H * hd + 4 * B * T * K * hd)
+              + 2 * 4 * B * H * S)
+    return nbytes, 10 * hd * visible_pairs(S, T, causal, window) * B * H

@@ -14,7 +14,7 @@ from __future__ import annotations
 from repro_torch.core import scanloop
 from repro_torch.kernels import ops
 
-#: the port's kernel wrappers, in the kernel table's order (B1–B4)
+#: the port's kernel wrappers, in the kernel table's order (B1–B4, B3′, B4′)
 KERNELS = scanloop.COUNTED_KERNELS
 
 

@@ -219,9 +219,8 @@ def _dense_flops(cfg, shape):
     """Analytic FLOPs of reduced granite's step on the whole mesh: 2 a
     multiply-add of every projection, MLP and unembedding matmul (x3 in
     training: the forward and two backward products), B4's count of its
-    visible pairs, its backward (the plain version's forward, recomputed,
-    and four products: 6 x 2·B·H·S·T·hd), and at decode the plain
-    attention over the cache (2 products)."""
+    visible pairs, its backward B4′'s (five products per visible pair),
+    and at decode the plain attention over the cache (2 products)."""
     d, L, V, f = cfg.d_model, cfg.num_layers, cfg.vocab_size, cfg.d_ff
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     B, S = shape.global_batch, shape.seq_len
@@ -229,8 +228,9 @@ def _dense_flops(cfg, shape):
     if shape.mode == "train":
         kern = work.flash_attention(B, S, S, H, K, hd, causal=True,
                                     window=0, elem=4)[1]
-        return (3 * B * S * (L * proj + 2 * d * V)
-                + L * (kern + 12 * B * H * S * S * hd))
+        bwd = work.flash_attention_backward(B, S, S, H, K, hd, causal=True,
+                                            window=0, elem=4)[1]
+        return 3 * B * S * (L * proj + 2 * d * V) + L * (kern + bwd)
     if shape.mode == "prefill":
         kern = work.flash_attention(B, S, S, H, K, hd, causal=True,
                                     window=0, elem=4)[1]

@@ -596,11 +596,13 @@ def test_cuda_kernels_source_form_match_plain(cuda, N):
             x[:1], q[:1], s[:1], lanes, w, qblock, q[1:], s[1:]))
 
 
-def _grad_gate(got, want, dtype):
+def _grad_gate(got, want, dtype, routes=1):
     """f32: within 1e-4 of each gradient's largest entry; bf16: within one
-    bf16 rounding (2^-7) of it. The backward is the plain version's VJP
-    at the saved inputs, so both gates are expected to hold with room."""
-    rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    bf16 rounding (2^-7) of it, times ``routes``: 2 where ``want`` is
+    autograd through the plain forward, which reaches the gradient by
+    another route than the backward kernel's (each within one rounding of
+    the exact gradient)."""
+    rel = routes * (1e-4 if dtype == torch.float32 else 2.0 ** -7)
     for a, b in zip(got, want):
         scale = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= rel * scale
@@ -615,8 +617,9 @@ def _grad_gate(got, want, dtype):
 def test_cuda_flash_attention_gradient_matches_plain(cuda, B, S, H, K, hd,
                                                      window, dtype):
     """B4 on the card with a gradient: the forward launches the kernel once
-    and agrees with the plain version; dq, dk, dv agree with autograd
-    through the plain version on the card."""
+    and agrees with the plain version; the backward launches B4′ once, and
+    dq, dk, dv agree with its plain version and with autograd through the
+    plain forward on the card."""
     rng = np.random.default_rng(S + H)
     q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                .to(cuda, dtype).requires_grad_()
@@ -624,16 +627,22 @@ def test_cuda_flash_attention_gradient_matches_plain(cuda, B, S, H, K, hd,
     w = torch.from_numpy(rng.standard_normal((B, S, H, hd))
                          .astype(np.float32)).to(cuda)
     kw = dict(causal=True, window=window)
-    before = ops.flash_attention.launches
+    before = (ops.flash_attention.launches,
+              ops.flash_attention_backward.launches)
     out = ops.flash_attention(q, k, v, **kw)
     got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
-    assert ops.flash_attention.launches == before + 1
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_backward.launches) == (before[0] + 1,
+                                                       before[1] + 1)
     plain = ref.attention_reference(q, k, v, **kw)
     want = torch.autograd.grad((plain.float() * w).sum(), (q, k, v))
+    bwd = ref.attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), w.to(dtype), **kw)
     torch.cuda.synchronize()
     tol = 2e-3 if dtype == torch.float32 else 6e-2
     torch.testing.assert_close(out.float(), plain.float(), rtol=tol, atol=tol)
-    _grad_gate(got, want, dtype)
+    _grad_gate(got, want, dtype, routes=2)
+    _grad_gate(got, bwd, dtype)
 
 
 @pytest.mark.gpu
@@ -649,11 +658,14 @@ def test_cuda_flash_attention_vmap_grad_launches_once(cuda):
         return lambda q, k, v: attn(q, k, v, causal=True,
                                     window=0).square().sum()
 
-    before = ops.flash_attention.launches
+    before = (ops.flash_attention.launches,
+              ops.flash_attention_backward.launches)
     got = torch.func.vmap(torch.func.grad(loss(ops.flash_attention),
                                           argnums=(0, 1, 2)),
                           in_dims=(0, None, None))(qs, k, v)
-    assert ops.flash_attention.launches == before + 1
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_backward.launches) == (before[0] + 1,
+                                                       before[1] + 1)
     want = [torch.func.grad(loss(ref.attention_reference),
                             argnums=(0, 1, 2))(qs[i], k, v)
             for i in range(3)]
@@ -669,12 +681,73 @@ def test_cuda_rglru_scan_gradient_matches_plain(cuda):
              * 0.5).requires_grad_()
     b = torch.randn(2, 256, 512, generator=g, device=cuda).requires_grad_()
     h0 = torch.randn(2, 512, generator=g, device=cuda).requires_grad_()
-    before = ops.rglru_scan.launches
+    before = (ops.rglru_scan.launches, ops.rglru_scan_backward.launches)
     h, last = ops.rglru_scan(log_a, b, h0)
     got = torch.autograd.grad(h.square().sum() + last.sum(), (log_a, b, h0))
-    assert ops.rglru_scan.launches == before + 1
+    assert (ops.rglru_scan.launches,
+            ops.rglru_scan_backward.launches) == (before[0] + 1,
+                                                  before[1] + 1)
     wh, wl = ref.rglru_scan_reference(log_a, b, h0)
     want = torch.autograd.grad(wh.square().sum() + wl.sum(), (log_a, b, h0))
     torch.cuda.synchronize()
     assert torch.equal(h, wh) and torch.equal(last, wl)
-    _grad_gate(got, want, torch.float32)
+    # B3′ takes autograd's rounded steps in the same order
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0,with_last", [(False, False), (True, True)])
+@pytest.mark.parametrize("B,T,W", [(2, 37, 40), (2, 512, 4096)])
+def test_cuda_rglru_scan_backward_equals_plain(cuda, B, T, W, with_h0,
+                                               with_last, dtype):
+    """B3′ ``==`` its plain version: f32 reading the saved output as the
+    carry, bf16 and f32 without it recomputing the carry; one launch a
+    call."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    log_a = (-torch.rand(B, T, W, generator=g, device=cuda) * 0.5).to(dtype)
+    b, gh = (torch.randn(B, T, W, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    h0, gl = (torch.randn(B, W, generator=g, device=cuda) if on else None
+              for on in (with_h0, with_last))
+    h, _ = ops.rglru_scan(log_a, b, h0)
+    want = ref.rglru_scan_backward_reference(log_a, b, h0, h, gh, gl)
+    for saved in (h, None):
+        before = ops.rglru_scan_backward.launches
+        got = ops.rglru_scan_backward(log_a, b, h0, saved, gh, gl)
+        assert ops.rglru_scan_backward.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (got[2] is None) == (h0 is None)
+        assert h0 is None or torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,T,hd,causal,window,softcap", [
+    (2, 256, 32, 8, 256, 128, True, 0, 0.0),      # granite-8b, S cut
+    (1, 300, 16, 1, 300, 256, True, 128, 30.0),   # recurrentgemma local
+    (2, 64, 4, 4, 150, 64, False, 0, 0.0),        # cross-attention S != T
+    (2, 100, 4, 2, 100, 120, True, 0, 0.0),       # danube's head_dim
+    (1, 70, 6, 3, 70, 80, False, 9, 0.0),         # window, no causal
+])
+def test_cuda_flash_attention_backward_matches_plain(
+        cuda, B, S, H, K, T, hd, causal, window, softcap, dtype):
+    """B4′ against its plain version: f32 within 1e-4, bf16 within 2^-7
+    of each gradient's largest entry; one launch a call; two launches give
+    the same bits (no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    q, go = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, T, K, hd, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = ops.flash_attention_backward.launches
+    got = ops.flash_attention_backward(q, k, v, go, **kw)
+    again = ops.flash_attention_backward(q, k, v, go, **kw)
+    assert ops.flash_attention_backward.launches == before + 2
+    want = ref.attention_backward_reference(q, k, v, go, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(a.dtype == dtype for a in got)
+    _grad_gate(got, want, dtype)

@@ -388,7 +388,7 @@ def test_recorder_memoized_first_pricing_wins_and_report():
     assert rep["joules"] == tel.joules(driver="consensus")
     assert set(rep["kernel_launches"]) == {
         "quant_consensus_pop", "consensus_update_pop", "rglru_scan",
-        "flash_attention"}
+        "flash_attention", "rglru_scan_backward", "flash_attention_backward"}
     assert set(rep["program_cache"]) >= {"hits", "misses", "inserts",
                                          "evictions", "trace_counts"}
 

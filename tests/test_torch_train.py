@@ -245,6 +245,31 @@ def test_one_federated_round_matches_reference_leaves(plan, bf16):
         assert float((out[k] - want[k]).abs().max()) <= tol, k
 
 
+def _jax_round_f64(jcfg, jp, toks, labels):
+    """The reference's round (local steps, then the engine's step) in
+    float64 throughout: x64 on, the config's dtypes f64, and the f32
+    casts inside the reference's model, loss and SGD (``jnp.float32``,
+    read when each op runs) pointed at f64 while it runs. The exact
+    round that the f32 rounds of both packages are measured against (the
+    dense plan: every plan applies the same mixing operator)."""
+    jcfg = dataclasses.replace(jcfg, dtype="float64", param_dtype="float64")
+    f32 = jnp.float32
+    try:
+        jnp.float32 = jnp.float64
+        with jax.enable_x64(True):
+            jp = jax.tree.map(lambda x: jnp.asarray(np.asarray(x),
+                                                    jnp.float64), jp)
+            jstacked = jax.tree.map(lambda x: jnp.broadcast_to(
+                x[None], (AGENTS,) + x.shape), jp)
+            jnew = _jax_local_round(jcfg, jstacked, toks, labels)
+            jeng = JEngine(jtopo.clusters(TASKS, AGENTS // TASKS),
+                           plan="dense-xla")
+            jout, _ = jeng.step(jnew)
+            return jax.tree.map(np.asarray, jout)
+    finally:
+        jnp.float32 = f32
+
+
 @pytest.mark.parametrize("arch", ["xlstm-125m", "recurrentgemma-9b"])
 @pytest.mark.parametrize("plan", ["dense", "sparse"])
 def test_one_federated_round_matches_reference_leaves_zoo(arch, plan):
@@ -269,10 +294,16 @@ def test_one_federated_round_matches_reference_leaves_zoo(arch, plan):
         None, torch.from_numpy(toks).long(), torch.from_numpy(labels).long(),
         lr=LR)
     want = params_from_numpy(jout, device="cpu")
+    exact = params_from_numpy(_jax_round_f64(jcfg, jp, toks, labels),
+                              device="cpu")
     assert set(out) == set(want)
     for k in want:
         assert out[k].shape == want[k].shape, k
-        tol = 1e-5 * float(want[k].abs().max())
+        # the port may sit as far from the exact round as the reference
+        # does, plus 1e-5 of the leaf: at seed 4 the reference's own f32
+        # round is 1.03e-5 of blocks.0.conv.b's largest from the f64 one
+        ref_err = float((want[k].double() - exact[k]).abs().max())
+        tol = 1e-5 * float(want[k].abs().max()) + 2 * ref_err
         assert float((out[k] - want[k]).abs().max()) <= tol, k
 
 
