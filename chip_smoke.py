@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 forward kernels, B3′ beside B3, B4′ in its own source),
                 timed as set-up; ptxas's registers, static shared memory
                 and spills of each kernel, and B4′'s dynamic shared memory
-                a block.
+                a block (the f32 SIMT and the bf16 tensor-core kernels).
 3. analysis   — ``python -m repro_torch.analysis --strict --baseline
                 src/repro_torch/analysis/baseline.json --device cuda``
                 (``--layer all``) in process on this checkout: the source
@@ -232,8 +232,12 @@ Phases (any failure exits non-zero; nothing is caught):
                 at granite's, the hybrid's local attention's (MQA, hd 256,
                 window 2048, softcap 30), danube's and stablelm's training
                 shapes in f32 and bf16, with kernel, plain, SDPA-backward
-                and bound ms; B3 at (2, 256, 512) with its gradient (B3′:
-                ``==`` autograd through the plain version) and B3′ alone
+                and bound ms, achieved TFLOP/s of its 10·hd work and its
+                factor against SDPA's backward; each profiled training
+                step prints B4′'s device time beside its bf16 CUDA-core
+                figure (``B4P_SIMT_DEVICE_MS``); B3 at (2, 256, 512) with
+                its gradient (B3′: ``==`` autograd through the plain
+                version) and B3′ alone
                 ``==`` its plain version in f32 and bf16; forward and
                 forward+backward times (kernel, plain version, SDPA); (b)
                 ``train_standard``
@@ -572,9 +576,12 @@ def ptxas_summary(name):
                      for i in range(len(d.group()))]
             ident = [x for x in ident if "_kernel" in x
                      and re.fullmatch(r"[A-Za-z_]\w*", x)]
-            args = ["bf16" if "bfloat16" in mangled else "f32"] + \
+            name = ident[-1] if ident else mangled
+            # the tensor-core (*_tc) kernels are bf16 whatever they take
+            bf16 = "bfloat16" in mangled or name.endswith("_tc")
+            args = ["bf16" if bf16 else "f32"] + \
                 re.findall(r"L[ib](\d+)E", mangled)
-            cur = f"{ident[-1] if ident else mangled}<{','.join(args)}>"
+            cur = f"{name}<{','.join(args)}>"
             out.append([cur])
         elif cur and ("registers" in ln or "spill" in ln or "smem" in ln):
             out[-1].append(ln.split(":", 1)[-1].strip())
@@ -4034,12 +4041,16 @@ def b4_backward(generator, label, shape, kw, dtype):
         q, k, v, g, **kw))
     row["library_ms"] = sdpa_backward_ms(q, k, v, g, kw["causal"],
                                          kw["window"])
+    nbytes, flops = work.flash_attention_backward(
+        B, S, T, H, K, hd, causal=kw["causal"], window=kw["window"],
+        elem=q.element_size())
     row["bound_ms"], row["bound_by"] = bound(
-        *work.flash_attention_backward(B, S, T, H, K, hd,
-                                       causal=kw["causal"],
-                                       window=kw["window"],
-                                       elem=q.element_size()),
+        nbytes, flops,
         BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    # the gradient's 10·hd flops a visible pair over the kernel's time,
+    # and the kernel's time over SDPA's backward
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["vs_library"] = row["ms"] / row["library_ms"]
     print(f"flash_attention_backward {label} q {tuple(q.shape)} kv "
           f"{tuple(k.shape)} {dtype} {kw}: dq, dk, dv max |d| / max |plain| "
           f"= {err} (gate {rel}), vs autograd through the plain forward "
@@ -4047,7 +4058,9 @@ def b4_backward(generator, label, shape, kw, dtype):
           f"{launched}, two launches equal bits: {same}; kernel_ms="
           f"{row['ms']} plain_ms={row['plain_ms']} library_ms(SDPA backward"
           f"{', softcap 0' if kw['softcap'] else ''})={row['library_ms']} "
-          f"bound_ms={row['bound_ms']} ({row['bound_by']})", flush=True)
+          f"bound_ms={row['bound_ms']} ({row['bound_by']}); achieved "
+          f"{row['tflops']} TFLOP/s of the 10·hd work; kernel / SDPA "
+          f"backward {row['vs_library']}", flush=True)
     del q, k, v, g
     torch.cuda.empty_cache()
     return row
@@ -4319,6 +4332,18 @@ class plain_kernels:
         self.ops.flash_attention, self.ops.rglru_scan = self.real
 
 
+#: B4′'s device ms in each profiled training step while its bf16 path
+#: ran on CUDA cores in f32 (PERF.md §6, the SIMT kernel's last call),
+#: printed beside this run's: the first key found in the profile's name
+B4P_SIMT_DEVICE_MS = {
+    "whisper-large-v3": 207.9,
+    "recurrentgemma-9b": 1.31,
+    "granite-8b": 3.41,
+    "train_federated_round": 5.14,
+    "train_standard_step": 3.41,      # granite-8b's eager step
+}
+
+
 def profile_step(fn, name, n=1):
     """Device kernels and busy share of ``n`` calls of ``fn`` (warm),
     from a ``torch.profiler`` trace; host wall of the same calls."""
@@ -4346,6 +4371,12 @@ def profile_step(fn, name, n=1):
     print(f"{name}: wall_ms(profiled)={wall_ms} kernels={len(kernels) / n} "
           f"device_busy_ms={busy_ms} busy_share={busy_ms / wall_ms} "
           f"device_ms_by_kernel={by} (trace {out})", flush=True)
+    simt = next((v for k, v in B4P_SIMT_DEVICE_MS.items() if k in name),
+                None)
+    if simt is not None:
+        print(f"{name}: B4′ device ms {by['B4′']} (bf16 on the tensor "
+              f"cores) beside {simt} (bf16 on CUDA cores, PERF.md)",
+              flush=True)
     if kernels:
         top_kernels(kernels, n)
     return dict(kernels=len(kernels) / n, busy_ms=busy_ms,
@@ -5737,13 +5768,13 @@ def main():
     for name in build.BUILD_LOGS:
         print(f"{name}: {ptxas_summary(name)}", flush=True)
     smem = build.library("flash_attention_bwd").flash_attention_bwd_smem_bytes
-    smem.argtypes, smem.restype = [ctypes.c_longlong, ctypes.c_int], \
-        ctypes.c_longlong
-    print("flash_attention_bwd dynamic shared memory a block (bytes; dq "
-          "pass, dk/dv pass): " + ", ".join(
-              f"hd {hd}: {smem(hd, 0)}, {smem(hd, 1)}" for hd in (64, 128,
-                                                                  256)),
-          flush=True)
+    smem.argtypes, smem.restype = [ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int], ctypes.c_longlong
+    for bf16, kind in ((0, "f32 SIMT"), (1, "bf16 tensor-core")):
+        print(f"flash_attention_bwd {kind} kernels' dynamic shared memory "
+              "a block (bytes; dq pass, dk/dv pass): " + ", ".join(
+                  f"hd {hd}: {smem(hd, 0, bf16)}, {smem(hd, 1, bf16)}"
+                  for hd in (64, 128, 256)), flush=True)
     print(f"built in {secs:.1f} s ({os.fspath(build.BUILD_ROOT)})", flush=True)
 
     phase("analysis")

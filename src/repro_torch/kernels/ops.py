@@ -631,17 +631,27 @@ flash_attention.launches = 0
 _BWD_MIN_BLOCKS = 264
 
 
-def _bwd_head_splits(B: int, T: int, K: int, group: int) -> int:
-    """How many blocks share one (kv tile, kv head, batch row)'s query
-    heads in B4′'s dk/dv pass: 1 where the kv tiles alone fill the card,
-    else enough to reach ``_BWD_MIN_BLOCKS`` (at most ``group``, and
-    within the grid's z limit)."""
-    blocks = -(-T // 64) * K * B
+def _bwd_head_splits(B: int, T: int, K: int, group: int,
+                     tile: int = 64) -> int:
+    """How many blocks share one (kv tile of ``tile`` keys, kv head, batch
+    row)'s query heads in B4′'s dk/dv pass: 1 where the kv tiles alone
+    fill the card, else enough to reach ``_BWD_MIN_BLOCKS`` (at most
+    ``group``, and within the grid's z limit)."""
+    blocks = -(-T // tile) * K * B
     if blocks >= _BWD_MIN_BLOCKS:
         return 1
     per = -(-group // min(group, -(-_BWD_MIN_BLOCKS // blocks)))
     splits = -(-group // per)
     return max(1, min(splits, _GRID_YZ // max(B, 1)))
+
+
+def _bwd_key_tile(dtype, hd: int) -> int:
+    """Keys a block of B4′'s dk/dv pass holds: 64 on the f32 SIMT kernel;
+    on the bf16 tensor-core kernel 64 a consumer warpgroup, two of them,
+    or 64 in all at head_dim > 128 (the consumers split head_dim)."""
+    if dtype != torch.bfloat16:
+        return 64
+    return 64 if hd > 128 else 128
 
 
 def _flash_attention_backward_launch(q, k, v, g, causal, window, softcap):
@@ -670,28 +680,51 @@ def _flash_attention_backward_launch(q, k, v, g, causal, window, softcap):
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if B == 0 or S == 0 or H == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # each query row's log-sum-exp and D = Σ_t P_t dP_t, written by the
-    # dq pass and read by the dk/dv pass
-    stats = torch.empty(2, B, H, S, dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
     # dk, dv as f32 sums of each block's share of the q heads, added in
     # order and rounded once
-    splits = _bwd_head_splits(B, T, K, H // K)
+    splits = _bwd_head_splits(B, T, K, H // K, _bwd_key_tile(q.dtype, hd))
     partial = torch.empty(2, splits, B, T, K, hd, dtype=torch.float32,
                           device=q.device)
-    bf16 = q.dtype == torch.bfloat16
-    fn_name = "flash_attention_bwd_bf16" if bf16 else "flash_attention_bwd_f32"
-    lib = _lib("flash_attention_bwd", [
-        (n, [_VP] * 9 + [_LL] * 7 + [_I, _I, _F, _F, _VP])
-        for n in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16")])
     scale = float(np.float32(1.0) / np.float32(math.sqrt(hd)))
+    mask = (int(bool(causal)), max(int(window), 0), float(softcap), scale)
+    if bf16:
+        # TMA rows are 16-byte multiples: head_dim padded with zero
+        # columns (zero terms; dq, dk, dv keep hd); each row's lse and D
+        # padded to whole 64-row tiles; q_scaled for the dk/dv grid
+        if hd % 8:
+            q, k, v, g = (torch.nn.functional.pad(t, (0, 8 - hd % 8))
+                          for t in (q, k, v, g))
+        q, k, v, g = (_kernel_layout(t) for t in (q, k, v, g))
+        hd_in = q.shape[-1]
+        stats = torch.empty(2, B, H, -(-S // 64) * 64, dtype=torch.float32,
+                            device=q.device)
+        qs = torch.empty(B, S, H, hd_in, dtype=q.dtype, device=q.device)
+        fn_name = "flash_attention_bwd_bf16"
+        args = (q, k, v, g, qs, dq, dk, dv, stats, partial, B, S, T, H, K,
+                hd, hd_in, splits)
+    else:
+        # each query row's log-sum-exp and D = Σ_t P_t dP_t, written by
+        # the dq pass and read by the dk/dv pass
+        stats = torch.empty(2, B, H, S, dtype=torch.float32,
+                            device=q.device)
+        fn_name = "flash_attention_bwd_f32"
+        args = (q, k, v, g, dq, dk, dv, stats, partial, B, S, T, H, K, hd,
+                splits)
+    lib = _lib("flash_attention_bwd", [
+        ("flash_attention_bwd_f32", [_VP] * 9 + [_LL] * 7 + [_I, _I, _F, _F,
+                                                              _VP]),
+        ("flash_attention_bwd_bf16", [_VP] * 10 + [_LL] * 8 + [_I, _I, _F,
+                                                                _F, _VP])])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, fn_name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            partial.data_ptr(), B, S, T, H, K, hd, splits,
-            int(bool(causal)), max(int(window), 0), float(softcap), scale,
-            stream)
+            *(a.data_ptr() if torch.is_tensor(a) else a for a in args),
+            *mask, stream)
+    if err == -1:
+        raise RuntimeError(
+            f"{fn_name}: the driver refused a TMA tensor map for q, k, v, g "
+            f"of shapes {[tuple(t.shape) for t in (q, k, v, g)]}")
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     flash_attention_backward.launches += 1

@@ -18,7 +18,9 @@
 * the LM kernels' CPU gradients are still autograd's through the plain
   forwards, bit for bit;
 * on ``meta`` the backward reports its work and launches nothing, and the
-  two counters are counted kernels.
+  two counters are counted kernels;
+* B4′'s dk/dv grid: the keys a block holds by dtype and head_dim, and
+  the split of a kv head's query heads over blocks by that tile.
 
 The kernels themselves are held to these plain versions on the card by
 the ``gpu`` tests of ``test_torch_kernels.py`` and by ``chip_smoke.py``.
@@ -287,3 +289,52 @@ def test_backward_work_counts():
     assert counts["rglru_scan_backward"] == ops.rglru_scan_backward.launches
     assert counts["flash_attention_backward"] == \
         ops.flash_attention_backward.launches
+
+
+@pytest.mark.parametrize("dtype,hd,tile", [
+    (torch.float32, 128, 64), (torch.float32, 256, 64),
+    (torch.bfloat16, 36, 128), (torch.bfloat16, 120, 128),
+    (torch.bfloat16, 128, 128), (torch.bfloat16, 256, 64)])
+def test_bwd_key_tile(dtype, hd, tile):
+    """Keys a block of B4′'s dk/dv pass holds: 64 on the f32 kernel; on
+    the bf16 one 128 (two consumers of 64), 64 where head_dim > 128 (the
+    consumers split head_dim)."""
+    assert ops._bwd_key_tile(dtype, hd) == tile
+
+
+@pytest.mark.parametrize("B,T,K,group,tile,splits", [
+    (2, 1500, 20, 1, 128, 1),    # whisper's encoder: the kv tiles fill
+    (4, 4096, 8, 4, 128, 1),     # 1024 blocks: no split
+    (4, 512, 8, 4, 128, 2),      # granite, bf16: 128 blocks, 2 heads a split
+    (4, 512, 8, 4, 64, 2),       # granite, f32: 256 blocks
+    (2, 512, 1, 16, 64, 16),     # the hybrid's MQA: every head its own
+    (2, 1024, 4, 4, 64, 2),      # the tile changes the split:
+    (2, 1024, 4, 4, 128, 4),     # 128 blocks vs 64
+])
+def test_bwd_head_splits(B, T, K, group, tile, splits):
+    """B4′'s dk/dv head split by the key tile: 1 where the kv tiles alone
+    reach ``_BWD_MIN_BLOCKS``; else enough splits to reach it (an equal
+    share of heads each), never more than ``group``; within the grid's z
+    limit."""
+    got = ops._bwd_head_splits(B, T, K, group, tile)
+    assert got == splits
+    blocks = -(-T // tile) * K * B
+    assert 1 <= got <= group and B * got <= ops._GRID_YZ
+    if blocks >= ops._BWD_MIN_BLOCKS:
+        assert got == 1
+    else:
+        # no more splits than reach the goal
+        assert got <= min(group, -(-ops._BWD_MIN_BLOCKS // blocks))
+
+
+def test_bwd_head_splits_stay_in_the_grid():
+    """Over a sweep of shapes the split never exceeds the group or the
+    grid's z limit, and is 1 wherever the kv tiles alone fill the card."""
+    for B, T, K, group, tile in itertools.product(
+            (1, 3, 200, 70000), (1, 64, 1500), (1, 8), (1, 4, 16, 1000),
+            (64, 128)):
+        got = ops._bwd_head_splits(B, T, K, group, tile)
+        assert 1 <= got <= max(group, 1)
+        assert B * got <= max(ops._GRID_YZ, B)
+        if -(-T // tile) * K * B >= ops._BWD_MIN_BLOCKS:
+            assert got == 1

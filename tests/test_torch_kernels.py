@@ -724,21 +724,27 @@ def test_cuda_rglru_scan_backward_equals_plain(cuda, B, T, W, with_h0,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,T,hd,causal,window,softcap", [
-    (2, 256, 32, 8, 256, 128, True, 0, 0.0),      # granite-8b, S cut
-    (1, 300, 16, 1, 300, 256, True, 128, 30.0),   # recurrentgemma local
-    (2, 64, 4, 4, 150, 64, False, 0, 0.0),        # cross-attention S != T
-    (2, 100, 4, 2, 100, 120, True, 0, 0.0),       # danube's head_dim
-    (1, 70, 6, 3, 70, 80, False, 9, 0.0),         # window, no causal
+@pytest.mark.parametrize("B,S,H,K,T,hd,causal,window,softcap,qscale", [
+    (2, 256, 32, 8, 256, 128, True, 0, 0.0, 1.0),     # granite-8b, S cut
+    (1, 300, 16, 1, 300, 256, True, 128, 30.0, 1.0),  # recurrentgemma local
+    (2, 64, 4, 4, 150, 64, False, 0, 0.0, 1.0),       # cross-attention S != T
+    (2, 100, 4, 2, 100, 120, True, 0, 0.0, 1.0),      # danube's head_dim
+    (1, 70, 6, 3, 70, 80, False, 9, 0.0, 1.0),        # window, no causal
+    # head_dim 256, MQA: the dk/dv grid's head split (16 kv tiles)
+    (2, 512, 16, 1, 512, 256, True, 2048, 30.0, 1.0),
+    (1, 1500, 4, 4, 1500, 64, False, 0, 0.0, 1.0),    # whisper's ragged T
+    (2, 100, 4, 2, 100, 36, True, 0, 0.0, 1.0),       # head_dim padded to 40
+    (2, 256, 8, 2, 256, 128, True, 0, 0.0, 20.0),     # a sharp softmax
 ])
 def test_cuda_flash_attention_backward_matches_plain(
-        cuda, B, S, H, K, T, hd, causal, window, softcap, dtype):
+        cuda, B, S, H, K, T, hd, causal, window, softcap, qscale, dtype):
     """B4′ against its plain version: f32 within 1e-4, bf16 within 2^-7
     of each gradient's largest entry; one launch a call; two launches give
     the same bits (no atomics)."""
     g = torch.Generator(device=cuda).manual_seed(S + hd)
     q, go = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
              for _ in range(2))
+    q = (q.float() * qscale).to(dtype)
     k, v = (torch.randn(B, T, K, hd, generator=g, device=cuda).to(dtype)
             for _ in range(2))
     kw = dict(causal=causal, window=window, softcap=softcap)

@@ -19,6 +19,13 @@ of 20 calls, CUDA events).
       256), k/v (4, 4096, 1, 256) bf16, window 2048, softcap 30; the
       share of chip_smoke.py's bf16 rounding gate at q x 1 and q x 20
       (batch 1, as there).
+  python3 tools/kernel_variants.py backward
+      The bf16 attention-backward variants in BACKWARD below (P or dS as
+      hi + lo bf16 terms) at chip_smoke.py's seven training shapes, q x 1
+      and q x 20: each gradient's max |d| over its largest entry as a
+      share of the smoke's gates (2^-7 against the plain backward, 2 x
+      2^-7 against autograd through the plain forward), and the time at
+      q x 1.
 
 It exits non-zero without a CUDA card, and if a build fails.
 """
@@ -43,7 +50,7 @@ ATTENTION = {
     "shipped": [],
     # P rounded once to bf16, as FlashAttention-3 does: the P_lo product
     # dropped
-    "p_hi_only": [("          wgmma_pv<HDP>(o, al, dv);\n", "")],
+    "p_hi_only": [("          wgmma_rs<HDP>(o, al, dv);\n", "")],
     # a trap after 2^22 polls of an mbarrier
     "trap_in_wait": [(_WAIT, "  uint32_t done, n = 0;\n  do {"),
                      (_WAIT_END,
@@ -51,6 +58,13 @@ ATTENTION = {
 }
 
 
+BACKWARD = {
+    "shipped": [],
+    "split_p": [("constexpr bool kSplitP = false;",
+                 "constexpr bool kSplitP = true;")],
+    "split_ds": [("constexpr bool kSplitDS = false;",
+                  "constexpr bool kSplitDS = true;")],
+}
 def rglru_variant(spec):
     ch, steps, stages = spec.split(",")
     return [("constexpr int kCh = 64;", f"constexpr int kCh = {ch};"),
@@ -75,7 +89,8 @@ def build_variants(source, variants):
         cu.write_text(src)
         lib = OUT / f"lib{stem}.so"
         procs[name] = (subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            [build._nvcc(), *build.NVCC_FLAGS, "-I", str(CSRC), "-o",
+             str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
@@ -164,6 +179,43 @@ def run_attention(gen):
               f"kernel_ms={ms} (softcap 0: {ms0})", flush=True)
 
 
+def run_backward(gen):
+    from kernel_times import BWD_SHAPES
+    from repro_torch.kernels import ops, ref
+    libs = build_variants("flash_attention_bwd", BACKWARD)
+    gate = 2.0 ** -7
+
+    def rel(got, want):
+        return max(float((a.float() - b.float()).abs().max())
+                   / float(b.float().abs().max())
+                   for a, b in zip(got, want))
+
+    for label, ((B, S, H, K, T, hd), kw) in BWD_SHAPES.items():
+        for qscale in (1.0, 20.0):
+            q, k, v, g = (torch.randn(*s, generator=gen, device="cuda")
+                          for s in ((B, S, H, hd), (B, T, K, hd),
+                                    (B, T, K, hd), (B, S, H, hd)))
+            q = q * qscale
+            q, k, v, g = (x.to(torch.bfloat16) for x in (q, k, v, g))
+            want = ref.attention_backward_reference(q, k, v, g, **kw)
+            ins = [x.clone().requires_grad_() for x in (q, k, v)]
+            route = torch.autograd.grad(ref.attention_reference(*ins, **kw),
+                                        ins, g)
+            for name, lib in libs.items():
+                use("flash_attention_bwd", lib)
+                got = ops.flash_attention_backward(q, k, v, g, **kw)
+                shares = (rel(got, want) / gate,
+                          rel(got, route) / (2 * gate))
+                ms = (median_ms(lambda: ops.flash_attention_backward(
+                    q, k, v, g, **kw)) if qscale == 1.0 else None)
+                print(f"flash_attention_backward {name} {label} q x "
+                      f"{qscale}: gate share vs plain {shares[0]:.4f}, vs "
+                      f"autograd through plain {shares[1]:.4f}; "
+                      f"kernel_ms={ms}", flush=True)
+            del q, k, v, g, want, ins, route
+            torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
@@ -182,6 +234,8 @@ def main():
         run_rglru(sys.argv[2:], gen)
     elif what == "attention":
         run_attention(gen)
+    elif what == "backward":
+        run_backward(gen)
     else:
         raise SystemExit(__doc__)
 
