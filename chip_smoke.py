@@ -238,7 +238,10 @@ Phases (any failure exits non-zero; nothing is caught):
                 figure (``B4P_SIMT_DEVICE_MS``); B3 at (2, 256, 512) with
                 its gradient (B3′: ``==`` autograd through the plain
                 version) and B3′ alone
-                ``==`` its plain version in f32 and bf16; forward and
+                ``==`` its plain version in f32 and bf16 (one launch a
+                call), and at ``B3P_EXTRA_SHAPES`` (T and W ragged over
+                two laps of its cluster and a third, no TMA; exactly two
+                laps at the hybrid's width); forward and
                 forward+backward times (kernel, plain version, SDPA); (b)
                 ``train_standard``
                 on granite-8b at full width and 2 layers (batch 4 x 512, 5
@@ -278,7 +281,9 @@ Phases (any failure exits non-zero; nothing is caught):
                 and SDPA times and the operation bound; B4′ alone at the
                 three trained shapes, f32 and bf16; B3 with its gradient
                 at the hybrid's training shape (2, 512, 4096) f32 and B3′
-                alone there in f32 and bf16;
+                alone there in f32 and bf16, with its device time alone
+                (the profiler's) warm and with the L2 evicted before each
+                call, beside the byte bound;
                 (b) whisper-large-v3 served at full width and depth (32 +
                 32 layers, 4 x 1500 stub frames, a 64-token prompt, 32
                 tokens): B4 exactly 96 per prefill (32 encoder, 32 decoder
@@ -4181,16 +4186,49 @@ def check_lm_gradients(generator):
     b4p = b4_backward_rows(generator, B4_BWD_SHAPES)
     b3, b3p = b3_gradient(generator, 2, 256, 512, with_h0=True)
     return {"flash_attention": b4, "rglru_scan": b3,
-            "flash_attention_backward": b4p, "rglru_scan_backward": b3p}, \
+            "flash_attention_backward": b4p, "rglru_scan_backward": b3p,
+            "rglru_scan_backward_extra": b3_backward_extra(generator)}, \
         b4_err
 
 
-def b3_backward(generator, B, T, W, *, with_h0, dtype):
+def kernel_device_ms(fn, name, label, n=10, evict=None):
+    """Device ms a call of the kernels whose names hold ``name``, alone:
+    their sum in a ``torch.profiler`` trace of ``n`` calls (written to
+    ``build/profile/<label>.json``), over ``n`` (CUDA events also hold the
+    wrapper's host work where the card waits for it); with ``evict`` (a
+    tensor larger than the 50 MB L2) read before each call, so the inputs
+    come from device memory and no dirty line is left to write back.
+    A trace that holds other than ``n`` such kernels is taken again (the
+    profiler was seen to return traces without device events); fails if
+    three in a row do."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if evict is not None:
+                    evict.sum()   # read: the L2 left clean
+                fn()
+            torch.cuda.synchronize()
+        _, kernels = trace_kernels(prof, label)
+        hits = [e.get("dur", 0) for e in kernels
+                if name in e.get("name", "")]
+        if len(hits) == n:
+            return sum(hits) / n / 1e3
+        print(f"{label}: {len(hits)} {name} kernels in the trace of {n} "
+              "calls; tracing again", flush=True)
+    fail(f"{label}: no complete trace of {n} {name} calls in three")
+
+
+def b3_backward(generator, B, T, W, *, with_h0, dtype, timed=True):
     """B3′ (``ops.rglru_scan_backward``) at (B, T, W) in ``dtype``, with
     g_last, against its plain version on the same inputs: ``==`` (the
-    same rounded steps in the same order), one launch a call; kernel and
-    plain ms and the byte bound (no library call computes the scan).
-    Returns the row."""
+    same rounded steps in the same order), one launch a call; then, if
+    ``timed``, kernel and plain ms, the kernel's device time alone (the
+    profiler's) warm and with the L2 evicted before each call, and the
+    byte bound (no library call computes the scan). Returns the row."""
     from repro_torch.kernels import ops, ref, work
 
     def randn(*s):
@@ -4215,19 +4253,48 @@ def b3_backward(generator, B, T, W, *, with_h0, dtype):
     if not equal or launched != 1:
         fail(f"rglru_scan_backward ({B}, {T}, {W}) {dtype}: {row}")
     del got, want
-    row["ms"] = median_ms(lambda: ops.rglru_scan_backward(
-        log_a, b, h0, h, g, g_last))
+    what = f"rglru_scan_backward ({B}, {T}, {W}) {dtype}" + (
+        " with h0" if with_h0 else "")
+    if not timed:
+        print(f"{what}: == plain {equal}, launches {launched}", flush=True)
+        return row
+
+    def call():
+        return ops.rglru_scan_backward(log_a, b, h0, h, g, g_last)
+
+    row["ms"] = median_ms(call)
+    label = f"b3_backward_{B}x{T}x{W}_{str(dtype).replace('torch.', '')}"
+    row["device_ms"] = kernel_device_ms(call, "rglru_scan_bwd_kernel",
+                                        label + "_warm")
+    evict = torch.zeros(32 << 20, device=DEVICE)   # 128 MB
+    row["device_ms_l2_evicted"] = kernel_device_ms(
+        call, "rglru_scan_bwd_kernel", label + "_evicted", evict=evict)
+    del evict
     row["plain_ms"] = median_ms(lambda: ref.rglru_scan_backward_reference(
         log_a, b, h0, h, g, g_last), iters=5, warmup=1)
     row["library_ms"] = None
     row["bound_ms"], row["bound_by"] = bound(*work.rglru_scan_backward(
         B, T, W, with_h0=with_h0, with_g_last=True, elem=log_a.element_size()))
-    print(f"rglru_scan_backward ({B}, {T}, {W}) {dtype}"
-          + (" with h0" if with_h0 else "") + f": == plain {equal}, "
-          f"launches {launched}; kernel_ms={row['ms']} plain_ms="
-          f"{row['plain_ms']} bound_ms={row['bound_ms']} "
-          f"({row['bound_by']})", flush=True)
+    print(f"{what}: == plain {equal}, launches {launched}; kernel_ms="
+          f"{row['ms']} device_ms={row['device_ms']} (L2 evicted "
+          f"{row['device_ms_l2_evicted']}) plain_ms={row['plain_ms']} "
+          f"bound_ms={row['bound_ms']} ({row['bound_by']})", flush=True)
     return row
+
+
+#: B3′ beyond the training shapes (its 64-step chunks, clusters of 8):
+#: T and W ragged over two laps and a third (W odd: each thread loads its
+#: own column, no TMA), and exactly two laps at the hybrid's width
+B3P_EXTRA_SHAPES = ((3, 1101, 515, True), (2, 1024, 4096, False))
+
+
+def b3_backward_extra(generator):
+    """B3′ ``==`` its plain version, one launch a call, at
+    B3P_EXTRA_SHAPES in f32 and bf16 (untimed). Returns the rows."""
+    return {f"({B}, {T}, {W}) {str(dt).replace('torch.', '')}": b3_backward(
+        generator, B, T, W, with_h0=with_h0, dtype=dt, timed=False)
+        for B, T, W, with_h0 in B3P_EXTRA_SHAPES
+        for dt in (torch.float32, torch.bfloat16)}
 
 
 def b3_gradient(generator, B, T, W, *, with_h0):
@@ -4934,8 +5001,9 @@ def train_lm_phase(by_path, rows, generator):
         "granite-8b bfloat16")
     rows["rglru_scan_backward"] = backward_row(
         "src/repro_torch/kernels/csrc/rglru_scan.cu", B3_BWD_REPLACES,
-        {f"(2, 256, 512) h0 {k}": v
-         for k, v in grads["rglru_scan_backward"].items()},
+        dict({f"(2, 256, 512) h0 {k}": v
+              for k, v in grads["rglru_scan_backward"].items()},
+             **grads["rglru_scan_backward_extra"]),
         "(2, 256, 512) h0 float32")
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], b4_err)

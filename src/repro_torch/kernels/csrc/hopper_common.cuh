@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels, flash_attention.cu (B4) and flash_attention_bwd.cu (B4'):
-// mbarriers, TMA loads (tensor tiles and plain bulk copies), the wgmma
-// shared-memory descriptors of the 128-byte swizzle, the bf16 wgmma
-// shapes the two kernels use with f32 accumulators, and the host-side
-// encoder of their 4-d tensor maps.
+// kernels, flash_attention.cu (B4) and flash_attention_bwd.cu (B4'), and
+// the scan's backward, rglru_scan.cu (B3'): mbarriers, TMA loads (tensor
+// tiles and plain bulk copies), the wgmma shared-memory descriptors of
+// the 128-byte swizzle, the bf16 wgmma shapes the two attention kernels
+// use with f32 accumulators, the host-side encoders of their 4-d tensor
+// maps and of B3''s 3-d ones, and the thread-block cluster's hand-off:
+// a store into another CTA's shared memory and an arrival on its mbarrier.
 //
 // Tiles are boxes of 64 rows x 64 bf16 columns (128 bytes, the widest row
 // the 128-byte swizzle takes), so a 64 x hd tile is hd / 64 boxes of
@@ -69,6 +71,78 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c),
          "r"(h), "r"(r), "r"(b)
       : "memory");
+}
+
+// one box of a 3-d map at (column, row, batch) into shared memory
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c, int r,
+                                            int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c),
+         "r"(r), "r"(b)
+      : "memory");
+}
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// make this CTA's mbarrier inits visible to the cluster's other CTAs
+__device__ __forceinline__ void fence_mbarrier_init_cluster() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// every thread of every CTA of the cluster: arrive, and later wait (the
+// split lets a CTA work between the two)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the shared::cluster address of `addr` (a shared::cta address of this
+// CTA) in the CTA of cluster rank `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(addr), "f"(v) : "memory");
+}
+
+// arrive on another CTA's mbarrier (a shared::cluster address), releasing
+// this thread's earlier stores to the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      :: "r"(bar) : "memory");
+}
+
+// mbar_wait, acquiring what the arrivals of other CTAs released
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -362,6 +436,32 @@ inline bool encode(CUtensorMap* map, const void* ptr, long long hd_in,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 3-d map over an f32 or bf16 (batch, rows, cols) tensor with unit
+// column stride, boxes of box_rows x box_cols, no swizzle, zeros out of
+// bounds (a box may start at row -1)
+inline bool encode_3d(CUtensorMap* map, const void* ptr, bool bf16,
+                      long long cols, long long rows, long long batch,
+                      int box_cols, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const long long elem = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols * elem),
+                                 static_cast<cuuint64_t>(rows * cols * elem)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map,
+            bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+            3, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

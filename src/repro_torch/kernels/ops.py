@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -364,6 +364,68 @@ def rglru_scan(log_a, b, h0=None):
 rglru_scan.launches = 0
 
 
+#: B3′'s launch constants: channels a CTA owns and steps a chunk holds
+#: (``kBwdCh``, ``kBwdSteps`` of ``csrc/rglru_scan.cu``, which refuses any
+#: other plan), and the cluster size asked for (8, the portable most)
+B3P_CH, B3P_STEPS, B3P_CLUSTER = 64, 64, 8
+#: the most CTAs a cluster may hold (above 8 the kernel sets the
+#: non-portable attribute) and the dynamic shared memory a block may have
+#: on the H100
+_CLUSTER_MAX, _SMEM_MAX = 16, 232_448
+
+
+class B3pPlan(NamedTuple):
+    """B3′'s launch at one shape: ``ch`` channels a CTA, time cut into
+    ``chunks`` chunks of ``steps`` steps, a cluster of ``cluster`` CTAs
+    along grid z whose rank s owns chunks s, s + cluster, ... (``laps``
+    of them at most), ``smem`` bytes of dynamic shared memory a CTA, and
+    the f32 entry-carry scratch's shape, or None where none is needed."""
+    ch: int
+    steps: int
+    cluster: int
+    chunks: int
+    laps: int
+    grid: Tuple[int, int, int]
+    smem: int
+    scratch: Optional[Tuple[int, int, int]]
+
+    def ring(self, rank: int):
+        """The chunks CTA ``rank`` of a cluster owns, in lap order."""
+        return list(range(rank, self.chunks, self.cluster))
+
+
+def _rglru_scan_backward_plan(B, T, W, elem, has_h, *, ch=None, steps=None,
+                              cluster=None) -> B3pPlan:
+    """B3′'s launch plan for (B, T, W) of ``elem``-byte inputs; ``has_h``:
+    the f32 saved output is read as the carry (else the kernel recomputes
+    it). ``ch``, ``steps`` and ``cluster`` default to the module's B3P_*
+    constants. Raises by name where the shape cannot be launched."""
+    ch = B3P_CH if ch is None else ch
+    steps = B3P_STEPS if steps is None else steps
+    cluster = B3P_CLUSTER if cluster is None else cluster
+    if min(B, T, W) < 1:
+        raise ValueError(f"B3′ needs B, T, W >= 1, got {(B, T, W)}")
+    if B > _GRID_YZ:
+        raise ValueError(f"B={B} exceeds the kernel's grid ({_GRID_YZ})")
+    if T >= _INT_MAX or W >= _INT_MAX:
+        raise ValueError(f"T={T} or W={W} exceeds the tensor maps' int "
+                         "coordinates")
+    if not 1 <= cluster <= _CLUSTER_MAX:
+        raise ValueError(f"cluster {cluster} is outside 1..{_CLUSTER_MAX}")
+    chunks = -(-T // steps)
+    cluster = min(cluster, chunks)
+    laps = -(-chunks // cluster)
+    recompute = not (has_h and elem == 4)
+    head = -(-(4 * 8 + 3 * 4 * ch) // 128) * 128
+    smem = head + (2 if laps > 1 else 1) * 3 * steps * ch * elem
+    if smem > _SMEM_MAX:
+        raise ValueError(f"B3′ needs {smem} bytes of shared memory a CTA "
+                         f"(the card has {_SMEM_MAX})")
+    return B3pPlan(ch, steps, cluster, chunks, laps,
+                   (-(-W // ch), B, cluster), smem,
+                   (B, chunks, W) if recompute and laps > 1 else None)
+
+
 def _rglru_scan_backward_launch(log_a, b, h0, h, g_h, g_last):
     """B3′'s dispatch by device → (d log_a, db, dh0 f32): the plain
     backward on the CPU, the kernel on the card (shapes already checked;
@@ -379,8 +441,6 @@ def _rglru_scan_backward_launch(log_a, b, h0, h, g_h, g_last):
             elem=log_a.element_size()))
         return torch.empty_like(log_a), torch.empty_like(b), dh0
     _cuda_only(log_a, b, g_h, *(() if h is None else (h,)))
-    if B > _GRID_YZ:
-        raise ValueError(f"B={B} exceeds the kernel's grid ({_GRID_YZ})")
     for name, t in (("h0", h0), ("g_last", g_last)):
         if t is not None and t.device != log_a.device:
             raise ValueError(f"{name} is on {t.device}, log_a on "
@@ -395,12 +455,14 @@ def _rglru_scan_backward_launch(log_a, b, h0, h, g_h, g_last):
     if B == 0 or W == 0:
         return dla, db, dh0
     bf16 = log_a.dtype == torch.bfloat16
-    # without an f32 output to read, the kernel's forward walk writes the
-    # f32 carry here first
-    carry = (torch.empty(B, T, W, dtype=torch.float32, device=log_a.device)
-             if h is None else None)
+    plan = _rglru_scan_backward_plan(B, T, W, log_a.element_size(),
+                                     h is not None)
+    # where the carry is recomputed over more than one lap of the cluster,
+    # each chunk's entry carry is kept here between the two walks
+    entry = (None if plan.scratch is None else torch.empty(
+        plan.scratch, dtype=torch.float32, device=log_a.device))
     fn_name = "rglru_scan_bwd_bf16" if bf16 else "rglru_scan_bwd_f32"
-    lib = _lib("rglru_scan", [(n, [_VP] * 10 + [_LL, _LL, _LL, _VP])
+    lib = _lib("rglru_scan", [(n, [_VP] * 10 + [_LL] * 3 + [_I] * 4 + [_VP])
                               for n in ("rglru_scan_bwd_f32",
                                         "rglru_scan_bwd_bf16")])
 
@@ -412,7 +474,11 @@ def _rglru_scan_backward_launch(log_a, b, h0, h, g_h, g_last):
         err = getattr(lib, fn_name)(
             log_a.data_ptr(), b.data_ptr(), ptr(h0), ptr(h),
             g_h.data_ptr(), ptr(g_last), dla.data_ptr(), db.data_ptr(),
-            dh0.data_ptr(), ptr(carry), B, T, W, stream)
+            dh0.data_ptr(), ptr(entry), B, T, W, plan.ch, plan.steps,
+            plan.cluster, plan.smem, stream)
+    if err == -2:
+        raise RuntimeError(f"{fn_name} refused the plan {plan}: not the "
+                           "built kernel's constants")
     if err != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
     rglru_scan_backward.launches += 1

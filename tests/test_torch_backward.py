@@ -10,7 +10,8 @@
   of the f64 gradient at the same bf16 inputs;
 * both against ``jax.vjp`` of the JAX package's ``repro.models.rglru.
   rglru_scan`` and ``repro.kernels.ref.mha_reference`` on the same
-  numpy-made inputs, in f32;
+  numpy-made inputs, in f32 (the scan also at the T that cut B3′'s
+  chunks raggedly: T = 1, L, S·L ± 1, two laps and a ragged third);
 * the wrappers ``ops.rglru_scan_backward`` / ``ops.flash_attention_
   backward`` on the CPU (their plain versions), their Functions' own
   backward (``gradcheck`` in f64: the second derivative of the plain
@@ -145,8 +146,8 @@ def test_attention_backward_reference_within_autograd(case, dtype):
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
-def test_rglru_scan_backward_matches_jax_vjp(with_h0):
-    la, b, h0, g, gl = _scan_inputs(torch.float32, with_h0, True, T=40,
+def test_rglru_scan_backward_matches_jax_vjp(with_h0, T=40):
+    la, b, h0, g, gl = _scan_inputs(torch.float32, with_h0, True, T=T,
                                     W=7, seed=3)
     h, _ = ref.rglru_scan_reference(la, b, h0)
     got = ref.rglru_scan_backward_reference(la, b, h0, h, g, gl)
@@ -157,6 +158,20 @@ def test_rglru_scan_backward_matches_jax_vjp(with_h0):
     want = pull((jnp.asarray(g.numpy()), jnp.asarray(gl.numpy())))
     for x, y in zip(got, want):
         assert _rel(x, torch.from_numpy(np.asarray(y))) <= JAX_REL
+
+
+#: B3′'s chunk and cluster (64 steps, 8 CTAs): T = 1, T = L, T = S·L ± 1,
+#: two laps and a ragged third
+RAGGED_TS = [1, 64, 511, 513, 1024, 1101]
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("T", RAGGED_TS)
+def test_rglru_scan_backward_matches_jax_vjp_ragged_t(T, with_h0):
+    """The same comparison at the T that cut B3′'s chunks and laps
+    raggedly (``ops._rglru_scan_backward_plan``)."""
+    assert ops.B3P_STEPS == 64 and ops.B3P_CLUSTER == 8
+    test_rglru_scan_backward_matches_jax_vjp(with_h0, T=T)
 
 
 @pytest.mark.parametrize("case", range(len(ATTN_CASES)))

@@ -695,15 +695,7 @@ def test_cuda_rglru_scan_gradient_matches_plain(cuda):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("with_h0,with_last", [(False, False), (True, True)])
-@pytest.mark.parametrize("B,T,W", [(2, 37, 40), (2, 512, 4096)])
-def test_cuda_rglru_scan_backward_equals_plain(cuda, B, T, W, with_h0,
-                                               with_last, dtype):
-    """B3′ ``==`` its plain version: f32 reading the saved output as the
-    carry, bf16 and f32 without it recomputing the carry; one launch a
-    call."""
+def _b3p_inputs(cuda, B, T, W, dtype, with_h0, with_last):
     g = torch.Generator(device=cuda).manual_seed(T)
     log_a = (-torch.rand(B, T, W, generator=g, device=cuda) * 0.5).to(dtype)
     b, gh = (torch.randn(B, T, W, generator=g, device=cuda).to(dtype)
@@ -711,6 +703,25 @@ def test_cuda_rglru_scan_backward_equals_plain(cuda, B, T, W, with_h0,
     h0, gl = (torch.randn(B, W, generator=g, device=cuda) if on else None
               for on in (with_h0, with_last))
     h, _ = ops.rglru_scan(log_a, b, h0)
+    return log_a, b, h0, h, gh, gl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0,with_last", [(False, False), (True, True)])
+@pytest.mark.parametrize("B,T,W", [
+    (2, 37, 40), (2, 512, 4096),
+    # B3′'s chunks (64 steps) and cluster (8): T = 1, T = L with a ragged
+    # W, S·L ± 1, two laps, a ragged third; W odd (no TMA), B = 3
+    (3, 1, 100), (3, 64, 4100), (3, 511, 1000), (2, 513, 72),
+    (2, 1024, 4096), (3, 1101, 515)])
+def test_cuda_rglru_scan_backward_equals_plain(cuda, B, T, W, with_h0,
+                                               with_last, dtype):
+    """B3′ ``==`` its plain version: f32 reading the saved output as the
+    carry, bf16 and f32 without it recomputing the carry; one launch a
+    call."""
+    log_a, b, h0, h, gh, gl = _b3p_inputs(cuda, B, T, W, dtype, with_h0,
+                                          with_last)
     want = ref.rglru_scan_backward_reference(log_a, b, h0, h, gh, gl)
     for saved in (h, None):
         before = ops.rglru_scan_backward.launches
@@ -720,6 +731,36 @@ def test_cuda_rglru_scan_backward_equals_plain(cuda, B, T, W, with_h0,
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert (got[2] is None) == (h0 is None)
         assert h0 is None or torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,W", [(2, 512, 4096), (3, 1101, 515)])
+def test_cuda_rglru_scan_backward_deterministic_and_captured(cuda, B, T, W,
+                                                             dtype):
+    """Two launches of B3′ give equal bits (no atomics), and a launch
+    captured in a CUDA graph and replayed ``==`` the eager one (the kernel
+    allocates nothing; the entry-carry scratch comes from the graph's
+    pool)."""
+    log_a, b, h0, h, gh, gl = _b3p_inputs(cuda, B, T, W, dtype, True, True)
+    for saved in (h, None):
+        def call():
+            return ops.rglru_scan_backward(log_a, b, h0, saved, gh, gl)
+        first, second = call(), call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = call()
+        before = ops.rglru_scan_backward.launches
+        graph.replay()
+        assert ops.rglru_scan_backward.launches == before
+        torch.cuda.synchronize()
+        for x, y, z in zip(first, second, captured):
+            assert torch.equal(x, y) and torch.equal(x, z)
 
 
 @pytest.mark.gpu

@@ -15,7 +15,13 @@ calls by CUDA events on inputs made from one seed:
 * B4's forward (``ops.flash_attention``), bf16, at the kernel table's
   shape (q (4, 4096, 16, 256), one kv head, window 2048, softcap 30) and
   at granite-8b's training shape;
-* B3 (``ops.rglru_scan``) at (4, 4096, 4096) f32 from h0.
+* B3 (``ops.rglru_scan``) at (4, 4096, 4096) f32 from h0;
+* B3′ (``ops.rglru_scan_backward``) at the hybrid's training shape (2,
+  512, 4096) from zero with g_last, f32 reading the saved output and
+  bf16 (the carry recomputed), and its device time alone, warm (inputs
+  left in the 50 MB L2 by the call before) and with the L2 evicted (a
+  128 MB buffer read before each call, so that no dirty line is left to
+  write back).
 
 It prints the card's name and power limit, one line a kernel and shape,
 and one JSON object as its last line (also written to FILE). Run parent,
@@ -72,17 +78,38 @@ def median_ms(fn, iters=20, warmup=2):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, name, n=10):
-    """Device ms a call of the kernels whose names hold ``name``."""
+def device_ms(fn, name, n=10, evict=None):
+    """Device ms a call of the kernels whose names hold ``name``: their
+    sum in a ``torch.profiler`` trace of ``n`` calls (CPU and CUDA
+    activities, exported to ``build/profile/kernel_times.json``: the
+    trace's kernel events, since ``key_averages()`` of a CUDA-only trace
+    was seen to drop some), over ``n``; with ``evict`` (a tensor larger
+    than the L2) read before each call. A trace that does not hold a whole
+    number of them a call is taken again (the profiler was seen to return
+    traces without device events); exits if three in a row do not."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if name in e.key) / n / 1e3
+    out = ROOT / "build" / "profile" / "kernel_times.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if evict is not None:
+                    evict.sum()   # read: the L2 left clean
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(out))
+        hits = [e.get("dur", 0)
+                for e in json.loads(out.read_text())["traceEvents"]
+                if e.get("cat") == "kernel" and name in e.get("name", "")]
+        if hits and len(hits) % n == 0:
+            return sum(hits) / n / 1e3
+        print(f"kernel_times: {name}: the trace of {n} calls holds "
+              f"{len(hits)} kernels; tracing again", flush=True)
+    raise SystemExit(f"kernel_times: {name}: no whole trace of {n} calls "
+                     "in three")
 
 
 def main():
@@ -137,6 +164,30 @@ def main():
     out["rglru_scan"] = median_ms(lambda: ops.rglru_scan(log_a, b, h0))
     print(f"rglru_scan (4, 4096, 4096) f32: {out['rglru_scan']} ms",
           flush=True)
+    del log_a, b, h0
+    evict = torch.zeros(32 << 20, device="cuda")   # 128 MB
+    out["rglru_scan_backward"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        log_a = (-torch.rand(2, 512, 4096, generator=gen, device="cuda")
+                 * 0.5).to(dtype)
+        b, g = randn(2, 512, 4096, dtype=dtype), randn(2, 512, 4096,
+                                                        dtype=dtype)
+        g_last = randn(2, 4096)
+        h, _ = ops.rglru_scan(log_a, b)
+
+        def call():
+            ops.rglru_scan_backward(log_a, b, None, h, g, g_last)
+
+        name = f"(2, 512, 4096) {str(dtype).replace('torch.', '')}"
+        row = dict(ms=median_ms(call),
+                   device_ms=device_ms(call, "rglru_scan_bwd"),
+                   device_ms_evicted=device_ms(call, "rglru_scan_bwd",
+                                               evict=evict))
+        out["rglru_scan_backward"][name] = row
+        print(f"rglru_scan_backward {name}: {row['ms']} ms (device "
+              f"{row['device_ms']} ms warm, {row['device_ms_evicted']} ms "
+              "L2 evicted)", flush=True)
+        del log_a, b, g, g_last, h
     line = json.dumps(out)
     if args.out:
         Path(args.out).write_text(line + "\n")

@@ -14,6 +14,14 @@ of 20 calls, CUDA events).
       RG-LRU scan ring shapes (channels per block, steps per tile, ring
       depth) at (4, 4096, 4096) f32; each must equal the plain version
       bit for bit.
+  python3 tools/kernel_variants.py rglru_bwd 64,64,8 32,64,8 64,64,8,no_wait
+      B3' (the scan's backward) launch shapes (channels a CTA, steps a
+      chunk, CTAs a cluster; above 8 non-portable; then any diagnostics
+      of RGLRU_BWD below, which give wrong results) at the hybrid's
+      training shape (2, 512, 4096) from zero with g_last, f32 reading
+      the saved output and bf16; each must equal the plain version bit
+      for bit; the events' time and the device time alone (profiler)
+      with the L2 evicted before each call (a 128 MB read).
   python3 tools/kernel_variants.py attention
       The flash-attention variants in ATTENTION below, at q (4, 4096, 16,
       256), k/v (4, 4096, 1, 256) bf16, window 2048, softcap 30; the
@@ -70,6 +78,30 @@ def rglru_variant(spec):
     return [("constexpr int kCh = 64;", f"constexpr int kCh = {ch};"),
             ("constexpr int kSteps = 16;", f"constexpr int kSteps = {steps};"),
             ("constexpr int kStages = 3;", f"constexpr int kStages = {stages};")]
+
+
+# B3' diagnostics (wrong results, timing only): no hand-off waited for
+# (a cluster barrier at the end keeps every CTA alive until the last
+# arrival on its barriers), or no output stored
+_B3P_END = "  }\n}\n\ntemplate <typename T, bool kHasH, bool kVec>\nint launch_bwd_as("
+RGLRU_BWD = {
+    "no_wait": [("mbar_wait_cluster(smem_u32(&bars[3]), n_bwd++ & 1u);", ""),
+                ("mbar_wait_cluster(smem_u32(&bars[2]), n_fwd++ & 1u);", ""),
+                (_B3P_END, _B3P_END.replace(
+                    "  }\n}", "  }\n  cluster_arrive();\n  cluster_wait();\n}",
+                    1))],
+    "no_store": [("          store(lam[u], dbb + t * W);\n", ""),
+                 ("          store(__fmul_rn(__fmul_rn(lam[u], hprev), "
+                  "a[u]), dl + t * W);\n", "")],
+}
+
+
+def rglru_bwd_variant(spec):
+    ch, steps, _, *extra = spec.split(",")
+    return [("constexpr int kBwdCh = 64;", f"constexpr int kBwdCh = {ch};"),
+            ("constexpr int kBwdSteps = 64;",
+             f"constexpr int kBwdSteps = {steps};")] + [
+                 sub for name in extra for sub in RGLRU_BWD[name]]
 
 
 def build_variants(source, variants):
@@ -141,6 +173,40 @@ def run_rglru(specs, gen):
         ms = median_ms(lambda: ops.rglru_scan(log_a, b, h0))
         print(f"rglru_scan (channels, steps, ring) = ({spec}): equal to "
               f"plain {equal}, kernel_ms={ms}", flush=True)
+
+
+def run_rglru_bwd(specs, gen):
+    from kernel_times import device_ms
+    from repro_torch.kernels import ops, ref
+    libs = build_variants("rglru_scan",
+                          {s: rglru_bwd_variant(s) for s in specs})
+    evict = torch.zeros(32 << 20, device="cuda")   # 128 MB, above the L2
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        log_a = (-torch.rand(2, 512, 4096, generator=gen, device="cuda")
+                 * 0.5).to(dtype)
+        b, g = (torch.randn(2, 512, 4096, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        g_last = torch.randn(2, 4096, generator=gen, device="cuda")
+        h, _ = ops.rglru_scan(log_a, b)
+        want = ref.rglru_scan_backward_reference(log_a, b, None, h, g,
+                                                 g_last)
+        cases.append((dtype, log_a, b, h, g, g_last, want))
+    for spec, lib in libs.items():
+        use("rglru_scan", lib)
+        ops.B3P_CH, ops.B3P_STEPS, ops.B3P_CLUSTER = map(
+            int, spec.split(",")[:3])
+        for dtype, log_a, b, h, g, g_last, want in cases:
+            def call():
+                return ops.rglru_scan_backward(log_a, b, None, h, g, g_last)
+            got = call()
+            equal = all(torch.equal(x, y) for x, y in zip(got[:2], want))
+            ms = median_ms(call)
+            dev = device_ms(call, "rglru_scan_bwd", evict=evict)
+            print(f"rglru_scan_backward (channels, steps, cluster) = "
+                  f"({spec}) {str(dtype).replace('torch.', '')}: equal to "
+                  f"plain {equal}, kernel_ms={ms}, device_ms (L2 evicted)="
+                  f"{dev}", flush=True)
 
 
 def run_attention(gen):
@@ -232,6 +298,8 @@ def main():
     what = sys.argv[1] if len(sys.argv) > 1 else ""
     if what == "rglru" and len(sys.argv) > 2:
         run_rglru(sys.argv[2:], gen)
+    elif what == "rglru_bwd" and len(sys.argv) > 2:
+        run_rglru_bwd(sys.argv[2:], gen)
     elif what == "attention":
         run_attention(gen)
     elif what == "backward":
