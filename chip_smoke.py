@@ -282,8 +282,8 @@ Phases (any failure exits non-zero; nothing is caught):
                 three trained shapes, f32 and bf16; B3 with its gradient
                 at the hybrid's training shape (2, 512, 4096) f32 and B3′
                 alone there in f32 and bf16, with its device time alone
-                (the profiler's) warm and with the L2 evicted before each
-                call, beside the byte bound;
+                (``kernels/timing.py``) warm and with the L2 evicted
+                before each call, beside the byte bound;
                 (b) whisper-large-v3 served at full width and depth (32 +
                 32 layers, 4 x 1500 stub frames, a 64-token prompt, 32
                 tokens): B4 exactly 96 per prefill (32 encoder, 32 decoder
@@ -350,7 +350,26 @@ Phases (any failure exits non-zero; nothing is caught):
                 within [0.8, 1.25] x ``max_memory_allocated``, and the
                 roofline step time at most the median of 3 measured steps
                 (a faster step means a wrong count); the ratio and the
-                joules a step at the card's power limit.
+                joules a step at the card's power limit. (a) writes its
+                report to ``build/bench_results/`` for ``bench``.
+19. bench     — the benchmark harness, ``repro_torch.launch.run`` (the
+                twin of ``benchmarks/run.py``), in process with its
+                ``RESULTS`` at ``build/bench_results/``, where ``dryrun``
+                (a) left its report: its CSV rows printed as it runs
+                (the kernels' plain and ``cuda`` rows at the reference's
+                shapes, each ``cuda`` row's wrapper launching exactly
+                once a call; one ``cuda.main`` row a kernel at the main
+                path's shape with its device time alone and share of the
+                bound; the case study's MAML and FL rounds, captured and
+                under ``uncaptured()``; Fig. 3, Fig. 4 and Table II from
+                the paper's rounds (no sweep JSON there); the roofline of
+                that report), every expected row present and finite, each
+                kernel launched in the run; then each ``cuda`` row's
+                output at the reference's shapes against its plain
+                version on the same inputs (B1/B2 within F32_TOL, B3
+                within B3_TOL, B4 under its f32 gate, B3′ ``==``, B4′
+                within GRAD_F32_REL). Its launches are the kernels
+                line's ``bench_launches``, outside the main paths' sum.
 
 The line before the last is the kernels JSON; the last is the ``ok`` line.
 
@@ -371,10 +390,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-#: H100 SXM rates of the bound column, set from
-#: ``repro_torch.core.energy.H100_SXM`` (data sheet) by :func:`set_rates`:
-#: device memory, float32 outside tensor cores, bf16 dense tensor cores
-HBM_BYTES_PER_S = F32_FLOPS_PER_S = BF16_FLOPS_PER_S = None
 F32_TOL = 1e-6                  # kernel vs plain: same ops, same order
 BF16_TOL = 0.0                  # ... and the same final rounding
 K_POP = 256
@@ -534,24 +549,6 @@ def median_ms(fn, iters=20, warmup=2):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def set_rates():
-    """The bound column's rates from the port's H100 SXM table."""
-    from repro_torch.core.energy import H100_SXM
-
-    global HBM_BYTES_PER_S, F32_FLOPS_PER_S, BF16_FLOPS_PER_S
-    HBM_BYTES_PER_S = H100_SXM["hbm_bw"]
-    F32_FLOPS_PER_S = H100_SXM["peak_flops_f32"]
-    BF16_FLOPS_PER_S = H100_SXM["peak_flops_bf16"]
-
-
-def bound(nbytes, flops, flops_per_s=None):
-    """(least time in ms, what bounds it) for the given bytes and flops
-    (float32 rate unless ``flops_per_s`` is given)."""
-    flops_per_s = flops_per_s or F32_FLOPS_PER_S
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
-    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
-
-
 def same_work(name, got, old):
     """A kernel's (bytes, flops) from ``repro_torch.kernels.work`` must be
     the smoke's earlier inline count of the same call."""
@@ -683,9 +680,9 @@ def time_kernels(pops, errs):
         M = torch.as_tensor(consensus._effective_mix(mix), device=DEVICE)
         # bytes: x read and out written (4 + 4 per element), lane tables;
         # flops: sub, mul, add per neighbour per element, then x + acc
-        b2 = bound(*same_work("consensus_update_pop",
-                              work.consensus_update_pop(K, N, H),
-                              (8 * K * N + 8 * K * H, 3 * K * N * H + K * N)))
+        b2 = work.bound_ms(*same_work(
+            "consensus_update_pop", work.consensus_update_pop(K, N, H),
+            (8 * K * N + 8 * K * H, 3 * K * N * H + K * N)))
         t_b2 = (median_ms(lambda: ops.consensus_update_pop(xf, idx, sig)),
                 median_ms(lambda: ref.consensus_update_pop_reference(
                     xf, idx, sig)),
@@ -695,7 +692,7 @@ def time_kernels(pops, errs):
         q, s = enc["q"], enc["scale"]
         # bytes: x, out (4 + 4), int8 lanes (1) per element, scales, lanes;
         # flops: dequant, sub, mul, add per neighbour, own dequant, x + acc
-        b1 = bound(*same_work(
+        b1 = work.bound_ms(*same_work(
             "quant_consensus_pop", work.quant_consensus_pop(K, N, H, s.numel()),
             (9 * K * N + 4 * K + 8 * K * H, 4 * K * N * H + 2 * K * N)))
         t_b1 = (median_ms(lambda: ops.quant_consensus_pop(xf, q, s, idx, sig)),
@@ -3227,6 +3224,7 @@ def check_lm_kernels(cfg, generator):
     """B3 and B4 against their plain versions on the card at the serving
     shapes, then their times and bounds there."""
     import torch.nn.functional as F
+    from repro_torch.core.energy import H100_SXM
     from repro_torch.kernels import ops, ref, work
 
     Bs, S = SERVE["batch"], SERVE["prompt_len"]
@@ -3297,9 +3295,9 @@ def check_lm_kernels(cfg, generator):
     # B3 times: inputs read once (2 x 4 B), output written (4 B) per
     # element, h0 and h_last rows; exp + mul + add per element
     n = Bs * S * W
-    b3 = bound(*same_work("rglru_scan", work.rglru_scan(Bs, S, W,
-                                                        with_h0=True),
-                          (12 * n + 8 * Bs * W, 3 * n)))
+    b3 = work.bound_ms(*same_work(
+        "rglru_scan", work.rglru_scan(Bs, S, W, with_h0=True),
+        (12 * n + 8 * Bs * W, 3 * n)))
     t3 = (median_ms(lambda: ops.rglru_scan(log_a, b, h0)),
           median_ms(lambda: ref.rglru_scan_reference(log_a, b, h0)))
     print(f"rglru_scan ({Bs}, {S}, {W}) f32: kernel_ms={t3[0]} plain_ms="
@@ -3316,9 +3314,9 @@ def check_lm_kernels(cfg, generator):
     q, k, v = (randn(Bs, S, n_, hd, dtype=torch.bfloat16) for n_ in (H, K, K))
     pairs = visible_pairs(S, S, True, window)
     flops = 4 * hd * pairs * Bs * H
-    b4 = bound(*b4_work(q, k, True, window,
-                        (2 * (2 * q.numel() + k.numel() + v.numel()), flops)),
-               BF16_FLOPS_PER_S)
+    b4 = work.bound_ms(*b4_work(
+        q, k, True, window,
+        (2 * (2 * q.numel() + k.numel() + v.numel()), flops)), bf16=True)
     kw = dict(causal=True, window=window, softcap=softcap)
     t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
     t_cap0 = median_ms(lambda: ops.flash_attention(q, k, v, causal=True,
@@ -3338,7 +3336,7 @@ def check_lm_kernels(cfg, generator):
           f"softcap 0)={t_lib} bound_ms={b4[0]} ({b4[1]}); visible pairs "
           f"per (b, h) {pairs}; achieved {flops / t_kernel / 1e9} TFLOP/s "
           f"(softcap 0: {flops / t_cap0 / 1e9}) against the bound's "
-          f"{BF16_FLOPS_PER_S / 1e12}", flush=True)
+          f"{H100_SXM['peak_flops_bf16'] / 1e12}", flush=True)
     for name in ("rglru_scan", "flash_attention", "flash_attention_bwd"):
         print(f"ptxas {name}.cu: {ptxas_summary(name)}", flush=True)
     rows["flash_attention"] = dict(
@@ -3416,7 +3414,7 @@ def check_b4_transformer_shapes(generator):
     arch and the largest error."""
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     Bs, S = SERVE["batch"], SERVE["prompt_len"]
 
@@ -3451,9 +3449,9 @@ def check_b4_transformer_shapes(generator):
         q, k, v = (randn(Bs, S, n, hd) for n in (H, K, K))
         pairs = visible_pairs(S, S, True, window)
         flops = 4 * hd * pairs * Bs * H
-        b4 = bound(*b4_work(q, k, True, window,
-                            (2 * (2 * q.numel() + k.numel() + v.numel()),
-                             flops)), BF16_FLOPS_PER_S)
+        b4 = work.bound_ms(*b4_work(
+            q, k, True, window,
+            (2 * (2 * q.numel() + k.numel() + v.numel()), flops)), bf16=True)
         t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
         t_plain = median_ms(lambda: ref.attention_reference(q, k, v, **kw))
         qt = q.transpose(1, 2)
@@ -4049,9 +4047,8 @@ def b4_backward(generator, label, shape, kw, dtype):
     nbytes, flops = work.flash_attention_backward(
         B, S, T, H, K, hd, causal=kw["causal"], window=kw["window"],
         elem=q.element_size())
-    row["bound_ms"], row["bound_by"] = bound(
-        nbytes, flops,
-        BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+    row["bound_ms"], row["bound_by"] = work.bound_ms(
+        nbytes, flops, bf16=dtype == torch.bfloat16)
     # the gradient's 10·hd flops a visible pair over the kernel's time,
     # and the kernel's time over SDPA's backward
     row["tflops"] = flops / row["ms"] / 1e9
@@ -4084,7 +4081,7 @@ def check_lm_gradients(generator):
     shapes, against the plain versions; forward and forward+backward
     times. Returns the rows' training-shape numbers and max errors."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     B, S, H, K, hd = 4, 512, 32, 8, 128
     kw = dict(causal=True, window=0)
@@ -4143,11 +4140,11 @@ def check_lm_gradients(generator):
             (qt, kt, vt), gt))
         t["bwd_ms"] = t["fwd_bwd_ms"] - t["fwd_ms"]
         pairs = visible_pairs(S, S, True, 0)
-        t["bound_ms"], t["bound_by"] = bound(
+        t["bound_ms"], t["bound_by"] = work.bound_ms(
             *b4_work(q, k, True, 0, (
                 q.element_size() * (2 * q.numel() + k.numel() + v.numel()),
                 4 * hd * pairs * B * H)),
-            BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S)
+            bf16=dtype == torch.bfloat16)
         t["grad_rel_err"] = max(gerr)
         print(f"flash_attention {dtype} at the training shape: {t}",
               flush=True)
@@ -4191,43 +4188,24 @@ def check_lm_gradients(generator):
         b4_err
 
 
-def kernel_device_ms(fn, name, label, n=10, evict=None):
-    """Device ms a call of the kernels whose names hold ``name``, alone:
-    their sum in a ``torch.profiler`` trace of ``n`` calls (written to
-    ``build/profile/<label>.json``), over ``n`` (CUDA events also hold the
-    wrapper's host work where the card waits for it); with ``evict`` (a
-    tensor larger than the 50 MB L2) read before each call, so the inputs
-    come from device memory and no dirty line is left to write back.
-    A trace that holds other than ``n`` such kernels is taken again (the
-    profiler was seen to return traces without device events); fails if
-    three in a row do."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                if evict is not None:
-                    evict.sum()   # read: the L2 left clean
-                fn()
-            torch.cuda.synchronize()
-        _, kernels = trace_kernels(prof, label)
-        hits = [e.get("dur", 0) for e in kernels
-                if name in e.get("name", "")]
-        if len(hits) == n:
-            return sum(hits) / n / 1e3
-        print(f"{label}: {len(hits)} {name} kernels in the trace of {n} "
-              "calls; tracing again", flush=True)
-    fail(f"{label}: no complete trace of {n} {name} calls in three")
+def kernel_device_ms(fn, evict=None):
+    """Device ms a call of ``fn``, alone (``repro_torch.kernels.timing.
+    device_ms``: CUDA events around calls queued back to back behind a
+    hold of the card, where ``median_ms``'s events also hold the wrapper's
+    host work wherever the card waits for it); with ``evict`` (a tensor
+    larger than the 50 MB L2) read before each call, so the inputs come
+    from device memory and no dirty line is left to write back."""
+    from repro_torch.kernels import timing
+    return timing.device_ms(fn, evict=evict)
 
 
 def b3_backward(generator, B, T, W, *, with_h0, dtype, timed=True):
     """B3′ (``ops.rglru_scan_backward``) at (B, T, W) in ``dtype``, with
     g_last, against its plain version on the same inputs: ``==`` (the
     same rounded steps in the same order), one launch a call; then, if
-    ``timed``, kernel and plain ms, the kernel's device time alone (the
-    profiler's) warm and with the L2 evicted before each call, and the
+    ``timed``, kernel and plain ms, the kernel's device time alone
+    (``kernels/timing.py``) warm and with the L2 evicted before each call,
+    and the
     byte bound (no library call computes the scan). Returns the row."""
     from repro_torch.kernels import ops, ref, work
 
@@ -4263,18 +4241,16 @@ def b3_backward(generator, B, T, W, *, with_h0, dtype, timed=True):
         return ops.rglru_scan_backward(log_a, b, h0, h, g, g_last)
 
     row["ms"] = median_ms(call)
-    label = f"b3_backward_{B}x{T}x{W}_{str(dtype).replace('torch.', '')}"
-    row["device_ms"] = kernel_device_ms(call, "rglru_scan_bwd_kernel",
-                                        label + "_warm")
+    row["device_ms"] = kernel_device_ms(call)
     evict = torch.zeros(32 << 20, device=DEVICE)   # 128 MB
-    row["device_ms_l2_evicted"] = kernel_device_ms(
-        call, "rglru_scan_bwd_kernel", label + "_evicted", evict=evict)
+    row["device_ms_l2_evicted"] = kernel_device_ms(call, evict=evict)
     del evict
     row["plain_ms"] = median_ms(lambda: ref.rglru_scan_backward_reference(
         log_a, b, h0, h, g, g_last), iters=5, warmup=1)
     row["library_ms"] = None
-    row["bound_ms"], row["bound_by"] = bound(*work.rglru_scan_backward(
-        B, T, W, with_h0=with_h0, with_g_last=True, elem=log_a.element_size()))
+    row["bound_ms"], row["bound_by"] = work.bound_ms(
+        *work.rglru_scan_backward(B, T, W, with_h0=with_h0, with_g_last=True,
+                                  elem=log_a.element_size()))
     print(f"{what}: == plain {equal}, launches {launched}; kernel_ms="
           f"{row['ms']} device_ms={row['device_ms']} (L2 evicted "
           f"{row['device_ms_l2_evicted']}) plain_ms={row['plain_ms']} "
@@ -4346,7 +4322,7 @@ def b3_gradient(generator, B, T, W, *, with_h0):
     numbers["bwd_ms"] = numbers["fwd_bwd_ms"] - numbers["fwd_ms"]
     # the forward's bytes as in ``lm_kernels``: log_a and b read, h
     # written, h0 and h_last rows; exp + mul + add per element
-    numbers["bound_ms"], numbers["bound_by"] = bound(*same_work(
+    numbers["bound_ms"], numbers["bound_by"] = work.bound_ms(*same_work(
         "rglru_scan", work.rglru_scan(B, T, W, with_h0=with_h0),
         (12 * n + (8 if with_h0 else 4) * B * W, 3 * n)))
     print(f"rglru_scan {what}: {numbers}", flush=True)
@@ -5045,7 +5021,7 @@ def check_b4_whisper_shapes(generator):
     numbers by shape, the largest forward error and B4′'s rows."""
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
 
     cfg = get_arch(WHISPER)
     H, hd, T = cfg.num_heads, cfg.head_dim_, cfg.encdec.encoder_seq_len
@@ -5093,9 +5069,9 @@ def check_b4_whisper_shapes(generator):
         del got, want
         q, k, v = (x.detach() for x in (q, k, v))
         flops = 4 * B * H * hd * visible_pairs(S, Tk, causal, 0)
-        b4 = bound(*b4_work(q, k, causal, 0,
-                            (2 * (2 * q.numel() + k.numel() + v.numel()),
-                             flops)), BF16_FLOPS_PER_S)
+        b4 = work.bound_ms(*b4_work(
+            q, k, causal, 0,
+            (2 * (2 * q.numel() + k.numel() + v.numel()), flops)), bf16=True)
         t_kernel = median_ms(lambda: ops.flash_attention(q, k, v, **kw))
         t_plain = median_ms(lambda: ref.attention_reference(q, k, v, **kw))
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -5727,10 +5703,12 @@ def dryrun_phase(smi):
     from repro_torch.sharding import parallel
 
     src = Path(__file__).resolve().parent / "src"
+    shutil.rmtree(BENCH_RESULTS, ignore_errors=True)
     t = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "granite-8b", "--shape", "train_4k"], capture_output=True,
+         "granite-8b", "--shape", "train_4k", "--out",
+         str(BENCH_RESULTS / "dryrun_single_pod.json")], capture_output=True,
         text=True, timeout=600, env=dict(os.environ, PYTHONPATH=str(src)))
     print(out.stdout.strip(), flush=True)
     if out.returncode != 0:
@@ -5803,6 +5781,98 @@ def dryrun_phase(smi):
                 joules_per_step=joules)
 
 
+#: the harness's RESULTS: the dry run's report (``dryrun`` (a)), the
+#: roofline JSON and bench.csv
+BENCH_RESULTS = Path(__file__).resolve().parent / "build" / "bench_results"
+
+
+def bench_rows_expected():
+    """The rows the harness prints on the card with no sweep JSON and the
+    ``dryrun`` phase's one-pair report, in order."""
+    from repro_torch.launch import run
+    kernels = [f"kernel.{c.name}.{impl}.{c.size}" for c in run.KERNEL_CASES
+               for impl in ("plain", "cuda")]
+    kernels += [f"kernel.{c.name}.cuda.{c.size}" for c in run.MAIN_CASES]
+    protocol = [f"protocol.{r}.dqn{u}" for r in ("maml_round", "fl_round")
+                for u in ("", ".uncaptured")]
+    paper = [f"fig3.{q}.paper-tableII" for q in (
+        "total_maml_kJ", "total_fl_only_kJ", "energy_reduction")] + [
+        "fig4.optimal_t0.black_SL500_UL200",
+        "fig4.optimal_t0.red_UL500_SL200", "table2.rounds_scaledown"]
+    return kernels + protocol + paper + [
+        "roofline.granite-8b.train_4k.step_ms",
+        "roofline.bottleneck_histogram"]
+
+
+def bench_check_outputs():
+    """Each ``cuda`` row's kernel at the reference's shapes against its
+    plain version on the same inputs; the largest |kernel - plain| of
+    each kernel wrapper."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import run
+    errs = {}
+    for case in run.KERNEL_CASES:
+        wrapper, plain = run.OPS[case.op]
+        args, kw = run.kernel_inputs(case, DEVICE)
+        got = getattr(ops, wrapper)(*args, **kw)
+        want = getattr(ref, plain)(*args, **kw)
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(
+            *((x,) if torch.is_tensor(x) else x for x in (got, want)))
+            if a is not None]
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+        if case.op in ("consensus_update", "quant_consensus"):
+            ok, what = err <= F32_TOL, f"max |d| {err} (gate {F32_TOL})"
+        elif case.op == "rglru_scan":
+            rel = max(float(((a - b).abs() / b.abs().clamp(min=1)).max())
+                      for a, b in pairs)
+            ok, what = rel <= B3_TOL, f"{rel} of max(1, |plain|) (gate {B3_TOL})"
+        elif case.op == "flash_attention":
+            worst, _ = _fwd_gate(got, want, *args, kw)
+            ok, what = worst <= 1.0, f"{worst} of its f32 gate"
+        elif case.op == "rglru_scan_backward":
+            ok = all(torch.equal(a, b) for a, b in pairs)
+            what = f"== {ok}"
+        else:
+            rel = max(_rel_err(a, b) for a, b in pairs)
+            ok, what = rel <= GRAD_F32_REL, (f"{rel} of max |plain| (gate "
+                                             f"{GRAD_F32_REL})")
+        finite = all(torch.isfinite(a.float()).all() for a, _ in pairs)
+        print(f"bench {case.name}.cuda.{case.size} {tuple(args[0].shape)}: "
+              f"{what}, max |kernel - plain| {err}", flush=True)
+        if not (ok and finite):
+            fail(f"bench: kernel.{case.name}.cuda.{case.size} against its "
+                 f"plain version: {what}, finite {finite}")
+        errs[wrapper] = max(errs.get(wrapper, 0.0), err)
+    return errs
+
+
+def bench_phase():
+    """Phase ``bench``: the harness in process (see the docstring); returns
+    (its launches by kernel, the largest |kernel - plain| by kernel)."""
+    import math
+    from repro_torch.launch import run
+    run.RESULTS = str(BENCH_RESULTS)
+    run.ROWS.clear()
+    zero_counts()
+    run.main(["--device", DEVICE])
+    launches = launch_counts()
+    names = [n for n, _, _ in run.ROWS]
+    want = bench_rows_expected()
+    bad = [(n, us, d) for n, us, d in run.ROWS if not math.isfinite(us)
+           or (n.startswith(("kernel.", "protocol.")) and us <= 0)
+           or (n.startswith("roofline.") and n.endswith(".step_ms")
+               and not math.isfinite(float(d.split("(")[0])))]
+    print(f"bench: {len(names)} rows, written to "
+          f"{BENCH_RESULTS / 'bench.csv'}; launches {launches} ({SMI})",
+          flush=True)
+    if names != want or bad or not all(launches.values()):
+        fail(f"bench: rows {names} (expected {want}); not finite or not "
+             f"positive {bad}; launches {launches} (each kernel at least 1)")
+    return launches, bench_check_outputs()
+
+
 def main():
     phase("env")
     if not torch.cuda.is_available():
@@ -5819,7 +5889,6 @@ def main():
     from repro_torch.kernels import build
 
     repro_torch.set_f32_matmul()
-    set_rates()
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
@@ -5986,13 +6055,22 @@ def main():
     print(f"dryrun: {time.perf_counter() - t:.2f} s; dry-run numbers "
           f"{json.dumps(dry)}", flush=True)
 
+    phase("bench")
+    t = time.perf_counter()
+    bench_launches, bench_errs = bench_phase()
+    for name, err in bench_errs.items():
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+    print(f"bench: {time.perf_counter() - t:.2f} s", flush=True)
+
     # launches: the sum over the main paths (the case study's runs, the
     # drivers' runs, the paper's runs, the serving run), each counted from
     # 0 in its own run;
-    # launches_by_path keeps them apart
+    # launches_by_path keeps them apart; bench_launches, the harness's
+    # microbenchmark repeats, are no main path's and stay out of the sum
     kernels = [dict(name=n, launches=sum(p[n] for p in by_path.values()),
                     launches_by_path={k: p[n] for k, p in by_path.items()},
-                    **rows[n]) for n in KERNELS]
+                    bench_launches=bench_launches[n], **rows[n])
+               for n in KERNELS]
     print(f"all phases done at t = {time.perf_counter() - T_START:.1f} s",
           flush=True)
     print(smi)

@@ -2,10 +2,11 @@
 (each input read once, each output written once) and the operations it
 does, as functions of the call's shapes and flags.
 
-Two readers share these formulas: ``chip_smoke.py``'s bound column (least
-time = the larger of bytes over the memory rate and operations over the
-peak rate) and the dry run (:mod:`repro_torch.launch.hlo_analysis`),
-which adds each kernel call's count to the FLOPs and bytes it records.
+Three readers share these formulas: the bound of ``chip_smoke.py``'s
+kernels line and of the harness's ``cuda.main`` rows (:func:`bound_ms`:
+least time = the larger of bytes over the memory rate and operations
+over the peak rate) and the dry run
+(:mod:`repro_torch.launch.hlo_analysis`), which adds each kernel call's count to the FLOPs and bytes it records.
 The kernels launch through ``ctypes``, below the dispatcher, where
 ``torch.utils.flop_counter.FlopCounterMode`` cannot see them; on ``meta``
 tensors (the dry run) each wrapper launches nothing and reports its count
@@ -36,6 +37,20 @@ def add(name: str, work: Tuple[int, int]):
     nbytes, flops = work
     for sink in list(_SINKS):
         sink(name, flops, nbytes)
+
+
+def bound_ms(nbytes: int, flops: int, bf16: bool = False
+             ) -> Tuple[float, str]:
+    """(least ms on one H100 SXM, what bounds it) for one call's ``nbytes``
+    and ``flops``: the larger of the bytes over the memory rate and the
+    operations over the peak rate of their type (bf16 on the tensor cores,
+    else float32 outside them), and ``"bytes"`` or ``"operations"``,
+    whichever gives it (``repro_torch.core.energy.H100_SXM``, the data
+    sheet's rates)."""
+    from repro_torch.core.energy import H100_SXM
+    rate = H100_SXM["peak_flops_bf16" if bf16 else "peak_flops_f32"]
+    t_b, t_f = nbytes / H100_SXM["hbm_bw"], flops / rate
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 def consensus_update_pop(K: int, N: int, H: int, elem: int = 4):

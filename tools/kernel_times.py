@@ -9,9 +9,11 @@ calls by CUDA events on inputs made from one seed:
 
 * B4′ (``ops.flash_attention_backward``), f32 and bf16, at the seven
   training shapes of chip_smoke.py (its ``B4_BWD_SHAPES`` and whisper's
-  three), and its device time alone: the sum of its grids' kernels in a
-  ``torch.profiler`` trace of 10 calls, over 10 (the events' time also
-  holds the wrapper's host work where the card waits for it);
+  three), and its device time alone (``kernels/timing.py``: CUDA events
+  around 10 calls queued back to back behind a hold of the card, less the
+  same queue without the calls, so that none of the wrapper's host work
+  is on the clock, as it is in the median's events wherever the card
+  waits for the host);
 * B4's forward (``ops.flash_attention``), bf16, at the kernel table's
   shape (q (4, 4096, 16, 256), one kv head, window 2048, softcap 30) and
   at granite-8b's training shape;
@@ -29,6 +31,7 @@ change, change, parent in one call to compare two versions. It exits
 non-zero without a CUDA card.
 """
 import argparse
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -78,38 +81,16 @@ def median_ms(fn, iters=20, warmup=2):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def device_ms(fn, name, n=10, evict=None):
-    """Device ms a call of the kernels whose names hold ``name``: their
-    sum in a ``torch.profiler`` trace of ``n`` calls (CPU and CUDA
-    activities, exported to ``build/profile/kernel_times.json``: the
-    trace's kernel events, since ``key_averages()`` of a CUDA-only trace
-    was seen to drop some), over ``n``; with ``evict`` (a tensor larger
-    than the L2) read before each call. A trace that does not hold a whole
-    number of them a call is taken again (the profiler was seen to return
-    traces without device events); exits if three in a row do not."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    out = ROOT / "build" / "profile" / "kernel_times.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                if evict is not None:
-                    evict.sum()   # read: the L2 left clean
-                fn()
-            torch.cuda.synchronize()
-        prof.export_chrome_trace(str(out))
-        hits = [e.get("dur", 0)
-                for e in json.loads(out.read_text())["traceEvents"]
-                if e.get("cat") == "kernel" and name in e.get("name", "")]
-        if hits and len(hits) % n == 0:
-            return sum(hits) / n / 1e3
-        print(f"kernel_times: {name}: the trace of {n} calls holds "
-              f"{len(hits)} kernels; tracing again", flush=True)
-    raise SystemExit(f"kernel_times: {name}: no whole trace of {n} calls "
-                     "in three")
+def device_ms(fn, n=10, evict=None):
+    """``repro_torch.kernels.timing.device_ms`` of this checkout. The
+    helper is loaded by its path, not imported: ``--tree`` may name a
+    checkout whose package predates it, and that package is the one
+    ``repro_torch`` imports."""
+    spec = importlib.util.spec_from_file_location(
+        "_kernel_timing", ROOT / "src" / "repro_torch" / "kernels" / "timing.py")
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    return timing.device_ms(fn, n=n, evict=evict)
 
 
 def main():
@@ -145,7 +126,7 @@ def main():
                 ops.flash_attention_backward(q, k, v, g, **kw)
 
             ms = median_ms(call)
-            dev = device_ms(call, "flash_attention_bwd_")
+            dev = device_ms(call)
             name = f"{label} {str(dtype).replace('torch.', '')}"
             out["flash_attention_backward"][name] = ms
             out["flash_attention_backward_device"][name] = dev
@@ -180,9 +161,8 @@ def main():
 
         name = f"(2, 512, 4096) {str(dtype).replace('torch.', '')}"
         row = dict(ms=median_ms(call),
-                   device_ms=device_ms(call, "rglru_scan_bwd"),
-                   device_ms_evicted=device_ms(call, "rglru_scan_bwd",
-                                               evict=evict))
+                   device_ms=device_ms(call),
+                   device_ms_evicted=device_ms(call, evict=evict))
         out["rglru_scan_backward"][name] = row
         print(f"rglru_scan_backward {name}: {row['ms']} ms (device "
               f"{row['device_ms']} ms warm, {row['device_ms_evicted']} ms "
